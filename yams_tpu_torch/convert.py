@@ -1,0 +1,90 @@
+"""Carry an engine's index state across: the part that plays the weights.
+
+`state_from_jax(engine)` reads the host state of a yams_tpu SearchEngine
+(or of a port engine, which keeps the same host layout) into a flat dict of
+NumPy arrays: vector rows, validity and row -> slot map, free rows, the
+slot <-> doc maps, titles, and the lexical vocabulary, per-doc term
+frequencies, doc lengths and width. `load_state(port_engine, state)`
+installs it into a port engine, after which both engines compute the same
+searches. Postings, impacts and device views are derived state and are
+rebuilt on the next search.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def state_from_jax(engine) -> dict[str, np.ndarray]:
+    vi = engine.vector_index
+    lex = engine.lexical_index
+    n = vi._count
+    slots_in_docs = sorted(lex._docs)
+    doc_tids, doc_tfs, doc_ptr = [], [], [0]
+    for s in slots_in_docs:
+        tf = lex._docs[s]
+        doc_tids.extend(tf.keys())
+        doc_tfs.extend(tf.values())
+        doc_ptr.append(len(doc_tids))
+    vocab = sorted(lex._vocab.items(), key=lambda kv: kv[1])
+    doc_ids = np.asarray(engine._doc_by_slot, np.int64)
+    return {
+        "vec_rows": vi._vecs[:n].copy(),
+        "vec_valid": vi._valid[:n].copy(),
+        "vec_slots": vi._slots[:n].copy(),
+        "vec_free": np.asarray(vi._free, np.int64),
+        "doc_by_slot": doc_ids,
+        "titles": np.asarray([engine._titles.get(int(d), "") for d in doc_ids],
+                             dtype=object),
+        "lex_terms": np.asarray([t for t, _ in vocab], dtype=object),
+        "lex_doc_slots": np.asarray(slots_in_docs, np.int64),
+        "lex_doc_len": np.asarray([lex._doc_len[s] for s in slots_in_docs],
+                                  np.float64),
+        "lex_doc_ptr": np.asarray(doc_ptr, np.int64),
+        "lex_doc_tids": np.asarray(doc_tids, np.int64),
+        "lex_doc_tfs": np.asarray(doc_tfs, np.float64),
+        "lex_num_slots": np.asarray(lex._num_slots, np.int64),
+    }
+
+
+def load_state(engine, state: dict[str, np.ndarray]) -> None:
+    """Install `state` into an EMPTY port engine."""
+    if engine._doc_by_slot:
+        raise ValueError("load_state needs an empty engine")
+    vi = engine.vector_index
+    rows = state["vec_rows"].astype(np.float32)
+    n = len(rows)
+    if n > vi.capacity:
+        vi._grow(n)
+    vi._vecs[:n] = rows
+    vi._valid[:n] = state["vec_valid"]
+    vi._slots[:n] = state["vec_slots"]
+    vi._count = n
+    vi._free = [int(r) for r in state["vec_free"]]
+    vi._rows_by_slot = {}
+    for r in np.nonzero(state["vec_valid"] > 0)[0]:
+        vi._rows_by_slot.setdefault(int(state["vec_slots"][r]), []).append(int(r))
+    vi._mark_dirty(np.arange(n, dtype=np.int64))
+    vi._dirty_full = True
+
+    engine._doc_by_slot = [int(d) for d in state["doc_by_slot"]]
+    engine._slot_by_doc = {d: s for s, d in enumerate(engine._doc_by_slot)}
+    engine._titles = {d: str(t) for d, t in
+                      zip(engine._doc_by_slot, state["titles"])}
+
+    lex = engine.lexical_index
+    terms = [str(t) for t in state["lex_terms"]]
+    for t in terms:
+        lex._term_id(t)  # same ids in the same order, and the stem index
+    ptr = state["lex_doc_ptr"]
+    tids = state["lex_doc_tids"].tolist()
+    tfs = state["lex_doc_tfs"].tolist()
+    for i, slot in enumerate(state["lex_doc_slots"].tolist()):
+        tf = dict(zip(tids[ptr[i]:ptr[i + 1]], tfs[ptr[i]:ptr[i + 1]]))
+        lex._docs[slot] = tf
+        lex._doc_len[slot] = float(state["lex_doc_len"][i])
+        for tid, f in tf.items():
+            lex._postings.setdefault(tid, {})[slot] = f
+    lex._num_slots = int(state["lex_num_slots"])
+    lex._dirty_terms.update(lex._postings.keys())
+    lex._dirty = True
