@@ -1,12 +1,20 @@
-"""Drive the PyTorch/CUDA port's add -> search path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
-Phases (each raises on failure; any failure exits non-zero):
+Phases (each raises on failure; any failure exits non-zero; each prints its
+seconds):
 
   0. card identity (nvidia-smi name and power limit);
   1. each CUDA kernel built from yams_tpu_torch/csrc and held against its
-     plain PyTorch twin on the card (bit-exact), with both timed;
+     plain PyTorch twin on the card, with both timed: gear hash and SHA-256
+     bit-exact; K3 (exact_topk_cuda) at edge shapes (B 1/3/64, k 1/10/100,
+     duplicate rows, an all-dead block, a block with k-1 live rows) and at
+     the bench shape (1,048,576 x 768, B 1,024, k 10), values within 1e-4
+     and every differing id a near-tie; K4 (pq4_adc_cuda) bit-equal at edge
+     shapes (group 8/64/128, B 1/3/256, dead rows) and at the capacity shape
+     (16,777,216 rows, m 48, group 128, B 256), with the QPS of the whole
+     top-64 selection;
   2. add: a 128 MiB seeded zipf-word payload through device_chunk_hash
      (gear-hash CDC + SHA-256 on the card), checked against the host chunker
      and hashlib;
@@ -16,11 +24,24 @@ Phases (each raises on failure; any failure exits non-zero):
      engine's prefilter guard as configured, and with it off so the BM25
      prefilter tier runs too);
   4. the hybrid query at the bench shape (1,048,576 x 768 clustered bf16
-     corpus, 65,536 packed postings rows of 1,024), QPS and recall@10.
+     corpus, 65,536 packed postings rows of 1,024), QPS and recall@10;
+  5. the vector store: a 1,048,576 x 768 clustered VectorIndex in which
+     each of 1,024 query rows has 9 planted near-copies; search with K3
+     against the plain scan; build_pq(m=48, ksub=16, pack4, group=64) and
+     an unfiltered search_pq on K4, whose recall@10 against the exact oracle
+     must be within 0.01 of the plain ADC route's; a filtered search_pq that
+     must honor its mask;
+  6. the engine's PQ tier: phase 3's state carried by convert.py into an
+     engine="pq4" engine with pq_tier_enabled and ensure_pq(), a 64-query
+     search_batch, 16 queries checked against the CPU plain path.
 
-The kernel launch counters are zeroed just before phase 2 and read after
-phase 3; every kernel must have launched on that main path. The second-last
-line is the kernels' JSON record, the last line the device record.
+The kernel launch counters are zeroed just before each path and read just
+after: the add path (phases 2-3) must launch gear_hash_cuda and
+sha256_cuda, the vector store (phase 5) exact_topk_cuda and pq4_adc_cuda,
+and the engine's PQ tier (phase 6) must launch pq4_adc_cuda zero times: it
+always pushes a doc mask into the scan, and K4 serves the unfiltered scan
+only. The second-last line is the kernels' JSON record, the last line the
+device record.
 """
 
 from __future__ import annotations
@@ -145,6 +166,155 @@ def phase1_kernels(dev) -> dict:
                             shape=f"{rows} rows x ~{width} B",
                             ms_4096_chunks_to_256KiB=sha_big_ms),
     }
+
+
+def check_topk(what: str, kv, ki, tv, ti, true_score, tol: float) -> tuple[float, int]:
+    """A kernel's top-k (kv, ki) against its twin's (tv, ti), ranks on the
+    last axis. Values agree within tol; the -1e30 slots are identical; an id
+    that differs from the twin's must truly score within tol of the twin's
+    value at its rank (a near-tie), by true_score(positions, ids); equal
+    kernel values list the lower row first. -> (max value error, #ids that
+    differ)."""
+    live = tv > -1e29
+    err = float((kv - tv).abs()[live].max()) if bool(live.any()) else 0.0
+    check(err <= tol, f"{what}: values within {tol} of the twin (max err {err})")
+    check(torch.equal(kv[~live], tv[~live]) and torch.equal(ki[~live], ti[~live]),
+          f"{what}: -1e30 slots equal the twin's")
+    diff = (ki != ti) & live
+    if bool(diff.any()):
+        true = true_score(diff.nonzero(), ki[diff])
+        check(bool(((true - tv[diff].double()).abs() <= tol).all()),
+              f"{what}: every differing id is a near-tie")
+    tied = (kv[..., 1:] == kv[..., :-1]) & live[..., 1:]
+    check(bool((ki[..., 1:] > ki[..., :-1])[tied].all()), f"{what}: ties list lower rows first")
+    return err, int(diff.sum())
+
+
+def k3_inputs(dev, gen, B: int, k: int, case: str, N: int = 4 * 2048, D: int = 768):
+    """Edge inputs of the K3 block step: (q bf16, E bf16, valid f32)."""
+    E = torch.randn(N, D, generator=gen, device=dev)
+    E = (E / E.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    q = torch.randn(B, D, generator=gen, device=dev)
+    q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    valid = (torch.rand(N, generator=gen, device=dev) > 0.05).float()
+    if case == "duplicates":       # exact ties at the top, inside and across blocks
+        for b in range(B):
+            E[[(11 + 7 * b) % N, (700 + 7 * b) % N, (2048 + 5 * b) % N, (6000 + b) % N]] = q[b]
+    elif case == "dead_block":
+        valid[2048:4096] = 0.0
+    elif case == "k_minus_1_live":
+        valid[4096:6144] = 0.0
+        valid[4096 + torch.randperm(2048, generator=gen, device=dev)[:k - 1]] = 1.0
+    return q, E.contiguous(), valid
+
+
+def k3_true_score(q, E, valid):
+    """f64 score of (pos (.., 3) = (block, query, rank), row ids)."""
+    def true(pos, ids):
+        s = (q[pos[:, 1]].double() * E[ids.long()].double()).sum(dim=1)
+        return torch.where(valid[ids.long()] > 0, s, -1e30)
+    return true
+
+
+def phase1_search_kernels(dev) -> dict:
+    """K3 and K4 held against their twins on the card: edge shapes, then the
+    shapes the vector store runs them at."""
+    from yams_tpu_torch.ops import pq_pallas, scan
+    from yams_tpu_torch.ops.pq import pq_lut
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    out = {}
+    tol = 1e-4   # 768 bf16 products summed in f32 by mma.sync vs cuBLAS
+    n_cases = n_diff = 0
+    for B in (1, 3, 64):
+        for k in (1, 10, 100):
+            for case in ("random", "duplicates", "dead_block", "k_minus_1_live"):
+                q, E, valid = k3_inputs(dev, gen, B, k, case)
+                kv, ki = scan.exact_topk_cuda(q, E, valid, k)
+                tv, ti = scan.exact_topk_reference(q, E, valid, k)
+                torch.cuda.synchronize()
+                _, d = check_topk(f"K3 {case} B={B} k={k}", kv, ki, tv, ti,
+                                  k3_true_score(q, E, valid), tol)
+                if case in ("dead_block", "k_minus_1_live"):
+                    check(bool((kv <= -1e29).any()), f"K3 {case}: -1e30 slots present")
+                n_cases += 1
+                n_diff += d
+    log(f"[phase1] exact_topk_cuda: {n_cases} edge cases == twin "
+        f"({n_diff} ids differ, all near-ties)")
+
+    # K3 at the bench shape: 1,048,576 x 768 clustered, B = 1,024, k = 10
+    cgen = torch.Generator(device=dev)
+    cgen.manual_seed(SEED)
+    E = clustered_corpus(dev, cgen)
+    N, D = E.shape
+    qf = torch.randn(1024, D, generator=gen, device=dev)
+    q = (qf / qf.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    valid = torch.ones(N, device=dev)
+    kv, ki = scan.exact_topk_cuda(q, E, valid, 10)
+    tv, ti = scan.exact_topk_reference(q, E, valid, 10)
+    torch.cuda.synchronize()
+    k3_err, d = check_topk("K3 bench shape", kv, ki, tv, ti, k3_true_score(q, E, valid), tol)
+    k3_ms = cuda_ms(lambda: scan.exact_topk_cuda(q, E, valid, 10), 3)
+    k3_plain_ms = cuda_ms(lambda: scan.exact_topk_reference(q, E, valid, 10), 3)
+    flops = 2.0 * 1024 * N * D
+    log(f"[phase1] exact_topk_cuda {N}x{D}, B=1024, k=10: cuda {k3_ms:.3f} ms "
+        f"({flops / k3_ms / 1e9:.1f} TFLOP/s), plain {k3_plain_ms:.3f} ms; "
+        f"max err {k3_err:.3g}, {d} of {ki.numel()} ids differ (near-ties)")
+    out["exact_topk_cuda"] = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms,
+                                  shape=f"{N}x{D} bf16, B=1024, k=10 (G x B x k blocks)")
+    del E, kv, ki, tv, ti
+
+    # K4 edge shapes: 65,536 rows, m = 48, random codes, dead rows
+    m, dsub = 48, 16
+    for group in (8, 64, 128):
+        for B in (1, 3, 256):
+            codes = torch.randint(0, 256, (65536, m // 2), generator=gen, device=dev,
+                                  dtype=torch.uint8)
+            valid = (torch.rand(65536, generator=gen, device=dev) > 0.1).float()
+            valid[4096:8192] = 0.0
+            cent = torch.randn(m, 16, dsub, generator=gen, device=dev)
+            lut = pq_lut(torch.randn(B, m * dsub, generator=gen, device=dev),
+                         cent).to(torch.bfloat16).contiguous()
+            kv, ki = pq_pallas.pq4_adc_cuda(lut, codes, valid, group)
+            tv, ti = pq_pallas.pq4_adc_reference(lut, codes, valid, group)
+            torch.cuda.synchronize()
+            check(torch.equal(kv, tv) and torch.equal(ki, ti),
+                  f"pq4_adc_cuda == twin (bit-equal) at group={group} B={B}")
+    log("[phase1] pq4_adc_cuda: 9 edge cases bit-equal to the twin")
+
+    # K4 at the capacity shape (scripts/bench_pq.py): 16,777,216 rows, D 768,
+    # m 48, ksub 16, group 128, block 2,048, 256 queries, top-64 candidates
+    N, B, group = 16_777_216, 256, 128
+    t = time.perf_counter()
+    codes = torch.randint(0, 256, (N, m // 2), generator=gen, device=dev, dtype=torch.uint8)
+    valid = (torch.rand(N, generator=gen, device=dev) > 0.01).float()
+    cent = torch.randn(m, 16, dsub, generator=gen, device=dev)
+    cent /= cent.norm(dim=2, keepdim=True)
+    qf = torch.randn(B, m * dsub, generator=gen, device=dev)
+    qf /= qf.norm(dim=1, keepdim=True)
+    torch.cuda.synchronize()
+    log(f"[phase1] capacity shape: {codes.numel() / 1e6:.1f} MB of codes, "
+        f"{valid.numel() * 4 / 1e6:.1f} MB of validity made in {time.perf_counter() - t:.2f} s")
+    lut = pq_lut(qf, cent).to(torch.bfloat16).contiguous()
+    kv, ki = pq_pallas.pq4_adc_cuda(lut, codes, valid, group)
+    tv, ti = pq_pallas.pq4_adc_reference(lut, codes, valid, group)
+    torch.cuda.synchronize()
+    k4_err = float((kv - tv).abs().max())
+    check(torch.equal(kv, tv) and torch.equal(ki, ti), "pq4_adc_cuda == twin at capacity")
+    del kv, ki, tv, ti
+    k4_ms = cuda_ms(lambda: pq_pallas.pq4_adc_cuda(lut, codes, valid, group), 5)
+    k4_plain_ms = cuda_ms(lambda: pq_pallas.pq4_adc_reference(lut, codes, valid, group), 1)
+    topk_ms = cuda_ms(lambda: pq_pallas.pq4_adc_topk_pallas(
+        qf, codes, cent, valid, 64, group=group, block_rows=2048), 5)
+    lookups = float(N) * B * m
+    log(f"[phase1] pq4_adc_cuda {N} rows, m={m}, group={group}, B={B}: cuda {k4_ms:.3f} ms "
+        f"({lookups / k4_ms / 1e9:.2f}e12 lookups/s), plain {k4_plain_ms:.1f} ms; bit-equal; "
+        f"pq4_adc_topk_pallas (top-64) {topk_ms:.3f} ms = {B / topk_ms * 1e3:.1f} QPS")
+    out["pq4_adc_cuda"] = dict(max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms,
+                               shape=f"{N} rows, m=48 packed, group 128, B=256",
+                               topk_pallas_ms=topk_ms, topk_pallas_qps=B / topk_ms * 1e3)
+    return out
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -305,21 +475,14 @@ def phase3_search(dev, n_docs: int = 70_000) -> dict:
             "first_search_s": first_s, "steady_search_ms": steady_s * 1e3,
             "overlap_vs_cpu": overlap,
             "prefilter_disabled": "prefilter_disabled_tail_ratio" in trace,
-            "prefilter_search_ms": pf_s * 1e3, "prefilter_overlap_vs_cpu": overlap_pf}
+            "prefilter_search_ms": pf_s * 1e3,
+            "prefilter_overlap_vs_cpu": overlap_pf}, eng, queries
 
 
 # -- phase 4 ------------------------------------------------------------------
-def phase4_bench(dev, N: int = 1 << 20, D: int = 768, B: int = 1024,
-                 V: int = 65536) -> dict:
-    from yams_tpu_torch.ops.bm25 import bm25_topk_candidates_packed, packed_qbits
-    from yams_tpu_torch.ops.select import top_k
-    from yams_tpu_torch.search.config import SearchEngineConfig
-    from yams_tpu_torch.search.fusion import dot_f32, hybrid_query, pack_weights
-
-    S, T, K, WIN, ITERS, WINDOWS = 4096, 16, 10, 1024, 8, 5
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    t = time.perf_counter()
+def clustered_corpus(dev, gen, N: int = 1 << 20, D: int = 768) -> torch.Tensor:
+    """bench.py's clustered corpus: 4,096 unit centers, sigma 0.35 bf16
+    noise, rows L2-normalized -> (N, D) bf16 on the card."""
     centers = torch.randn(4096, D, generator=gen, device=dev)
     centers /= centers.norm(dim=1, keepdim=True).clamp_min(1e-9)
     ar = torch.arange(N, device=dev, dtype=torch.int64)
@@ -328,8 +491,23 @@ def phase4_bench(dev, N: int = 1 << 20, D: int = 768, B: int = 1024,
     e = centers[assign].to(torch.bfloat16) + 0.35 * noise
     del noise
     ef = e.float()
-    E = (ef / ef.norm(dim=1, keepdim=True).clamp_min(1e-9)).to(torch.bfloat16)
-    del e, ef
+    del e
+    return (ef / ef.norm(dim=1, keepdim=True).clamp_min(1e-9)).to(torch.bfloat16)
+
+
+def phase4_bench(dev, N: int = 1 << 20, D: int = 768, B: int = 1024,
+                 V: int = 65536) -> dict:
+    from yams_tpu_torch.ops.bm25 import bm25_topk_candidates_packed, packed_qbits
+    from yams_tpu_torch.ops.select import top_k
+    from yams_tpu_torch.search.config import SearchEngineConfig
+    from yams_tpu_torch.ops.scan import dot_f32
+    from yams_tpu_torch.search.fusion import hybrid_query, pack_weights
+
+    S, T, K, WIN, ITERS, WINDOWS = 4096, 16, 10, 1024, 8, 5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t = time.perf_counter()
+    E = clustered_corpus(dev, gen, N, D)
     proj = torch.where(torch.rand(S, D, generator=gen, device=dev) < 0.5, 1.0, -1.0)
     proj = (proj / np.sqrt(D)).to(torch.bfloat16)
     # packed postings: each term -> WIN/2 multiplicative-hash docs, zipf impacts
@@ -414,6 +592,157 @@ def phase4_bench(dev, N: int = 1 << 20, D: int = 768, B: int = 1024,
             "recall10_full": r10_full, "peak_gb": peak_gb, "stages_ms": stages}
 
 
+# -- phase 5 ------------------------------------------------------------------
+def recall_at(rows: np.ndarray, oracle: np.ndarray) -> float:
+    k = oracle.shape[1]
+    return float(np.mean([len(np.intersect1d(a, o)) / k for a, o in zip(rows, oracle)]))
+
+
+def phase5_vector_store(dev, N: int = 1 << 20, D: int = 768, B: int = 1024,
+                        dups: int = 9) -> dict:
+    """The vector store's own search tiers on a 1,048,576 x 768 clustered
+    index: exact KNN through K3, PQ4 through K4, filtered PQ on the plain
+    route. Each query is a corpus row with `dups` perturbed copies planted
+    at other rows (cosine ~0.97, noise norm 0.25, as scripts/bench_pq.py
+    plants them), so its exact top-10 is a clear set and PQ recall@10 means
+    something; on the clustered corpus alone a row's other neighbours sit
+    near cosine 0."""
+    import os
+
+    from yams_tpu_torch.index.vector_index import VectorIndex
+
+    out = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t = time.perf_counter()
+    host = clustered_corpus(dev, gen, N, D).float().cpu().numpy()
+    rng = np.random.default_rng(SEED + 11)
+    base = rng.choice(N, B, replace=False)
+    planted = rng.choice(np.setdiff1d(np.arange(N), base), B * dups, replace=False)
+    copies = host[base][:, None, :] + (0.25 / np.sqrt(D)) * rng.standard_normal(
+        (B, dups, D), dtype=np.float32)
+    copies /= np.linalg.norm(copies, axis=2, keepdims=True)
+    host[planted] = copies.reshape(-1, D)
+    queries = host[base].copy()
+    truth = np.concatenate([base[:, None], planted.reshape(B, dups)], axis=1)
+    idx = VectorIndex(dim=D, capacity=N, block_rows=2048, device=dev)
+    idx.add(host, np.arange(N))
+    del host
+    out["build_s"] = time.perf_counter() - t
+    log(f"[phase5] VectorIndex {N}x{D} ({idx._vecs.nbytes / 1e9:.1f} GB host f32) "
+        f"filled in {out['build_s']:.2f} s")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    # K3 route against the plain scan, both on the card
+    _, upload_s = timed(idx.device_arrays)
+    (pv, pi), plain_s = timed(lambda: idx.search(queries, k=10, use_pallas=False))
+    (kv, ki), k3_s = timed(lambda: idx.search(queries, k=10, use_pallas=True))
+    log(f"[phase5] upload {idx.upload_bytes_total / 1e9:.3f} GB in {upload_s:.2f} s; "
+        f"search(use_pallas=True) B={B}: {k3_s:.3f} s; plain scan {plain_s:.3f} s")
+    out["upload_s"] = upload_s
+    E, valid, _, _ = idx.device_arrays()
+    qd = torch.from_numpy(queries).to(dev).to(torch.bfloat16)
+
+    def true(pos, ids):
+        return (qd[pos[:, 0]].double() * E[ids.long()].double()).sum(dim=1)
+
+    err, d = check_topk("search(use_pallas=True) vs plain", torch.from_numpy(kv).to(dev),
+                        torch.from_numpy(ki).to(dev), torch.from_numpy(pv).to(dev),
+                        torch.from_numpy(pi).to(dev), true, 1e-4)
+    planted_found = recall_at(pi, truth)
+    log(f"[phase5] K3 route == plain route: max err {err:.3g}, {d} ids differ (near-ties); "
+        f"the exact top-10 holds {planted_found:.4f} of each query's planted set")
+    check(planted_found >= 0.99, "the exact scan finds the planted copies")
+    out.update(k3_search_s=k3_s, plain_search_s=plain_s, k3_max_err=err, k3_ids_differ=d,
+               exact_planted_recall10=planted_found)
+
+    # K4 route: build PQ4 (the engine's group at >= 1M rows), unfiltered search
+    _, out["build_pq_s"] = timed(lambda: idx.build_pq(m=48, ksub=16, pack4=True, group=64))
+    log(f"[phase5] build_pq(m=48, ksub=16, pack4, group=64) in {out['build_pq_s']:.2f} s")
+    _, cents, _, _ = idx._pq_arrays()
+    os.environ["YAMS_PQ_PALLAS"] = "auto"
+    check(idx._use_pallas_adc(True, 64, cents, None), "unfiltered PQ4 search routes to K4")
+    idx.search_pq(queries[:8], k=10)               # warm-up
+    (k4v, k4i), k4_s = timed(lambda: idx.search_pq(queries, k=10))
+    os.environ["YAMS_PQ_PALLAS"] = "0"
+    try:
+        (p0v, p0i), p0_s = timed(lambda: idx.search_pq(queries, k=10))
+    finally:
+        os.environ["YAMS_PQ_PALLAS"] = "auto"
+    r_k4, r_plain = recall_at(k4i, pi), recall_at(p0i, pi)
+    log(f"[phase5] search_pq(k=10) B={B}: K4 route {k4_s:.3f} s, recall@10 {r_k4:.4f}; "
+        f"plain route {p0_s:.3f} s, recall@10 {r_plain:.4f} (exact oracle: the plain scan)")
+    check(abs(r_k4 - r_plain) <= 0.01, "K4 route recall@10 within 0.01 of the plain route")
+    check(r_k4 >= 0.5, "K4 route recall@10 >= 0.5 on the planted sets")
+    check(np.isfinite(k4v).all() and k4i.shape == (B, 10), "finite (B, 10) PQ results")
+    out.update(pq_k4_s=k4_s, pq_plain_s=p0_s, pq_recall10_k4=r_k4, pq_recall10_plain=r_plain)
+
+    # filtered search_pq: the mask rides into the plain ADC scan
+    mask = np.zeros(N, np.float32)
+    allowed = np.random.default_rng(SEED).choice(N, N // 100, replace=False)
+    mask[allowed] = 1.0
+    (fv, fi), f_s = timed(lambda: idx.search_pq(queries[:64], k=10, doc_mask=mask))
+    live = fi[fv > -1e29]
+    check(live.size > 0 and bool((mask[idx.slots_of_rows(live)] == 1).all()),
+          "filtered search_pq honors the mask")
+    log(f"[phase5] filtered search_pq (1% of docs) B=64: {f_s:.3f} s, all hits in the filter")
+    out["pq_filtered_s"] = f_s
+    return out
+
+
+# -- phase 6 ------------------------------------------------------------------
+def phase6_engine_pq(dev, eng, queries) -> dict:
+    """The engine's PQ tier: phase 3's state carried into an engine='pq4'
+    engine with the tier on; 64 queries on the card, 16 checked on the CPU."""
+    from yams_tpu_torch.convert import load_state, state_from_jax
+    from yams_tpu_torch.search.config import SearchEngineConfig, VectorIndexConfig
+    from yams_tpu_torch.search.engine import SearchEngine
+
+    def make(device):
+        return SearchEngine(SearchEngineConfig(pq_tier_enabled=True),
+                            vector=VectorIndexConfig(dim=eng.provider.dim, engine="pq4"),
+                            device=device)
+
+    t = time.perf_counter()
+    pq = make(dev)
+    load_state(pq, state_from_jax(eng))
+    check(pq.ensure_pq(), "ensure_pq built the PQ4 tier")
+    build_s = time.perf_counter() - t
+    vi = pq.vector_index
+    log(f"[phase6] engine pq4: state carried + ensure_pq in {build_s:.2f} s "
+        f"(m={vi._pq_codebook.m}, ksub={vi._pq_codebook.ksub}, group={vi._pq_group}, "
+        f"rows {vi.active_rows})")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = pq.search_batch(queries)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    t = time.perf_counter()
+    res = pq.search_batch(queries)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t
+    check(vi._device is None, "the PQ tier never uploaded the dense matrix")
+    check(all(len(r) == 10 for r in res), "10 results per query")
+    check(all(np.isfinite([x.score for r in res for x in r])), "finite scores")
+    cpu = make("cpu")
+    load_state(cpu, state_from_jax(pq))
+    ref = cpu.search_batch(queries[:16])
+    overlap = float(np.mean([len({x.doc_id for x in a} & {x.doc_id for x in b}) / 10
+                             for a, b in zip(res[:16], ref)]))
+    log(f"[phase6] search_batch(64) on the PQ tier: first {first_s:.3f} s, steady "
+        f"{steady_s * 1e3:.1f} ms; top-10 overlap with the CPU plain path on 16 queries "
+        f"{overlap:.4f}")
+    check(overlap >= 0.98, "PQ tier top-10 overlap >= 0.98 vs CPU")
+    return {"build_s": build_s, "first_search_s": first_s, "steady_search_ms": steady_s * 1e3,
+            "overlap_vs_cpu": overlap}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; nothing was run", file=sys.stderr)
@@ -423,33 +752,74 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = phase0_identity()
-    from yams_tpu_torch.ops import cdc, sha256
+    seconds: dict[str, float] = {}
 
-    kernels = phase1_kernels(dev)
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        r = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        log(f"[{name}] {seconds[name]:.2f} s")
+        return r
+
+    card = phase("phase0", phase0_identity)
+    from yams_tpu_torch.ops import cdc, pq_pallas, scan, sha256
+
+    counters = {"gear_hash_cuda": cdc.gear_hash_cuda, "sha256_cuda": sha256.sha256_cuda,
+                "exact_topk_cuda": scan.exact_topk_cuda, "pq4_adc_cuda": pq_pallas.pq4_adc_cuda}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    kernels = phase("phase1", phase1_kernels, dev)
+    kernels.update(phase("phase1 search kernels", phase1_search_kernels, dev))
     data = zipf_text(128 << 20, SEED)
     log(f"[phase2] payload {len(data)} bytes of zipf-word text")
 
-    # the main path: add, then search; counters zeroed just before it
-    cdc.gear_hash_cuda.launches = 0
-    sha256.sha256_cuda.launches = 0
-    add = phase2_add(dev, data)
-    search = phase3_search(dev)
-    launches = {"gear_hash_cuda": cdc.gear_hash_cuda.launches,
-                "sha256_cuda": sha256.sha256_cuda.launches}
-    log(f"[main path] kernel launches {launches}")
-    for name, n in launches.items():
-        check(n >= 1, f"{name} launched on the main path")
+    # each path runs with the counters zeroed just before it and read just after
+    zero()
+    add = phase("phase2", phase2_add, dev, data)
+    search, eng, queries = phase("phase3", phase3_search, dev)
+    add_launches = read()
+    log(f"[add path] kernel launches {add_launches}")
+    for name in ("gear_hash_cuda", "sha256_cuda"):
+        check(add_launches[name] >= 1, f"{name} launched on the add path")
 
-    breakdown = phase2_breakdown(dev, data)
-    bench = phase4_bench(dev)
+    breakdown = phase("phase2 breakdown", phase2_breakdown, dev, data)
+    bench = phase("phase4", phase4_bench, dev)
+
+    zero()
+    store = phase("phase5", phase5_vector_store, dev)
+    store_launches = read()
+    log(f"[vector store path] kernel launches {store_launches}")
+    for name in ("exact_topk_cuda", "pq4_adc_cuda"):
+        check(store_launches[name] >= 1, f"{name} launched on the vector store's path")
+
+    zero()
+    engine_pq = phase("phase6", phase6_engine_pq, dev, eng, queries)
+    engine_launches = read()
+    log(f"[engine PQ path] kernel launches {engine_launches}")
+    check(engine_launches["pq4_adc_cuda"] == 0,
+          "the engine's PQ tier never reaches K4 (its doc mask keeps the plain route)")
+
     check("jax" not in sys.modules, "no jax imported")
-    log(f"[summary] {json.dumps({'card': card, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'torch': torch.__version__})}")
+    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'torch': torch.__version__})}")
 
-    sources = {"gear_hash_cuda": ("yams_tpu_torch/csrc/gear_hash.cu", "yams_tpu/ops/cdc.py:65"),
-               "sha256_cuda": ("yams_tpu_torch/csrc/sha256.cu", "yams_tpu/ops/sha256.py:55")}
+    sources = {
+        "gear_hash_cuda": ("yams_tpu_torch/csrc/gear_hash.cu", "yams_tpu/ops/cdc.py:65",
+                           add_launches),
+        "sha256_cuda": ("yams_tpu_torch/csrc/sha256.cu", "yams_tpu/ops/sha256.py:55",
+                        add_launches),
+        "exact_topk_cuda": ("yams_tpu_torch/csrc/exact_topk.cu", "yams_tpu/ops/scan.py:94",
+                            store_launches),
+        "pq4_adc_cuda": ("yams_tpu_torch/csrc/pq4_adc.cu", "yams_tpu/ops/pq_pallas.py:44",
+                         store_launches),
+    }
     records = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces, launches) in sources.items():
         k = kernels[name]
         records.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": k["max_abs_err"],

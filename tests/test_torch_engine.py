@@ -8,7 +8,11 @@
   fusion's adaptive leg weights amplify ulp-level reduction-order differences,
   see tests/test_torch_fusion.py).
 - Add: the port's ContentStore device tier, forced on the CPU, writes the same
-  manifest as the reference's host path.
+  manifest as the reference's host path; a payload it declines goes to the
+  host tiers without touching yams_tpu's module state.
+- PQ tier: the reference's TestPQTier scenarios (tests/test_engine_scale.py)
+  on a yams_tpu engine and on a port engine that got its state, codebook
+  included, through convert: the same top-k ids.
 - No JAX: the slice runs in a fresh interpreter without importing jax.
 """
 
@@ -22,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from yams_tpu.core.config import ChunkingConfig, EmbeddingConfig
+from yams_tpu.core.config import (ChunkingConfig, EmbeddingConfig, LexicalIndexConfig,
+                                  VectorIndexConfig)
 from yams_tpu.embed.simeon import SimeonEncoder
 from yams_tpu.search.config import SearchEngineConfig as RefConfig
 from yams_tpu.search.engine import SearchEngine as RefEngine
@@ -210,7 +215,8 @@ def test_large_cpu_store_skips_reference_device_tier(tmp_path):
 
 
 def test_chip_smoke_imports_only_the_port():
-    """The card's smoke reaches yams_tpu only through yams_tpu_torch."""
+    """The card's smoke, every phase of it, imports only yams_tpu_torch,
+    torch, numpy and the standard library."""
     import ast
 
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
@@ -222,3 +228,150 @@ def test_chip_smoke_imports_only_the_port():
             roots.add(node.module.split(".")[0])
     assert "yams_tpu_torch" in roots
     assert not roots & {"yams_tpu", "jax", "jaxlib"}, roots
+    others = roots - {"yams_tpu_torch", "torch", "numpy", "__future__"}
+    assert others <= set(sys.stdlib_module_names), others
+
+
+def test_declined_store_leaves_reference_state_alone(tmp_path):
+    """A port store on the CPU takes a small payload, then one just above the
+    device threshold (lowered to 64 KiB): both go to the host tiers, and
+    yams_tpu's device-tier backend cache is never written."""
+    out = _run_fresh(f"""
+        import os, sys
+        os.environ.pop("YAMS_DEVICE_INGEST", None)
+        os.environ["YAMS_DEVICE_INGEST_MIN"] = "65536"
+        import numpy as np
+        import yams_tpu.ingest.device_pipeline as ref_tier
+        from yams_tpu_torch.ingest.device_pipeline import DEVICE_MIN_BYTES
+        from yams_tpu_torch.storage.content_store import ContentStore
+        before = ref_tier._backend_cache
+        cs = ContentStore({str(tmp_path)!r}, device="cpu")
+        rng = np.random.default_rng(4)
+        for n in (5_000, DEVICE_MIN_BYTES + 1):
+            data = rng.bytes(n)
+            res = cs.store_bytes(data)
+            assert "device_tier" not in res.phase_timings_ms
+            assert cs.retrieve_bytes(res.content_hash) == data
+        cs.close()
+        print(before, ref_tier._backend_cache, "jax" in sys.modules)
+    """)
+    assert out.split() == ["None", "None", "False"]
+
+
+# -- PQ capacity tier ------------------------------------------------------------
+def _pq_configs(capacity: int = 256, **cfg):
+    return dict(config=RefConfig(batch_pad=4, **cfg),
+                embedding=EmbeddingConfig(dim=64, sketch_dim=512),
+                vector=VectorIndexConfig(dim=64, capacity=capacity, block_rows=128),
+                lexical=LexicalIndexConfig(postings_window=64))
+
+
+def _pq_engines(docs, build=True, capacity=256, rerank_factor=4, **cfg):
+    """A yams_tpu engine with the PQ tier on (PQ4 built when `build`) and a
+    port engine with its state."""
+    cfg.setdefault("pq_tier_enabled", True)
+    ref = RefEngine(**_pq_configs(capacity, **cfg))
+    ref.add_documents(docs)
+    if build:
+        ref.vector_index.build_pq(m=16, ksub=16, pack4=True,
+                                  rerank_factor=rerank_factor)
+    kw = _pq_configs(capacity, **cfg)
+    kw["config"] = SearchEngineConfig(**dataclasses.asdict(kw["config"]))
+    port = SearchEngine(**kw, device=CPU)
+    load_state(port, state_from_jax(ref))
+    return ref, port
+
+
+def _subject_docs(n=60):
+    return [(i, f"doc {i} about subject {'pqr'[i % 3]}", "") for i in range(n)]
+
+
+def _ids(results):
+    return [[r.doc_id for r in q] for q in results]
+
+
+PQ_QUERIES = ["subject p doc", "subject q", "doc subject r"]
+
+
+@pytest.mark.parametrize("chunk_agg", ["max", "topk_avg"])
+def test_pq_tier_matches_reference_and_is_close_to_dense(chunk_agg):
+    ref, port = _pq_engines(_subject_docs(), chunk_agg=chunk_agg)
+    assert port.vector_index.has_pq
+    _compare(ref.search_batch(PQ_QUERIES, k=5), port.search_batch(PQ_QUERIES, k=5),
+             min_equal=1.0)
+    if chunk_agg == "max":
+        _, dense = _pq_engines(_subject_docs(), build=False, pq_tier_enabled=False)
+        for rp, rd in zip(_ids(port.search_batch(PQ_QUERIES, k=5)),
+                          _ids(dense.search_batch(PQ_QUERIES, k=5))):
+            assert len(set(rp) & set(rd)) >= 4, (rp, rd)
+
+
+def test_pq_tier_never_uploads_dense_matrix():
+    _, port = _pq_engines(_subject_docs())
+    vi = port.vector_index
+    vi._device = None
+    vi.upload_bytes_total = 0
+    assert port.search("subject p doc", k=5)
+    assert vi._device is None
+    assert vi.upload_bytes_total < vi.capacity * 64 * 2
+
+
+def test_pq_tier_without_build_falls_back_to_dense():
+    docs = [(i, f"note {i} theme {'xy'[i % 2]}", "") for i in range(20)]
+    ref, port = _pq_engines(docs, build=False)
+    assert not port.vector_index.has_pq
+    _compare(ref.search_batch(["theme x"], k=3), port.search_batch(["theme x"], k=3),
+             min_equal=1.0)
+
+
+@pytest.mark.parametrize("mode", ["keyword", "vector"])
+def test_pq_tier_modes(mode):
+    ref, port = _pq_engines(_subject_docs())
+    res = port.search_batch(PQ_QUERIES, k=5, mode=mode)
+    _compare(ref.search_batch(PQ_QUERIES, k=5, mode=mode), res, min_equal=1.0)
+    if mode == "keyword":
+        assert res[0] and all(r.doc_id % 3 == 0 for r in res[0][:3])
+
+
+def test_pq_tier_respects_doc_filter():
+    ref, port = _pq_engines(_subject_docs())
+    allow = {3, 6, 9}
+    got = port.search_batch(PQ_QUERIES, k=5, filter_doc_ids=allow)
+    _compare(ref.search_batch(PQ_QUERIES, k=5, filter_doc_ids=allow), got,
+             min_equal=1.0)
+    assert got[0] and all(r.doc_id in allow for q in got for r in q)
+    per_q = [allow, None, {1, 2}]
+    _compare(ref.search_batch(PQ_QUERIES, k=5, per_query_filters=per_q),
+             port.search_batch(PQ_QUERIES, k=5, per_query_filters=per_q),
+             min_equal=1.0)
+
+
+def test_pq_tier_filter_pushdown_selective():
+    """A selective filter still gets vector candidates: the mask is pushed
+    into the ADC scan, so the 350 off-filter docs cannot fill the budget."""
+    docs = ([(i, f"zebra quantum flux note {i}", "") for i in range(350)]
+            + [(i, f"maple syrup harvest log {i}", "") for i in range(350, 400)])
+    ref, port = _pq_engines(docs, capacity=512, rerank_factor=1)
+    allow = {360, 370, 380}
+    got = port.search("zebra quantum flux", k=5, mode="vector", filter_doc_ids=allow)
+    assert got and all(r.doc_id in allow for r in got)
+    _compare([ref.search("zebra quantum flux", k=5, mode="vector",
+                         filter_doc_ids=allow)], [got], min_equal=1.0)
+
+
+def test_ensure_pq_builds_the_configured_engine():
+    docs = _subject_docs(80)
+    cfg = SearchEngineConfig(batch_pad=4, pq_tier_enabled=True)
+    port = SearchEngine(cfg, EmbeddingConfig(dim=64, sketch_dim=512),
+                        VectorIndexConfig(dim=64, capacity=256, block_rows=128,
+                                          engine="pq4", pq_min_rows=50, pq_m=16),
+                        LexicalIndexConfig(postings_window=64), device=CPU)
+    assert not port.ensure_pq()                    # no rows yet
+    port.add_documents(docs)
+    assert port.ensure_pq() and not port.ensure_pq()   # built; not doubled since
+    vi = port.vector_index
+    assert vi.has_pq and vi._pq_packed4 and vi._pq_group == 1
+    assert vi._pq_codebook.ksub == 16 and vi._pq_built_rows == vi.active_rows
+    assert port.search("subject p doc", k=5)
+    with pytest.raises(NotImplementedError):
+        SearchEngine(vector=VectorIndexConfig(engine="hnsw"), device=CPU)

@@ -31,6 +31,8 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "yt_gear_hash": (_P, _P, _I64, _P),
     "yt_sha256_rows": (_P, _P, _P, _P, _I64, _P),
+    "yt_exact_topk": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P),
+    "yt_pq4_adc": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
 }
 
 _lock = threading.Lock()

@@ -3,16 +3,25 @@
 `state_from_jax(engine)` reads the host state of a yams_tpu SearchEngine
 (or of a port engine, which keeps the same host layout) into a flat dict of
 NumPy arrays: vector rows, validity and row -> slot map, free rows, the
-slot <-> doc maps, titles, and the lexical vocabulary, per-doc term
-frequencies, doc lengths and width. `load_state(port_engine, state)`
-installs it into a port engine, after which both engines compute the same
-searches. Postings, impacts and device views are derived state and are
-rebuilt on the next search.
+slot <-> doc maps, titles, the lexical vocabulary, per-doc term
+frequencies, doc lengths and width, and, when the index has PQ codebooks,
+the PQ state (centroids, capacity-sized codes, packing, group, rerank
+factor, selection width, rows at the last build). `load_state(port_engine,
+state)` installs it into a port engine, after which both engines compute
+the same searches with the same codebook. Postings, impacts and device
+views are derived state and are rebuilt on the next search.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from .ops.pq import PQCodebook
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def state_from_jax(engine) -> dict[str, np.ndarray]:
@@ -28,7 +37,7 @@ def state_from_jax(engine) -> dict[str, np.ndarray]:
         doc_ptr.append(len(doc_tids))
     vocab = sorted(lex._vocab.items(), key=lambda kv: kv[1])
     doc_ids = np.asarray(engine._doc_by_slot, np.int64)
-    return {
+    state = {
         "vec_rows": vi._vecs[:n].copy(),
         "vec_valid": vi._valid[:n].copy(),
         "vec_slots": vi._slots[:n].copy(),
@@ -44,6 +53,22 @@ def state_from_jax(engine) -> dict[str, np.ndarray]:
         "lex_doc_tids": np.asarray(doc_tids, np.int64),
         "lex_doc_tfs": np.asarray(doc_tfs, np.float64),
         "lex_num_slots": np.asarray(lex._num_slots, np.int64),
+    }
+    if vi.has_pq:
+        state.update(pq_state(vi))
+    return state
+
+
+def pq_state(vi) -> dict[str, np.ndarray]:
+    """The PQ state of a yams_tpu (or port) VectorIndex built with build_pq."""
+    return {
+        "pq_centroids": _host(vi._pq_codebook.centroids).astype(np.float32),
+        "pq_codes": vi._pq_codes.copy(),
+        "pq_packed4": np.asarray(bool(getattr(vi, "_pq_packed4", False))),
+        "pq_group": np.asarray(getattr(vi, "_pq_group", 1), np.int64),
+        "pq_rerank_factor": np.asarray(vi._pq_rerank_factor, np.int64),
+        "pq_sel_width": np.asarray(getattr(vi, "_pq_sel_width", 0), np.int64),
+        "pq_built_rows": np.asarray(getattr(vi, "_pq_built_rows", 0), np.int64),
     }
 
 
@@ -66,6 +91,8 @@ def load_state(engine, state: dict[str, np.ndarray]) -> None:
         vi._rows_by_slot.setdefault(int(state["vec_slots"][r]), []).append(int(r))
     vi._mark_dirty(np.arange(n, dtype=np.int64))
     vi._dirty_full = True
+    if "pq_centroids" in state:
+        load_pq_state(vi, state)
 
     engine._doc_by_slot = [int(d) for d in state["doc_by_slot"]]
     engine._slot_by_doc = {d: s for s, d in enumerate(engine._doc_by_slot)}
@@ -88,3 +115,25 @@ def load_state(engine, state: dict[str, np.ndarray]) -> None:
     lex._num_slots = int(state["lex_num_slots"])
     lex._dirty_terms.update(lex._postings.keys())
     lex._dirty = True
+
+
+def load_pq_state(vi, state: dict[str, np.ndarray]) -> None:
+    """Install `pq_state` output into a port VectorIndex holding the same
+    rows; codes keep the source index's capacity."""
+    codes = state["pq_codes"]
+    if len(codes) > vi.capacity:
+        vi._grow(len(codes))
+    full = np.zeros((vi.capacity, codes.shape[1]), np.uint8)
+    full[:len(codes)] = codes
+    cent = state["pq_centroids"]
+    m, ksub, dsub = cent.shape
+    vi._pq_codebook = PQCodebook(
+        centroids=torch.from_numpy(cent.copy()).to(vi.device), m=m, ksub=ksub,
+        dsub=dsub)
+    vi._pq_codes = full
+    vi._pq_packed4 = bool(state["pq_packed4"])
+    vi._pq_group = int(state["pq_group"])
+    vi._pq_rerank_factor = int(state["pq_rerank_factor"])
+    vi._pq_sel_width = int(state["pq_sel_width"])
+    vi._pq_built_rows = int(state["pq_built_rows"])
+    vi._pq_device = None

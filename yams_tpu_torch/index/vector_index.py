@@ -1,45 +1,267 @@
-"""Vector index whose device view is torch tensors.
+"""Vector index whose device view is torch tensors, with its search tiers.
 
-The host state (f32 rows, validity, row -> doc slot map, free list) and all
-mutations are yams_tpu's VectorIndex, inherited. `device_arrays` is the one
-method on the search path that touched jax; here it uploads torch tensors to
-an explicit device. Every mutation re-uploads the whole matrix on the next
-search: the reference's dirty-block splicing is not ported yet.
+Port of yams_tpu/index/vector_index.py. The host state (f32 rows,
+validity, row -> doc slot map, free list, dirty-block sets) and the
+mutations that touch only it are the reference's VectorIndex, inherited.
+Everything that touched jax is ported here, on the index's device:
+
+  - device_arrays: the dense bf16 view; after mutations only the dirty
+    blocks are uploaded and spliced into copies (a reader may still hold the
+    old tensors), counted in `upload_bytes_total` as the reference counts;
+  - search: exact KNN, the plain scan or the block kernel K3;
+  - add: the reference's add, encoding new rows with the port's pq_encode;
+  - build_pq / _pq_arrays / search_pq: the PQ tiers. The unfiltered grouped
+    PQ4 scan goes to kernel K4 (`_use_pallas_adc`), everything else to the
+    plain pq_adc_topk.
+
+The int8 device tier, sharded views and persistence are not ported.
 """
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
+from yams_tpu.core.errors import InvalidArgumentError
 from yams_tpu.index.vector_index import VectorIndex as _ReferenceIndex
+
+from ..device import resolve_device
+from ..ops.pq import exact_rerank, pq4_pack, pq_adc_topk, pq_encode, pq_train
+from ..ops.pq_pallas import pq4_adc_topk_pallas
+from ..ops.scan import exact_topk_pallas, exact_topk_scan
 
 
 class VectorIndex(_ReferenceIndex):
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, device: str | torch.device, **kwargs):
         super().__init__(*args, **kwargs)
         if self.device_dtype != "bfloat16":
             raise NotImplementedError(
                 f"device_dtype={self.device_dtype!r}: only the bf16 tier is ported")
-        self._torch_view: tuple | None = None  # ((gen, cap, device), arrays)
+        self.device = resolve_device(device)
 
-    def device_arrays(self, device: torch.device):
-        """(E bf16 (cap, D), valid f32 (cap,), row2slot i32 (cap,),
-        row_scale f32 (cap,)) on `device`, re-uploaded after any mutation."""
+    def _upload(self, a: np.ndarray, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Host array -> a fresh tensor on the device (never a view of `a`)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(dtype).to(self.device) if dtype is not None \
+            else t.to(self.device, copy=True)
+
+    def _splice(self, dst: torch.Tensor, src: np.ndarray, blocks: list[int],
+                dtype: torch.dtype | None = None) -> tuple[torch.Tensor, int]:
+        """A copy of `dst` with the listed blocks re-uploaded from `src`, and
+        the bytes uploaded (the reference's batched blocks, padded to a power
+        of two by repeating the last; re-writing those rows is idempotent)."""
+        stacked, starts = self._gather_blocks(src, blocks)
+        part = self._upload(stacked.reshape(-1, *src.shape[1:]), dtype)
+        rows = (torch.from_numpy(starts.astype(np.int64))[:, None]
+                + torch.arange(self.block_rows)).reshape(-1).to(self.device)
+        return dst.clone().index_copy_(0, rows, part), part.nbytes
+
+    # -- mutation ----------------------------------------------------------------
+    def add(self, vectors: np.ndarray, doc_slots: np.ndarray | list[int]) -> list[int]:
+        """Insert rows; returns assigned row indices (the reference's add)."""
+        vectors = np.asarray(vectors, dtype=np.float32)
+        doc_slots = np.asarray(doc_slots, dtype=np.int32)
+        if vectors.ndim != 2 or vectors.shape[1] != self.dim:
+            raise InvalidArgumentError(
+                f"expected (M, {self.dim}) vectors, got {vectors.shape}")
+        if len(doc_slots) != len(vectors):
+            raise InvalidArgumentError("doc_slots/vectors length mismatch")
         with self._lock:
-            key = (self.mutation_gen, self.capacity, device)
-            if self._torch_view is not None and self._torch_view[0] == key:
-                return self._torch_view[1]
-            self._torch_view = None  # drop the stale copy before uploading
-            # copy=True: a CPU view must not alias the mutable host arrays
-            e = torch.from_numpy(self._vecs).to(device).to(torch.bfloat16)
-            valid = torch.from_numpy(self._valid).to(device, copy=True)
-            slots = torch.from_numpy(self._slots).to(device, copy=True)
-            scale = torch.ones(self.capacity, dtype=torch.float32, device=device)
-            self.upload_bytes_total += (
-                self._vecs.nbytes + self._valid.nbytes + self._slots.nbytes)
-            arrays = (e, valid, slots, scale)
-            self._torch_view = (key, arrays)
-            return arrays
+            rows = []
+            for _ in range(len(vectors)):
+                if self._free:
+                    r = self._free.pop()
+                else:
+                    if self._count >= self.capacity:
+                        self._grow(self._count + len(vectors))
+                    r = self._count
+                    self._count += 1
+                rows.append(r)
+            rows_np = np.array(rows, dtype=np.int64)
+            self._vecs[rows_np] = vectors
+            self._valid[rows_np] = 1.0
+            self._slots[rows_np] = doc_slots
+            for r, s in zip(rows, doc_slots.tolist()):
+                self._rows_by_slot.setdefault(s, []).append(r)
+            if self.has_pq:
+                # incremental encode with the existing codebook
+                codes = pq_encode(self._pq_codebook, vectors).cpu().numpy()
+                if self._pq_packed4:
+                    codes = pq4_pack(codes)
+                self._pq_codes[rows_np] = codes
+            self._mark_dirty(rows_np)
+            return rows
 
-    def search(self, *args, **kwargs):
-        raise NotImplementedError("VectorIndex.search (Pallas scan tiers) is not ported")
+    # -- device view -------------------------------------------------------------
+    def device_arrays(self):
+        """(E bf16 (cap, D), valid f32 (cap,), row2slot i32 (cap,),
+        row_scale f32 (cap,)) on the index's device."""
+        with self._lock:
+            if self._device is None or self._dirty_full:
+                self._device = None   # drop the stale copy before uploading
+                arrays = (self._upload(self._vecs, torch.bfloat16),
+                          self._upload(self._valid), self._upload(self._slots),
+                          torch.ones(self.capacity, dtype=torch.float32,
+                                     device=self.device))
+                self._device = arrays
+                self.upload_bytes_total += sum(a.nbytes for a in arrays)
+                self._identity = None  # recomputed lazily
+                self._dirty_full = False
+                self._dirty_blocks.clear()
+            elif self._dirty_blocks:
+                # publish the new tuple only after every splice succeeded
+                e, valid, slots, scale = self._device
+                bs = sorted(self._dirty_blocks)
+                e, n_e = self._splice(e, self._vecs, bs, torch.bfloat16)
+                valid, n_v = self._splice(valid, self._valid, bs)
+                slots, n_s = self._splice(slots, self._slots, bs)
+                self.upload_bytes_total += n_e + n_v + n_s
+                self._device = (e, valid, slots, scale)
+                self._dirty_blocks.clear()
+            return self._device
+
+    def sharded_device_arrays(self, mesh, axis: str = "d"):
+        raise NotImplementedError("sharded device views are not ported")
+
+    @classmethod
+    def load(cls, directory):
+        raise NotImplementedError("VectorIndex persistence is not ported")
+
+    # -- search (standalone vector-only path) -------------------------------------
+    def _queries(self, queries: np.ndarray) -> torch.Tensor:
+        q = np.asarray(queries, dtype=np.float32)
+        return torch.from_numpy(q[None, :] if q.ndim == 1 else q).to(self.device)
+
+    def search(self, queries: np.ndarray, k: int = 10, use_pallas: bool = False):
+        """Exact KNN over valid rows -> (values (B,k), row indices (B,k))."""
+        E, valid, _, _ = self.device_arrays()
+        q = self._queries(queries)
+        if use_pallas:
+            vals, idx = exact_topk_pallas(q, E, valid, k, block_rows=self.block_rows)
+        else:
+            vals, idx = exact_topk_scan(q, E, valid, k, block_rows=self.block_rows)
+        return vals.cpu().numpy(), idx.cpu().numpy()
+
+    # -- PQ-ADC compressed path ----------------------------------------------------
+    def build_pq(self, m: int = 32, train_limit: int = 4096, rerank_factor: int = 2,
+                 ksub: int = 256, pack4: bool = False, group: int = 1) -> None:
+        """Train codebooks on current rows + encode everything (see the
+        reference's build_pq for the tiers and `group`)."""
+        # validate everything BEFORE mutating state
+        if pack4 and ksub > 16:
+            raise ValueError("pack4 requires ksub <= 16")
+        if self.dim % m:
+            raise ValueError(f"dim {self.dim} not divisible by m={m}")
+        if pack4 and m % 2:
+            raise ValueError(f"pack4 requires even m, got {m}")
+        if group < 1 or self.block_rows % group:
+            raise ValueError(
+                f"group {group} must divide block_rows {self.block_rows}")
+        with self._lock:
+            active = self._vecs[: max(self._count, 1)]
+            codebook = pq_train(active, m=m, ksub=ksub, train_limit=train_limit,
+                                device=self.device)
+            codes = pq_encode(codebook, self._vecs).cpu().numpy()
+            self._pq_codebook = codebook
+            self._pq_codes = pq4_pack(codes) if pack4 else codes
+            self._pq_packed4 = pack4
+            self._pq_rerank_factor = rerank_factor
+            self._pq_group = group
+            self._pq_device = None
+
+    def _pq_arrays(self):
+        """Device-resident PQ state: (codes u8, centroids f32, valid f32,
+        slots i32). Never touches device_arrays(), so the capacity tier never
+        uploads the dense matrix; mutations splice only their dirty blocks."""
+        with self._lock:
+            if (getattr(self, "_pq_device", None) is None
+                    or getattr(self, "_pq_valid_device", None) is None
+                    or getattr(self, "_pq_slots_device", None) is None):
+                codes = self._upload(self._pq_codes)
+                vdev = self._upload(self._valid)
+                sdev = self._upload(self._slots)
+                self.upload_bytes_total += codes.nbytes + vdev.nbytes + sdev.nbytes
+                self._pq_device = (codes, self._pq_codebook.centroids)
+                self._pq_valid_device = vdev
+                self._pq_slots_device = sdev
+                self._pq_dirty_blocks.clear()
+            elif self._pq_dirty_blocks:
+                codes, cent = self._pq_device
+                bs = sorted(self._pq_dirty_blocks)
+                codes, n_c = self._splice(codes, self._pq_codes, bs)
+                vdev, n_v = self._splice(self._pq_valid_device, self._valid, bs)
+                sdev, n_s = self._splice(self._pq_slots_device, self._slots, bs)
+                self.upload_bytes_total += n_c + n_v + n_s
+                self._pq_device = (codes, cent)
+                self._pq_valid_device = vdev
+                self._pq_slots_device = sdev
+                self._pq_dirty_blocks.clear()
+            return (*self._pq_device, self._pq_valid_device, self._pq_slots_device)
+
+    def _use_pallas_adc(self, packed4: bool, group: int, centroids, doc_mask) -> bool:
+        """Route the unfiltered grouped PQ4 scan to the K4 kernel
+        (ops/pq_pallas.py); the plain pq_adc_topk keeps the filtered scan,
+        ksub != 16 and the ungrouped/unpacked tiers. Env YAMS_PQ_PALLAS:
+        0 = off, 1 = force (the plain twin on the CPU), auto = on a card."""
+        mode = os.environ.get("YAMS_PQ_PALLAS", "auto")
+        if mode == "0":
+            return False
+        if not (packed4 and group > 1 and doc_mask is None
+                and centroids.shape[1] == 16):
+            return False
+        pblock = min(2048, self.capacity)
+        if pblock % group or self.capacity % pblock:
+            return False
+        return mode == "1" or self.device.type == "cuda"
+
+    def search_pq(self, queries: np.ndarray, k: int = 10, rerank: str = "auto",
+                  doc_mask: np.ndarray | None = None):
+        """ADC scan + exact rerank x rerank_factor -> (values, row indices).
+
+        rerank: 'device' rescores against the dense bf16 view, 'host' against
+        the f32 host rows (the capacity tier: the dense matrix never reaches
+        the device); 'auto' picks device only when that view is resident.
+        doc_mask: optional (num_slots,) or (B, num_slots) 0/1 doc filter
+        pushed into the ADC scan."""
+        if not self.has_pq:
+            raise RuntimeError("call build_pq() first")
+        q = self._queries(queries)
+        codes, centroids, valid, slots = self._pq_arrays()
+        if rerank == "auto":
+            rerank = "device" if self._device is not None else "host"
+        c = min(k * self._pq_rerank_factor, self.capacity)
+        dm = None
+        if doc_mask is not None:
+            dm = np.asarray(doc_mask, np.float32)
+            dm = torch.from_numpy(dm[None, :] if dm.ndim == 1 else dm).to(self.device)
+        group = self._pq_group
+        if self._use_pallas_adc(self._pq_packed4, group, centroids, dm):
+            # the kernel's block is independent of the index block: capacity
+            # is a power-of-two multiple of it, so min(2048, capacity) divides it
+            c = self._pallas_adc_candidates(c, group)
+            av, ai = pq4_adc_topk_pallas(
+                q, codes, centroids, valid, c, group=group,
+                block_rows=min(2048, self.capacity),
+                sel_width=int(getattr(self, "_pq_sel_width", 0)))
+        else:
+            av, ai = pq_adc_topk(
+                q, codes, centroids, valid, k=c, block_rows=self.block_rows,
+                packed4=self._pq_packed4, group=group,
+                slots=slots if dm is not None else None, doc_mask=dm)
+        k_out = min(k, c)
+        if rerank == "host":
+            cand = ai.cpu().numpy()                          # (B, C)
+            qh = q.cpu().numpy()
+            gathered = self._vecs[np.maximum(cand, 0)]       # (B, C, D)
+            s = np.einsum("bcd,bd->bc", gathered, qh, dtype=np.float32)
+            # ADC score <= -1e29 marks rows the scan masked: rescoring them
+            # would resurrect deleted docs
+            s = np.where((cand >= 0) & (av.cpu().numpy() > -1e29), s, -1e30)
+            order = np.argsort(-s, axis=1)[:, :k_out]
+            return (np.take_along_axis(s, order, axis=1),
+                    np.take_along_axis(cand, order, axis=1))
+        E = self.device_arrays()[0]
+        vals, idx = exact_rerank(q, E, ai, av, -1e29, k=k_out)
+        return vals.cpu().numpy(), idx.cpu().numpy()

@@ -1,0 +1,167 @@
+"""Tiled distance scan + exact top-k: the vector store's KNN core.
+
+Port of yams_tpu/ops/scan.py (`dense_scores`, `exact_topk_scan`,
+`exact_topk_pallas`):
+
+  - dot_f32 / dense_scores: (B, D) x (N, D) -> (B, N) f32 scores from bf16
+    operands, invalid rows -> -1e30;
+  - exact_topk_scan: the plain exact path, a running top-k merged over row
+    chunks (a chunk is a whole number of blocks, so the merge order is the
+    reference's block scan and ties keep lax.top_k's order);
+  - exact_topk_pallas: the block kernel (K3) emits each 2,048-row block's
+    top-k per query, and a top-k over the G*k candidates merges them. On a
+    CUDA tensor the block step is the CUDA kernel `exact_topk_cuda`
+    (csrc/exact_topk.cu); on a CPU tensor its plain twin
+    `exact_topk_reference`.
+
+The int8 tier (`quantize_int8`, `int8_topk_scan`) is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .select import top_k
+
+NEG = -1e30
+_SCORE_BUDGET = 1 << 26   # f32 scores per chunk of the plain paths (256 MB)
+
+
+def dot_f32(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """a @ b_t.T with bf16-rounded operands and f32 scores.
+
+    A bf16 matmul that returns bf16 would round the scores and reorder
+    near-ties on a clustered corpus. On CUDA this is cuBLAS with an f32
+    output (torch.mm(..., out_dtype=float32)); on the CPU, which has no
+    such mm, it is an f32 matmul over the bf16-rounded values (bf16
+    products are exact in f32, so only the summation order differs)."""
+    a16 = a.to(torch.bfloat16)
+    b16 = b_t.to(torch.bfloat16)
+    if a.device.type == "cuda":
+        return torch.mm(a16, b16.t(), out_dtype=torch.float32)
+    return torch.mm(a16.float(), b16.float().t())
+
+
+def dense_scores(queries: torch.Tensor, corpus: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """Cosine/IP scores: (B, D) x (N, D) -> (B, N) f32, invalid rows -> -1e30."""
+    return dot_f32(queries, corpus) + ((valid - 1.0) * 1e30)[None, :]
+
+
+def _chunk_rows(B: int, block_rows: int) -> int:
+    return block_rows * max(1, _SCORE_BUDGET // (B * block_rows))
+
+
+def exact_topk_scan(queries: torch.Tensor, corpus: torch.Tensor,
+                    valid: torch.Tensor, k: int, block_rows: int = 4096):
+    """Streaming exact top-k -> (values (B, k) f32 desc, indices (B, k) i32).
+
+    Starts from k (-1e30, -1) entries, as the reference's carry does, so a
+    corpus with fewer than k live rows fills the tail with (-1e30, -1)."""
+    B = queries.shape[0]
+    N = corpus.shape[0]
+    if N % block_rows:
+        raise ValueError(f"pad the corpus to a block multiple ({N} % {block_rows})")
+    dev = queries.device
+    vals = torch.full((B, k), NEG, dtype=torch.float32, device=dev)
+    idx = torch.full((B, k), -1, dtype=torch.int64, device=dev)
+    step = _chunk_rows(B, block_rows)
+    for lo in range(0, N, step):
+        hi = min(N, lo + step)
+        s = dense_scores(queries, corpus[lo:hi], valid[lo:hi])
+        cols = torch.arange(lo, hi, device=dev).expand(B, -1)
+        vals, pos = top_k(torch.cat([vals, s], dim=1), k)
+        idx = torch.cat([idx, cols], dim=1).gather(1, pos)
+    return vals, idx.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# K3: per-block top-k (kernel + twin), then the merge
+# ---------------------------------------------------------------------------
+
+def exact_topk_reference(q: torch.Tensor, E: torch.Tensor, valid: torch.Tensor,
+                         k: int, block_rows: int = 2048):
+    """Plain twin of `exact_topk_cuda`: (G, B, k) f32 values, i32 rows.
+
+    The TPU kernel runs k rounds of (max, first argmax, knock the winner out
+    to -1e30) over each block's scores. While a live row remains that is the
+    block's top-k ordered by value, then lower row; once only -1e30 is left
+    every round picks the block's first row again (the knock-out value equals
+    the masked score), so those slots hold (-1e30, block start)."""
+    B = q.shape[0]
+    N = E.shape[0]
+    G = N // block_rows
+    out_v = torch.empty((G, B, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((G, B, k), dtype=torch.int32, device=q.device)
+    per = max(1, _SCORE_BUDGET // (B * block_rows))
+    for g0 in range(0, G, per):
+        g1 = min(G, g0 + per)
+        lo, hi = g0 * block_rows, g1 * block_rows
+        s = dense_scores(q, E[lo:hi], valid[lo:hi])
+        s = s.reshape(B, g1 - g0, block_rows).transpose(0, 1).reshape(-1, block_rows)
+        v, pos = top_k(s, k)
+        pos = torch.where(v > NEG, pos, 0)
+        base = torch.arange(g0, g1, device=q.device) * block_rows
+        out_v[g0:g1] = v.reshape(g1 - g0, B, k)
+        out_i[g0:g1] = (pos.reshape(g1 - g0, B, k) + base[:, None, None]).to(torch.int32)
+    return out_v, out_i
+
+
+def exact_topk_cuda(q: torch.Tensor, E: torch.Tensor, valid: torch.Tensor,
+                    k: int, block_rows: int = 2048):
+    """Launch the CUDA block top-k kernel (csrc/exact_topk.cu): (G, B, k)."""
+    B, D = q.shape
+    N = E.shape[0]
+    if q.device.type != "cuda" or E.device != q.device or valid.device != q.device:
+        raise ValueError(f"exact_topk_cuda needs CUDA tensors on one card, got {q.device}")
+    if q.dtype != torch.bfloat16 or E.dtype != torch.bfloat16 or valid.dtype != torch.float32:
+        raise ValueError("exact_topk_cuda takes bf16 q and E and f32 valid")
+    if not (q.is_contiguous() and E.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("exact_topk_cuda takes contiguous tensors")
+    if E.shape[1] != D or valid.shape != (N,) or D % 16:
+        raise ValueError(f"shapes q {tuple(q.shape)}, E {tuple(E.shape)}: D % 16 != 0 or mismatch")
+    if block_rows % 64 or block_rows > 2048 or N % block_rows or not 1 <= k <= block_rows:
+        raise ValueError(f"block_rows {block_rows} (a multiple of 64, <= 2048, "
+                         f"dividing N={N}) and 1 <= k={k} <= block_rows")
+    G = N // block_rows
+    if G >= 1 << 16:
+        raise ValueError(f"{G} row blocks: at most 65,535 per launch")
+    out_v = torch.empty((G, B, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((G, B, k), dtype=torch.int32, device=q.device)
+    if B == 0 or G == 0:
+        return out_v, out_i
+    lib = _build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.yt_exact_topk(q.data_ptr(), E.data_ptr(), valid.data_ptr(),
+                            out_v.data_ptr(), out_i.data_ptr(),
+                            B, N, D, k, block_rows, stream)
+    exact_topk_cuda.launches += 1
+    _build.check(err, "exact_topk_cuda")
+    return out_v, out_i
+
+
+exact_topk_cuda.launches = 0
+
+
+def exact_topk_pallas(queries: torch.Tensor, corpus: torch.Tensor,
+                      valid: torch.Tensor, k: int, block_rows: int = 2048):
+    """Fused scan: only (G, B, k) candidates leave the block step; a top-k
+    over them merges the blocks. Same results as exact_topk_scan."""
+    B = queries.shape[0]
+    N = corpus.shape[0]
+    if N % block_rows:
+        raise ValueError(f"N={N} % block_rows={block_rows} != 0")
+    q = queries.to(torch.bfloat16).contiguous()
+    E = corpus.to(torch.bfloat16)
+    if queries.device.type == "cuda":
+        vals, idx = exact_topk_cuda(q, E, valid, k, block_rows)
+    elif queries.device.type == "cpu":
+        vals, idx = exact_topk_reference(q, E, valid, k, block_rows)
+    else:
+        raise ValueError(f"exact_topk_pallas: unsupported device {queries.device}")
+    G = N // block_rows
+    cat_v = vals.transpose(0, 1).reshape(B, G * k)
+    cat_i = idx.transpose(0, 1).reshape(B, G * k)
+    out_v, pos = top_k(cat_v, k)
+    return out_v, cat_i.gather(1, pos)

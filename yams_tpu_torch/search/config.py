@@ -1,4 +1,5 @@
-"""SearchEngineConfig, the reference's own dataclass.
+"""SearchEngineConfig, the reference's own dataclass (and VectorIndexConfig,
+re-exported from yams_tpu.core.config, which imports no jax).
 
 `import yams_tpu.search.config` would run `yams_tpu/search/__init__.py`,
 which imports the JAX engine. The file itself imports only dataclasses, so
@@ -11,6 +12,8 @@ from __future__ import annotations
 import importlib.util
 import pathlib
 import sys
+
+from yams_tpu.core.config import VectorIndexConfig
 
 _NAME = __name__ + "._reference"
 
@@ -31,4 +34,4 @@ def _load_reference():
 
 SearchEngineConfig = _load_reference().SearchEngineConfig
 
-__all__ = ["SearchEngineConfig"]
+__all__ = ["SearchEngineConfig", "VectorIndexConfig"]

@@ -3,15 +3,22 @@
 Port of yams_tpu/search/engine.py for the path a first search takes:
 `add_document(s)` (host tokenization, Simeon embeddings, index updates),
 `search` / `search_batch` on the dense tier (search_batch's default branch,
-engine.py:592-1020) and the result glue (:1137-1216). The host state is
-yams_tpu's own VectorIndex / LexicalIndex (subclassed for their torch device
-views), so both engines hold identical state for identical adds.
+engine.py:592-1020), the PQ capacity tier (`ensure_pq` and search_batch's
+`use_pq` branch, engine.py:498-535, 849-897) and the result glue
+(:1137-1216). The host state is yams_tpu's own VectorIndex / LexicalIndex
+(subclassed for their torch device views), so both engines hold identical
+state for identical adds.
+
+The PQ tier's vector leg is `VectorIndex.search_pq` with the doc mask
+always pushed into the scan (all ones over the used slots when unfiltered),
+as in the reference, so it runs the plain pq_adc_topk and never the K4
+kernel, whose route is the unfiltered scan only.
 
 Not ported, and refused loudly (NotImplementedError) rather than skipped:
-topology routing, the KG and graph legs, the search tuner, the PQ tier,
-sharded serving, the narrow gather tier, late interaction (ColBERT) and
-fragment geometry, intent-adaptive weighting and semantic rescue. The
-hotzone (feedback) state is not ported either: its boost vector is zero.
+topology routing, the KG and graph legs, the search tuner, sharded serving,
+the narrow gather tier, late interaction (ColBERT) and fragment geometry,
+intent-adaptive weighting and semantic rescue. The hotzone (feedback) state
+is not ported either: its boost vector is zero.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ from ..embed.provider import SimeonProvider
 from ..index.lexical_index import LexicalIndex
 from ..index.vector_index import VectorIndex
 from .config import SearchEngineConfig
-from .fusion import W_TEXT, W_VEC, hybrid_query, pack_weights
+from .fusion import (NEG, W_TEXT, W_VEC, hybrid_fuse_precomputed, hybrid_query,
+                     pack_weights)
 
 
 @dataclasses.dataclass(slots=True)
@@ -52,6 +60,36 @@ def _round_pow2(x: int, floor: int = 1024) -> int:
     return n
 
 
+def _aggregate_pq_candidates(
+    vals: np.ndarray, slots: np.ndarray, num_slots: int, chunk_agg: str,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Chunk->doc aggregation of the PQ tier's host-side candidate list
+    (max | sum | topk_avg | weighted_topk_avg over the candidate window).
+    Returns (values, slots) sorted by aggregated score descending. A copy of
+    the reference's function: its module imports jax."""
+    ok = (slots >= 0) & (slots < num_slots) & (vals > -1e29)
+    v, s = vals[ok].astype(np.float32), slots[ok]
+    if not len(s):
+        return v, s
+    uniq, inv = np.unique(s, return_inverse=True)
+    m1 = np.full(len(uniq), -1e30, np.float32)
+    np.maximum.at(m1, inv, v)
+    if chunk_agg == "sum":
+        agg = np.zeros(len(uniq), np.float32)
+        np.add.at(agg, inv, np.maximum(v, 0.0))
+    elif chunk_agg in ("topk_avg", "weighted_topk_avg"):
+        v2 = np.where(v >= m1[inv], -np.float32(1e30), v)
+        m2 = np.full(len(uniq), -1e30, np.float32)
+        np.maximum.at(m2, inv, v2)
+        m2 = np.where(m2 <= -1e29, m1, m2)  # single-chunk docs
+        agg = ((m1 + m2) * 0.5 if chunk_agg == "topk_avg"
+               else (m1 + 0.5 * m2) / 1.5)
+    else:  # max (default)
+        agg = m1
+    order = np.argsort(-agg, kind="stable")
+    return agg[order], uniq[order].astype(np.int32)
+
+
 class SearchEngine:
     def __init__(
         self,
@@ -66,18 +104,21 @@ class SearchEngine:
         self.config = config or SearchEngineConfig()
         self.provider = SimeonProvider(embedding, device=self.device)
         vcfg = vector or VectorIndexConfig(dim=self.provider.dim)
-        if str(vcfg.engine) != "dense" or vcfg.dtype != "bfloat16":
+        if str(vcfg.engine) not in ("dense", "pq", "pq4") or vcfg.dtype != "bfloat16":
             raise NotImplementedError(
-                f"vector engine {vcfg.engine!r}/{vcfg.dtype!r}: only dense bf16 is ported")
+                f"vector engine {vcfg.engine!r}/{vcfg.dtype!r}: only the bf16 "
+                "dense, pq and pq4 engines are ported")
         self.vector_config = vcfg
         self.vector_index = VectorIndex(
             dim=self.provider.dim,
             capacity=vcfg.capacity,
             block_rows=vcfg.block_rows,
             space_id=self.provider.space_id,
+            device=self.device,
         )
         self.lexical_index = LexicalIndex(lexical)
         self.last_trace: dict | None = None
+        self._proj_host: np.ndarray | None = None
         # doc identity: external doc_id <-> dense slot
         self._slot_by_doc: dict[int, int] = {}
         self._doc_by_slot: list[int] = []
@@ -129,6 +170,38 @@ class SearchEngine:
             self.vector_index.add(self.provider.encode(all_texts), vec_slots)
         return counts
 
+    # -- PQ engine lifecycle ----------------------------------------------------
+    def ensure_pq(self) -> bool:
+        """Build/refresh PQ codebooks when a pq engine is configured
+        (VectorIndexConfig.engine = 'pq' | 'pq4'): first once active rows
+        reach pq_min_rows, again when the corpus has doubled since the last
+        build. Returns True if a (re)build ran."""
+        vcfg = self.vector_config
+        if not str(vcfg.engine).startswith("pq"):
+            return False
+        idx = self.vector_index
+        n = idx.active_rows
+        if n < max(vcfg.pq_min_rows, 2):
+            return False
+        built = getattr(idx, "_pq_built_rows", 0)
+        if idx.has_pq and n < 2 * max(built, 1):
+            return False
+        pack4 = vcfg.engine == "pq4"
+        group = vcfg.pq_group
+        if group == 0:  # auto: grouped windows only where the sort dominates
+            group = 64 if n >= 1_000_000 and idx.block_rows % 64 == 0 else 1
+        idx.build_pq(
+            m=vcfg.pq_m,
+            ksub=min(vcfg.pq_ksub, 16) if pack4 else vcfg.pq_ksub,
+            train_limit=vcfg.pq_train_limit,
+            rerank_factor=vcfg.pq_rerank_factor,
+            pack4=pack4,
+            group=group,
+        )
+        idx._pq_built_rows = n
+        idx._pq_sel_width = int(self.config.approx_sel_width)
+        return True
+
     # -- search ---------------------------------------------------------------------
     def search(self, query: str, k: int = 10, mode: str = "hybrid",
                filter_doc_ids: set[int] | None = None,
@@ -138,8 +211,6 @@ class SearchEngine:
     def _refuse_unported(self, cfg, mode, intent) -> None:
         if cfg.tuner_enabled:
             raise NotImplementedError("search tuner is not ported")
-        if cfg.pq_tier_enabled and self.vector_index.has_pq:
-            raise NotImplementedError("PQ capacity tier is not ported")
         if cfg.topology_policy not in ("off", "shadow"):
             # "shadow" without a topology build is "off" in the reference
             raise NotImplementedError(
@@ -150,6 +221,41 @@ class SearchEngine:
         if cfg.semantic_rescue_slots > 0:
             raise NotImplementedError("semantic rescue slots are not ported")
 
+    def _pq_candidates(self, sketches, proj, B_real, B, rrf_c, Nd, doc_mask,
+                       mask_idx, mode):
+        """The PQ tier's vector leg: ADC scan with the doc mask pushed in,
+        host rerank, chunk -> doc aggregation -> ((B, rrf_c) values,
+        (B, rrf_c) slots, sink Nd where empty)."""
+        vv = np.full((B, rrf_c), NEG, np.float32)
+        vs = np.full((B, rrf_c), Nd, np.int32)
+        if mode == "keyword":
+            return vv, vs
+        # query vectors on the host: sketch @ proj, L2-normalized
+        ph = self._proj_host
+        if ph is None or ph.shape[0] != sketches.shape[1]:
+            ph = self._proj_host = proj.float().cpu().numpy()
+        qv = sketches[:B_real].astype(np.float32) @ ph
+        qv /= np.maximum(np.linalg.norm(qv, axis=1, keepdims=True), 1e-9)
+        if mask_idx is not None:
+            dmq = doc_mask[mask_idx[:B_real]]
+        elif doc_mask.ndim == 1:
+            dmq = doc_mask
+        else:
+            dmq = doc_mask[:B_real]
+        vi = self.vector_index
+        pvals, prows = vi.search_pq(qv, k=rrf_c, rerank="host", doc_mask=dmq)
+        pslots = np.where(
+            prows >= 0,
+            vi.slots_of_rows(np.maximum(prows, 0).reshape(-1)).reshape(prows.shape),
+            -1)
+        for i in range(B_real):
+            vals_i, slots_i = _aggregate_pq_candidates(
+                pvals[i], pslots[i], Nd, self.config.chunk_agg)
+            n_i = min(len(vals_i), rrf_c)
+            vv[i, :n_i] = vals_i[:n_i]
+            vs[i, :n_i] = slots_i[:n_i]
+        return vv, vs
+
     def search_batch(
         self,
         queries: list[str],
@@ -159,7 +265,7 @@ class SearchEngine:
         intent: str | None = None,
         per_query_filters: list[set[int] | None] | None = None,
     ) -> list[list[SearchResult]]:
-        """Batched hybrid search on the dense tier (see yams_tpu's
+        """Batched hybrid search on the dense or the PQ tier (see yams_tpu's
         SearchEngine.search_batch for the argument contract)."""
         t0 = time.monotonic()
         trace: dict = {"query_count": len(queries), "mode": mode, "stages": {}}
@@ -198,7 +304,9 @@ class SearchEngine:
         elif mode == "vector":
             w[W_TEXT] = 0.0
 
-        E, row_valid, row2slot, row_scale = self.vector_index.device_arrays(dev)
+        # PQ capacity tier: the dense matrix never reaches the device; the
+        # vector leg runs as ADC scan + host rerank outside the fused query
+        use_pq = cfg.pq_tier_enabled and self.vector_index.has_pq
         bm = self.lexical_index.device_arrays(Nd, dev)
         n_used = len(self._doc_by_slot)
 
@@ -252,37 +360,53 @@ class SearchEngine:
             if tail > cfg.prefilter_max_tail_ratio:
                 trace["prefilter_disabled_tail_ratio"] = round(tail, 3)
                 lex_prefilter = 0
-        rows = E.shape[0]
-        flat = self.vector_index.identity_layout and rows >= Nd
-        scale_opts: dict = {}
-        if lex_prefilter:
-            scale_opts["bm25_prefilter"] = lex_prefilter
-        if flat:
-            scale_opts["rows_are_docs"] = True
-            if (rows > cfg.streaming_threshold
-                    and rows % cfg.streaming_block_rows == 0):
-                scale_opts["scan_block_rows"] = cfg.streaming_block_rows
         use_packed = bm.packed is not None
+        lexical = (bm.packed if use_packed else bm.postings_doc,
+                   bm.impact_scale if use_packed else bm.postings_impact,
+                   bm.term_offsets, bm.term_lengths)
 
         def to_dev(a: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(a).to(dev)
 
-        vals, slots, bm_at, vec_at = hybrid_query(
-            to_dev(sketches.astype(np.float32)), to_dev(tids), to_dev(tmask),
-            proj, E, row_valid, row2slot, row_scale,
-            bm.packed if use_packed else bm.postings_doc,
-            bm.impact_scale if use_packed else bm.postings_impact,
-            bm.term_offsets, bm.term_lengths,
-            to_dev(doc_mask), hot, to_dev(w),
-            to_dev(mask_idx) if mask_idx is not None else None,
-            k=k_dev,
-            rrf_cand=rrf_c,
-            window=self.lexical_index.config.postings_window,
-            num_slots=Nd,
-            chunk_agg=cfg.chunk_agg,
-            packed_lexical=use_packed,
-            **scale_opts,
-        )
+        if use_pq:
+            vv, vs = self._pq_candidates(sketches, proj, B_real, B, rrf_c, Nd,
+                                         doc_mask, mask_idx, mode)
+            vals, slots, bm_at, vec_at = hybrid_fuse_precomputed(
+                to_dev(tids), to_dev(tmask), *lexical,
+                to_dev(doc_mask), hot, to_dev(w), to_dev(vv), to_dev(vs),
+                to_dev(mask_idx) if mask_idx is not None else None,
+                k=k_dev,
+                rrf_cand=rrf_c,
+                window=self.lexical_index.config.postings_window,
+                num_slots=Nd,
+                bm25_prefilter=lex_prefilter,
+                packed_lexical=use_packed,
+            )
+        else:
+            E, row_valid, row2slot, row_scale = self.vector_index.device_arrays()
+            rows = E.shape[0]
+            flat = self.vector_index.identity_layout and rows >= Nd
+            scale_opts: dict = {}
+            if lex_prefilter:
+                scale_opts["bm25_prefilter"] = lex_prefilter
+            if flat:
+                scale_opts["rows_are_docs"] = True
+                if (rows > cfg.streaming_threshold
+                        and rows % cfg.streaming_block_rows == 0):
+                    scale_opts["scan_block_rows"] = cfg.streaming_block_rows
+            vals, slots, bm_at, vec_at = hybrid_query(
+                to_dev(sketches.astype(np.float32)), to_dev(tids), to_dev(tmask),
+                proj, E, row_valid, row2slot, row_scale, *lexical,
+                to_dev(doc_mask), hot, to_dev(w),
+                to_dev(mask_idx) if mask_idx is not None else None,
+                k=k_dev,
+                rrf_cand=rrf_c,
+                window=self.lexical_index.config.postings_window,
+                num_slots=Nd,
+                chunk_agg=cfg.chunk_agg,
+                packed_lexical=use_packed,
+                **scale_opts,
+            )
         vals, slots, bm_at, vec_at = (
             t[:B_real].cpu().numpy() for t in (vals, slots, bm_at, vec_at))
         trace["stages"]["device_ms"] = (time.monotonic() - t_dev) * 1e3

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..ops.bm25 import bm25_topk_candidates, bm25_topk_candidates_packed
+from ..ops.scan import dot_f32
 from ..ops.select import prefix_sum, top_k
 
 NEG = -1e30
@@ -54,21 +55,6 @@ def pack_weights(cfg) -> np.ndarray:
     w[W_LEG_ADAPT] = getattr(cfg, "leg_adaptive", 0.0)
     w[W_CONF_MARGIN] = getattr(cfg, "leg_conf_margin", 0.0)
     return w
-
-
-def dot_f32(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
-    """a @ b_t.T with bf16-rounded operands and f32 scores.
-
-    A bf16 matmul that returns bf16 would round the scores and reorder
-    near-ties on a clustered corpus. On CUDA this is cuBLAS with an f32
-    output (torch.mm(..., out_dtype=float32)); on the CPU, which has no
-    such mm, it is an f32 matmul over the bf16-rounded values (bf16
-    products are exact in f32, so only the summation order differs)."""
-    a16 = a.to(torch.bfloat16)
-    b16 = b_t.to(torch.bfloat16)
-    if a.device.type == "cuda":
-        return torch.mm(a16, b16.t(), out_dtype=torch.float32)
-    return torch.mm(a16.float(), b16.float().t())
 
 
 def hybrid_query(
