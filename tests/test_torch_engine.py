@@ -9,11 +9,12 @@
   see tests/test_torch_fusion.py).
 - Add: the port's ContentStore device tier, forced on the CPU, writes the same
   manifest as the reference's host path; a payload it declines goes to the
-  host tiers without touching yams_tpu's module state.
+  port's own host tiers, and no yams_tpu module is loaded.
 - PQ tier: the reference's TestPQTier scenarios (tests/test_engine_scale.py)
   on a yams_tpu engine and on a port engine that got its state, codebook
   included, through convert: the same top-k ids.
-- No JAX: the slice runs in a fresh interpreter without importing jax.
+- No reference: the slice runs in a fresh interpreter without importing jax
+  or any module of yams_tpu.
 """
 
 import dataclasses
@@ -143,7 +144,8 @@ def test_content_store_device_tier_matches_reference_host_path(tmp_path, monkeyp
     port = ContentStore(tmp_path / "port", chunking=chunking, device="cpu")
     got = port.store_bytes(data)
     assert got.phase_timings_ms.get("device_tier") == 1.0
-    assert port.refcounter.get_manifest(got.content_hash) == want_manifest
+    assert port.refcounter.get_manifest(got.content_hash).to_dict() == \
+        want_manifest.to_dict()
     assert port.retrieve_bytes(got.content_hash) == data
     again = port.store_bytes(data)                 # whole-content dedup
     assert again.content_hash == got.content_hash and again.bytes_stored == 0
@@ -191,11 +193,16 @@ def test_small_store_goes_to_parent_without_jax(tmp_path):
     assert out.strip() == "False"
 
 
+REFERENCE_ROOTS = ("yams_tpu", "jax", "jaxlib", "flax")
+LOADED = ("sorted(m for m in sys.modules if m.split('.')[0] in "
+          f"{REFERENCE_ROOTS!r})")
+
+
 def test_large_cpu_store_skips_reference_device_tier(tmp_path):
     """A payload at the device threshold that the port declines (its device
-    is the CPU) reaches the reference's host tiers only: the reference's own
-    device check would import jax and run the JAX tier. The threshold is
-    lowered to 64 KiB to keep the payload small; both tiers read it."""
+    is the CPU) reaches the port's own host tiers, and no module of
+    yams_tpu, jax, jaxlib or flax is loaded. The threshold is lowered to
+    64 KiB to keep the payload small."""
     out = _run_fresh(f"""
         import os, sys
         os.environ.pop("YAMS_DEVICE_INGEST", None)
@@ -209,42 +216,53 @@ def test_large_cpu_store_skips_reference_device_tier(tmp_path):
         assert "device_tier" not in res.phase_timings_ms
         assert cs.retrieve_bytes(res.content_hash) == data
         cs.close()
-        print("jax" in sys.modules)
+        print({LOADED})
     """)
-    assert out.strip() == "False"
+    assert out.strip() == "[]"
 
 
 def test_chip_smoke_imports_only_the_port():
     """The card's smoke, every phase of it, imports only yams_tpu_torch,
-    torch, numpy and the standard library."""
+    torch, numpy and the standard library, directly; importing it, and the
+    port modules its phases import, loads no module of yams_tpu, jax,
+    jaxlib or flax."""
     import ast
 
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
-    roots = set()
+    roots, port_modules = set(), set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             roots |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom):
             roots.add(node.module.split(".")[0])
+            if node.module.startswith("yams_tpu_torch"):
+                port_modules.add(node.module)
     assert "yams_tpu_torch" in roots
-    assert not roots & {"yams_tpu", "jax", "jaxlib"}, roots
+    assert not roots & set(REFERENCE_ROOTS), roots
     others = roots - {"yams_tpu_torch", "torch", "numpy", "__future__"}
     assert others <= set(sys.stdlib_module_names), others
+    out = _run_fresh(f"""
+        import importlib, sys
+        import chip_smoke
+        for name in {sorted(port_modules)!r}:
+            importlib.import_module(name)
+        print({LOADED})
+    """)
+    assert out.strip() == "[]"
 
 
 def test_declined_store_leaves_reference_state_alone(tmp_path):
     """A port store on the CPU takes a small payload, then one just above the
-    device threshold (lowered to 64 KiB): both go to the host tiers, and
-    yams_tpu's device-tier backend cache is never written."""
+    device threshold (lowered to 64 KiB): both go to the port's host tiers,
+    and no module of yams_tpu (whose device tier keeps module state), jax,
+    jaxlib or flax is ever loaded."""
     out = _run_fresh(f"""
         import os, sys
         os.environ.pop("YAMS_DEVICE_INGEST", None)
         os.environ["YAMS_DEVICE_INGEST_MIN"] = "65536"
         import numpy as np
-        import yams_tpu.ingest.device_pipeline as ref_tier
         from yams_tpu_torch.ingest.device_pipeline import DEVICE_MIN_BYTES
         from yams_tpu_torch.storage.content_store import ContentStore
-        before = ref_tier._backend_cache
         cs = ContentStore({str(tmp_path)!r}, device="cpu")
         rng = np.random.default_rng(4)
         for n in (5_000, DEVICE_MIN_BYTES + 1):
@@ -253,9 +271,9 @@ def test_declined_store_leaves_reference_state_alone(tmp_path):
             assert "device_tier" not in res.phase_timings_ms
             assert cs.retrieve_bytes(res.content_hash) == data
         cs.close()
-        print(before, ref_tier._backend_cache, "jax" in sys.modules)
+        print({LOADED})
     """)
-    assert out.split() == ["None", "None", "False"]
+    assert out.strip() == "[]"
 
 
 # -- PQ capacity tier ------------------------------------------------------------

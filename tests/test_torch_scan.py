@@ -1,12 +1,18 @@
-"""Port parity: the exact KNN scan and its block kernel K3 (ops/scan.py).
+"""Port parity: the exact KNN scan and its block kernel K3, and the
+grouped-max scan K1 (ops/scan.py).
 
 Seeded NumPy corpora go through yams_tpu's dense_scores / exact_topk_scan /
-exact_topk_pallas (the Pallas kernel in interpret mode on the CPU, as
-tests/test_ops.py runs it) and the port's, whose block step on a CPU tensor
-is the plain twin `exact_topk_reference`. Values agree to 1e-5 (f32 sums of
-bf16 products in another order); ids agree wherever the value is above
--1e29, and the K3 block step's -1e30 slots hold the same repeated block
-start (hazard H2: the knock-out value equals the masked score).
+exact_topk_pallas / grouped_topk_pallas (the Pallas kernels in interpret
+mode on the CPU, as tests/test_ops.py runs them) and the port's, whose
+block and group steps on a CPU tensor are the plain twins
+`exact_topk_reference` and `grouped_max_reference`. Values agree to 1e-5
+(f32 sums of bf16 products in another order); ids agree wherever the value
+is above -1e29 except at near-ties (the two true scores within 1e-5), and
+the -1e30 slots hold the TPU's rows: K3's repeated block start (hazard H2:
+the knock-out value equals the masked score), K1's last row of a dead group
+(its argmax takes the last lane among equal maxima). K1's result does not
+depend on its block_rows (a layout on the TPU), so one twin is held against
+the kernel at block_rows 1,024, 2,048 and 4,096.
 """
 
 import functools
@@ -138,3 +144,125 @@ def test_exact_topk_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         port_scan.exact_topk_cuda(_t(q, torch.bfloat16), _t(E, torch.bfloat16),
                                   _t(valid), 10, BR)
+
+
+# -- K1: per-group max / last argmax, and grouped_topk_pallas -------------------
+GN = 8192
+GROUPS = (64, 128, 256)
+BLOCKS = (1024, 2048, 4096)
+K1_CASES = ("random", "dead_group", "duplicates", "last_lane_tie")
+
+
+def _k1_inputs(case: str, seed: int = 1):
+    rng = np.random.default_rng(seed)
+    E = _unit(rng.standard_normal((GN, D)))
+    q = _unit(rng.standard_normal((B, D)))
+    valid = np.ones(GN, np.float32)
+    valid[rng.random(GN) < 0.05] = 0.0
+    if case == "dead_group":        # whole groups with no live row, at every group size
+        valid[1024:2048] = 0.0
+    elif case == "duplicates":      # two copies of q[b] in one group: the later wins
+        for b in range(B):
+            E[[11 + b, 40 + b, 3000 + b]] = q[b]
+            valid[[11 + b, 40 + b, 3000 + b]] = 1.0
+    elif case == "last_lane_tie":   # every row of a 256-row run equal: the group's last wins
+        E[2048:2304] = E[2048]
+        valid[2048:2304] = 1.0
+    return q, E, valid
+
+
+def _ref_groups(q, E, valid, group, block_rows):
+    """The reference's K1 step alone, transposed to (B, N/group)."""
+    G, nsub = GN // block_rows, block_rows // group
+    v, i = pl.pallas_call(
+        functools.partial(ref_scan._grouped_max_kernel, group=group),
+        grid=(G,),
+        in_specs=[pl.BlockSpec((B, D), lambda g: (0, 0)),
+                  pl.BlockSpec((block_rows, D), lambda g: (g, 0)),
+                  pl.BlockSpec((block_rows,), lambda g: (g,))],
+        out_specs=(pl.BlockSpec((1, B, nsub), lambda g: (g, 0, 0)),
+                   pl.BlockSpec((1, B, nsub), lambda g: (g, 0, 0))),
+        out_shape=(jax.ShapeDtypeStruct((G, B, nsub), jnp.float32),
+                   jax.ShapeDtypeStruct((G, B, nsub), jnp.int32)),
+        interpret=True,
+    )(jnp.asarray(q, jnp.bfloat16), jnp.asarray(E, jnp.bfloat16), jnp.asarray(valid))
+    return (np.asarray(v).transpose(1, 0, 2).reshape(B, -1),
+            np.asarray(i).transpose(1, 0, 2).reshape(B, -1))
+
+
+def _assert_same_winners(got_v, got_i, want_v, want_i, q, E, valid):
+    """Values to 1e-5; ids equal, except a live id whose true (f64) score is
+    within 1e-5 of the reference's id's (a near-tie)."""
+    got_v, got_i = np.asarray(got_v), np.asarray(got_i)
+    np.testing.assert_allclose(got_v, want_v, atol=1e-5, rtol=0)
+    diff = got_i != want_i
+    assert not (diff & (want_v <= -1e29)).any(), "dead slots must match exactly"
+    qb = np.asarray(jnp.asarray(q, jnp.bfloat16), np.float64)
+    eb = np.asarray(jnp.asarray(E, jnp.bfloat16), np.float64)
+    for b, c in zip(*np.nonzero(diff)):
+        s_got, s_want = qb[b] @ eb[got_i[b, c]], qb[b] @ eb[want_i[b, c]]
+        assert abs(s_got - s_want) <= 1e-5 and valid[got_i[b, c]] > 0, (b, c)
+
+
+@pytest.mark.parametrize("block_rows", BLOCKS)
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("case", K1_CASES)
+def test_k1_group_twin_matches_pallas_interpret(case, group, block_rows):
+    q, E, valid = _k1_inputs(case)
+    want_v, want_i = _ref_groups(q, E, valid, group, block_rows)
+    got_v, got_i = port_scan.grouped_max_reference(
+        _t(q, torch.bfloat16), _t(E, torch.bfloat16), _t(valid), group)
+    _assert_same_winners(got_v, got_i, want_v, want_i, q, E, valid)
+    dead = want_v <= -1e29
+    if case == "dead_group":        # (-1e30, the group's last row)
+        cols = np.arange(1024 // group, 2048 // group)
+        assert dead[:, cols].all()
+        assert (got_i.numpy()[:, cols] == cols * group + group - 1).all()
+    elif case == "duplicates":
+        for b in range(B):
+            assert got_i[b, (40 + b) // group] == 40 + b
+    elif case == "last_lane_tie":
+        cols = np.arange(2048 // group, 2304 // group)
+        assert (got_i.numpy()[:, cols] == cols * group + group - 1).all()
+
+
+@pytest.mark.parametrize("block_rows", BLOCKS)
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("case", K1_CASES)
+def test_grouped_topk_pallas_matches_reference(case, group, block_rows):
+    q, E, valid = _k1_inputs(case)
+    want_v, want_i = ref_scan.grouped_topk_pallas(
+        jnp.asarray(q), jnp.asarray(E, jnp.bfloat16), jnp.asarray(valid), k=8,
+        block_rows=block_rows, group=group, interpret=True)
+    got_v, got_i = port_scan.grouped_topk_pallas(
+        _t(q), _t(E, torch.bfloat16), _t(valid), 8, block_rows=block_rows, group=group)
+    _assert_same_winners(got_v, got_i, np.asarray(want_v), np.asarray(want_i), q, E, valid)
+    assert np.all(valid[got_i.numpy()] > 0)          # masked rows never surface
+    assert got_i.dtype == torch.int32
+
+
+def test_grouped_topk_pallas_checks_its_layout():
+    q, E, valid = _k1_inputs("random")
+    with pytest.raises(ValueError):
+        port_scan.grouped_topk_pallas(_t(q), _t(E), _t(valid), 8, block_rows=3000, group=64)
+    with pytest.raises(ValueError):
+        port_scan.grouped_topk_pallas(_t(q), _t(E), _t(valid), 8, block_rows=1024, group=96)
+
+
+def test_grouped_max_cuda_refuses_cpu_tensors():
+    q, E, valid = _k1_inputs("random")
+    with pytest.raises(ValueError, match="CUDA"):
+        port_scan.grouped_max_cuda(_t(q, torch.bfloat16), _t(E, torch.bfloat16),
+                                   _t(valid), 256)
+
+
+def test_profile_grouped_runs_tiny_on_the_cpu():
+    from yams_tpu_torch.scripts import profile_grouped
+
+    r = profile_grouped.run(N=8000, D=64, B=8, iters=2, block=1024, group=64,
+                            windows=1, device="cpu")
+    assert r["device"] == "cpu" and r["shape"]["N"] == 8192
+    assert r["kernel_qps"] > 0 and r["matmul_topc_qps"] > 0
+    assert r["matmul_topc_recall10"] == 1.0           # its top-C is exact
+    assert 0.5 <= r["kernel_recall10"] <= 1.0
+    assert r["overlap10"] == r["kernel_recall10"]     # the matmul path is the oracle

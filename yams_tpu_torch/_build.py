@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (`csrc/*.cu`).
 
-nvcc compiles every source in `csrc/` into one shared library with a plain C
-interface for sm_90a (Hopper), at first use, into `_build/` beside this file.
+nvcc compiles every source in `csrc/` for sm_90a (Hopper), one process per
+source, all started together, and links the objects into one shared library
+with a plain C interface, at first use, into `_build/` beside this file.
 The file name carries a hash of the sources and flags, so an edited kernel
 builds anew and a stale library is never loaded. The library is bound with
 ctypes: every pointer and the stream pass as c_void_p, counts as c_int64, and
@@ -23,7 +24,7 @@ _HERE = pathlib.Path(__file__).parent
 _SRC_DIR = _HERE / "csrc"
 _BUILD_DIR = _HERE / "_build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC")
+          "-Xcompiler", "-fPIC")
 
 # (name, argtypes): every entry point returns int (a cudaError_t)
 _P = ctypes.c_void_p
@@ -33,6 +34,8 @@ _SIGNATURES = {
     "yt_sha256_rows": (_P, _P, _P, _P, _I64, _P),
     "yt_exact_topk": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P),
     "yt_pq4_adc": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
+    "yt_grouped_max": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
+    "yt_windowed_scan": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
 }
 
 _lock = threading.Lock()
@@ -62,19 +65,42 @@ def library_path() -> pathlib.Path:
 
 
 def build() -> pathlib.Path:
-    """Compile csrc/*.cu unless the hashed library already exists."""
+    """Compile csrc/*.cu unless the hashed library already exists: one nvcc
+    per source, in parallel, then one link."""
     out = library_path()
     if out.exists():
         return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    tmp_dir = _BUILD_DIR / f"obj.{os.getpid()}"
+    tmp_dir.mkdir(parents=True, exist_ok=True)
+    procs: list[subprocess.Popen] = []
+    try:
+        nvcc = _nvcc()
+        sources = [src for src in _sources() if src.suffix == ".cu"]
+        objs = [str(tmp_dir / f"{src.stem}.o") for src in sources]
+        compiles = [[nvcc, *_FLAGS, "-c", str(src), "-o", obj]
+                    for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in compiles]
+        failed = []
+        for cmd, proc in zip(compiles, procs):
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)} -> {proc.returncode}\n{stdout}\n{stderr}")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        if not failed:
+            link = [nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), *objs]
+            proc = subprocess.run(link, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(link)} -> {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(tmp, out)
+    finally:
+        for proc in procs:          # none is left running, whatever raised
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return out
 
 

@@ -2,8 +2,9 @@
 
 Port of yams_tpu/embed/provider.py `SimeonProvider` with the pieces of
 yams_tpu/embed/simeon.py `SimeonEncoder` it runs. Tokenization and the
-hashed n-gram sketch are the reference's host code (`sketch_texts`, which
-uses the native C++ sketch library when it builds, else Python). The
+hashed n-gram sketch are the port's copy of the reference's host code
+(embed/simeon.py `sketch_texts`, which runs the port's native C++ sketch
+library when it builds, else Python). The
 projection matrix is generated on the host with NumPy Philox exactly as the
 reference's `_R_host` does; the bf16 rounding of it and of the sketches is
 done by torch (`.bfloat16().float()`, round to nearest even) instead of
@@ -16,15 +17,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from yams_tpu.core.config import EmbeddingConfig
-from yams_tpu.embed.simeon import sketch_texts, tokenize
+from .. import native
+from ..core.config import EmbeddingConfig
+from ..device import resolve_device
+from .simeon import sketch_texts, tokenize
 
 
 def native_sketch_available() -> bool:
     """Whether `sketch_texts` runs the native C++ sketch library (built with
     the host compiler on first use) rather than its Python fallback."""
-    from yams_tpu import native
-    return native.get_native() is not None
+    return native.sketch_library() is not None
 
 
 def bf16_round(x: np.ndarray) -> np.ndarray:
@@ -48,9 +50,9 @@ class SimeonProvider:
     name = "simeon"
 
     def __init__(self, config: EmbeddingConfig | None = None, *,
-                 device: torch.device):
+                 device: str | torch.device = "cuda"):
         self.config = config or EmbeddingConfig()
-        self.device = device
+        self.device = resolve_device(device)
         self._r_host: np.ndarray | None = None
         self._eye: torch.Tensor | None = None
         self._qvec_cache: dict[str, np.ndarray] = {}

@@ -1,15 +1,18 @@
-"""Vector index whose device view is torch tensors, with its search tiers.
+"""Vector index: host rows with a torch device view, and its search tiers.
 
-Port of yams_tpu/index/vector_index.py. The host state (f32 rows,
-validity, row -> doc slot map, free list, dirty-block sets) and the
-mutations that touch only it are the reference's VectorIndex, inherited.
-Everything that touched jax is ported here, on the index's device:
+Copied from yams_tpu/index/vector_index.py as a class of its own: the host
+state (capacity-padded f32 rows, validity, row -> doc slot map, free list,
+block-granular dirty sets, `upload_bytes_total`) and the mutations that
+touch only it (`add`, `remove_doc`, `_grow`, `_mark_dirty`, the identity
+layout check, `_gather_blocks`, `slots_of_rows`, `stats`). Everything that
+touched jax is ported, on the index's device (the card unless the caller
+asks for the CPU):
 
   - device_arrays: the dense bf16 view; after mutations only the dirty
     blocks are uploaded and spliced into copies (a reader may still hold the
     old tensors), counted in `upload_bytes_total` as the reference counts;
   - search: exact KNN, the plain scan or the block kernel K3;
-  - add: the reference's add, encoding new rows with the port's pq_encode;
+  - add: encodes new rows with the port's pq_encode once PQ is built;
   - build_pq / _pq_arrays / search_pq: the PQ tiers. The unfiltered grouped
     PQ4 scan goes to kernel K4 (`_use_pallas_adc`), everything else to the
     plain pq_adc_topk.
@@ -20,26 +23,86 @@ The int8 device tier, sharded views and persistence are not ported.
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 import torch
 
-from yams_tpu.core.errors import InvalidArgumentError
-from yams_tpu.index.vector_index import VectorIndex as _ReferenceIndex
-
+from ..core.errors import InvalidArgumentError
 from ..device import resolve_device
 from ..ops.pq import exact_rerank, pq4_pack, pq_adc_topk, pq_encode, pq_train
 from ..ops.pq_pallas import pq4_adc_topk_pallas
 from ..ops.scan import exact_topk_pallas, exact_topk_scan
 
 
-class VectorIndex(_ReferenceIndex):
-    def __init__(self, *args, device: str | torch.device, **kwargs):
-        super().__init__(*args, **kwargs)
-        if self.device_dtype != "bfloat16":
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class VectorIndex:
+    def __init__(
+        self,
+        dim: int,
+        capacity: int = 1 << 14,
+        block_rows: int = 2048,
+        space_id: str = "",
+        device_dtype: str = "bfloat16",
+        *,
+        device: str | torch.device = "cuda",
+    ):
+        if device_dtype != "bfloat16":
             raise NotImplementedError(
-                f"device_dtype={self.device_dtype!r}: only the bf16 tier is ported")
+                f"device_dtype={device_dtype!r}: only the bf16 tier is ported")
         self.device = resolve_device(device)
+        self.dim = dim
+        self.block_rows = block_rows
+        self.space_id = space_id
+        self.device_dtype = device_dtype
+        cap = _round_up(max(capacity, block_rows), block_rows)
+        self._vecs = np.zeros((cap, dim), dtype=np.float32)
+        self._valid = np.zeros(cap, dtype=np.float32)
+        self._slots = np.full(cap, -1, dtype=np.int32)  # row -> doc slot
+        self._count = 0  # high-water mark of used rows
+        self._free: list[int] = []
+        self._rows_by_slot: dict[int, list[int]] = {}
+        # block-granular dirty tracking: mutations record row//block_rows;
+        # device_arrays() re-uploads only dirty blocks unless a full rebuild
+        # (grow / first build) is pending
+        self._dirty_full = True
+        self._dirty_blocks: set[int] = set()
+        self._pq_dirty_blocks: set[int] = set()
+        self.upload_bytes_total = 0  # instrumentation: host->device traffic
+        self._device = None  # (E bf16, valid f32, row2slot i32, row_scale f32)
+        self.mutation_gen = 0  # bumps on every mutation
+        self._lock = threading.RLock()
+
+    # -- capacity ---------------------------------------------------------------
+    @property
+    def capacity(self) -> int:
+        return self._vecs.shape[0]
+
+    @property
+    def active_rows(self) -> int:
+        return int(self._valid.sum())
+
+    def _grow(self, need: int) -> None:
+        new_cap = self.capacity
+        while new_cap < need:
+            new_cap *= 2
+        add = new_cap - self.capacity
+        self._vecs = np.vstack([self._vecs, np.zeros((add, self.dim), np.float32)])
+        self._valid = np.concatenate([self._valid, np.zeros(add, np.float32)])
+        self._slots = np.concatenate([self._slots, np.full(add, -1, np.int32)])
+        self._dirty_full = True
+        if self.has_pq:
+            # keep codes capacity-sized (the scans reshape by block); new
+            # rows encode lazily in add()
+            self._pq_codes = np.vstack([
+                self._pq_codes,
+                np.zeros((add, self._pq_codes.shape[1]), np.uint8),
+            ])
+            self._pq_device = None        # device shapes changed: full
+            self._pq_valid_device = None  # re-upload on next _pq_arrays
 
     def _upload(self, a: np.ndarray, dtype: torch.dtype | None = None) -> torch.Tensor:
         """Host array -> a fresh tensor on the device (never a view of `a`)."""
@@ -94,7 +157,48 @@ class VectorIndex(_ReferenceIndex):
             self._mark_dirty(rows_np)
             return rows
 
-    # -- device view -------------------------------------------------------------
+    def remove_doc(self, doc_slot: int) -> int:
+        """Tombstone all rows of a doc slot; rows are recycled."""
+        with self._lock:
+            rows = self._rows_by_slot.pop(doc_slot, [])
+            if rows:
+                rows_np = np.array(rows, dtype=np.int64)
+                self._valid[rows_np] = 0.0
+                self._slots[rows_np] = -1
+                self._free.extend(rows)
+                self._mark_dirty(rows_np)
+            return len(rows)
+
+    def _mark_dirty(self, rows_np: np.ndarray) -> None:
+        self._identity = None
+        self.mutation_gen += 1
+        for b in np.unique(rows_np // self.block_rows):
+            self._dirty_blocks.add(int(b))
+            # PQ device state (codes/mask/rerank mirror) splices the same
+            # dirty blocks in _pq_arrays — never a full re-upload per add
+            self._pq_dirty_blocks.add(int(b))
+
+    def rows_for_slot(self, doc_slot: int) -> list[int]:
+        return list(self._rows_by_slot.get(doc_slot, []))
+
+    # -- device view ----------------------------------------------------------------
+    @property
+    def identity_layout(self) -> bool:
+        """True iff every live row's slot equals its row index (flat corpora:
+        exactly one vector per doc, no tombstones) — enables the engine's
+        rows_are_docs / streaming fast paths."""
+        with self._lock:
+            if getattr(self, "_identity", None) is None:
+                n = self._count
+                self._identity = bool(
+                    not self._free
+                    and np.all(self._valid[:n] == 1.0)
+                    and np.array_equal(
+                        self._slots[:n], np.arange(n, dtype=np.int32)
+                    )
+                )
+            return self._identity
+
     def device_arrays(self):
         """(E bf16 (cap, D), valid f32 (cap,), row2slot i32 (cap,),
         row_scale f32 (cap,)) on the index's device."""
@@ -129,6 +233,17 @@ class VectorIndex(_ReferenceIndex):
     def load(cls, directory):
         raise NotImplementedError("VectorIndex persistence is not ported")
 
+    def _gather_blocks(self, src: np.ndarray, blocks: list[int]):
+        """Stack dirty blocks for one batched splice. Padded to a power of
+        two by repeating the last block (re-splicing the same rows is
+        idempotent) so the updater jit cache sees O(log blocks) shapes.
+        Returns (stacked (nb, block_rows, ...), start offsets (nb,) i32)."""
+        br = self.block_rows
+        nb = 1 << max(len(blocks) - 1, 0).bit_length()
+        padded = blocks + [blocks[-1]] * (nb - len(blocks))
+        stacked = np.stack([src[b * br:(b + 1) * br] for b in padded])
+        return stacked, np.asarray([b * br for b in padded], np.int32)
+
     # -- search (standalone vector-only path) -------------------------------------
     def _queries(self, queries: np.ndarray) -> torch.Tensor:
         q = np.asarray(queries, dtype=np.float32)
@@ -143,6 +258,9 @@ class VectorIndex(_ReferenceIndex):
         else:
             vals, idx = exact_topk_scan(q, E, valid, k, block_rows=self.block_rows)
         return vals.cpu().numpy(), idx.cpu().numpy()
+
+    def slots_of_rows(self, rows: np.ndarray) -> np.ndarray:
+        return self._slots[np.asarray(rows, dtype=np.int64)]
 
     # -- PQ-ADC compressed path ----------------------------------------------------
     def build_pq(self, m: int = 32, train_limit: int = 4096, rerank_factor: int = 2,
@@ -170,6 +288,10 @@ class VectorIndex(_ReferenceIndex):
             self._pq_rerank_factor = rerank_factor
             self._pq_group = group
             self._pq_device = None
+
+    @property
+    def has_pq(self) -> bool:
+        return getattr(self, "_pq_codebook", None) is not None
 
     def _pq_arrays(self):
         """Device-resident PQ state: (codes u8, centroids f32, valid f32,
@@ -215,6 +337,12 @@ class VectorIndex(_ReferenceIndex):
         if pblock % group or self.capacity % pblock:
             return False
         return mode == "1" or self.device.type == "cuda"
+
+    def _pallas_adc_candidates(self, c: int, group: int) -> int:
+        """K4 emits one candidate per group window, so at most
+        capacity // group rows can come back: clamp c to the window count
+        (the exact rerank still sees every window's best)."""
+        return min(c, self.capacity // group)
 
     def search_pq(self, queries: np.ndarray, k: int = 10, rerank: str = "auto",
                   doc_mask: np.ndarray | None = None):
@@ -265,3 +393,13 @@ class VectorIndex(_ReferenceIndex):
         E = self.device_arrays()[0]
         vals, idx = exact_rerank(q, E, ai, av, -1e29, k=k_out)
         return vals.cpu().numpy(), idx.cpu().numpy()
+
+    def stats(self) -> dict:
+        return {
+            "dim": self.dim,
+            "capacity": self.capacity,
+            "rows": self._count,
+            "active_rows": self.active_rows,
+            "docs": len(self._rows_by_slot),
+            "space_id": self.space_id,
+        }

@@ -1,20 +1,26 @@
-"""Host FastCDC oracle: gear table, masks and the vectorized NumPy chunker.
+"""FastCDC content-defined chunking on the host: gear table, masks, the
+vectorized NumPy chunker and `FastCDCChunker`.
 
 Copied from yams_tpu/ingest/chunker.py (`GEAR_SEED`, `_splitmix64`,
-`gear_table`, `_masks`, `_boundaries_numpy`). They are pure NumPy, but their
-package imports zstandard, which the card's machine lacks, so the port keeps
-its own copy; tests/test_torch_cdc.py pins them equal to the originals. This
-is the host oracle the device chunker is held to. `ChunkingConfig` (the
-16/64/256 KiB defaults) is the reference's, from its JAX-free core config.
+`gear_table`, `_masks`, `_boundaries_numpy`, `FastCDCChunker`);
+tests/test_torch_cdc.py pins them equal to the originals. `FastCDCChunker`
+runs the port's native FastCDC (yams_tpu_torch/native) when its library
+builds, else the NumPy chunker; both give the same boundaries. This is also
+the host oracle the device chunker is held to.
 """
 
 from __future__ import annotations
 
 import functools
+import pathlib
+from typing import Iterator
 
 import numpy as np
 
-from yams_tpu.core.config import ChunkingConfig  # noqa: F401  (re-exported)
+from .. import native
+from ..core.config import ChunkingConfig
+from ..core.types import Chunk, ChunkRef
+from .hasher import sha256_bytes
 
 GEAR_SEED = 0x59414D5354505500  # "YAMSTPU\0" — must match yams_native.cpp
 
@@ -91,3 +97,70 @@ def _boundaries_numpy(
     cand_s = np.nonzero((h & U32(mask_s)) == 0)[0]
     cand_l = np.nonzero((h & U32(mask_l)) == 0)[0]
     return select_cuts(n, cand_s, cand_l, min_size, avg_size, max_size)
+
+
+class FastCDCChunker:
+    """Content-defined chunker (API parity: include/yams/chunking/chunker.h:65-95)."""
+
+    def __init__(self, config: ChunkingConfig | None = None, use_native: bool = True):
+        self.config = config or ChunkingConfig()
+        assert self.config.min_size >= 256
+        assert self.config.min_size <= self.config.avg_size <= self.config.max_size
+        self._use_native = use_native
+
+    # -- boundary computation -------------------------------------------------
+    def boundaries(self, data: bytes) -> list[int]:
+        """Chunk end-offsets (last one == len(data))."""
+        c = self.config
+        if self._use_native:
+            b = native.fastcdc_boundaries(data, c.min_size, c.avg_size, c.max_size)
+            if b is not None:
+                return b
+        return _boundaries_numpy(data, c.min_size, c.avg_size, c.max_size)
+
+    # -- chunking --------------------------------------------------------------
+    def chunk_bytes(self, data: bytes) -> list[Chunk]:
+        chunks: list[Chunk] = []
+        start = 0
+        for end in self.boundaries(data):
+            blob = data[start:end]
+            chunks.append(
+                Chunk(ref=ChunkRef(sha256_bytes(blob), start, len(blob)), data=blob)
+            )
+            start = end
+        return chunks
+
+    def chunk_file(
+        self, path: str | pathlib.Path, read_size: int = 8 * 1024 * 1024
+    ) -> Iterator[Chunk]:
+        """Streaming, bounded-memory chunking (reference: streaming_chunker.cpp).
+
+        A cut decision needs at most max_size bytes of lookahead, so we only
+        emit chunks whose window is fully buffered and carry the tail forward.
+        """
+        c = self.config
+        offset = 0
+        buf = b""
+        with open(path, "rb") as f:
+            while True:
+                block = f.read(read_size)
+                eof = not block
+                buf += block
+                if not eof and len(buf) < c.max_size * 2:
+                    continue
+                ends = self.boundaries(buf)
+                start = 0
+                for end in ends:
+                    if not eof and len(buf) - start <= c.max_size:
+                        break  # decision may change with more data
+                    blob = buf[start:end]
+                    yield Chunk(
+                        ref=ChunkRef(sha256_bytes(blob), offset + start, len(blob)),
+                        data=blob,
+                    )
+                    start = end
+                buf = buf[start:]
+                offset += start
+                if eof:
+                    break
+        assert not buf, "streaming chunker left unconsumed tail"

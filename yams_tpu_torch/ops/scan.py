@@ -1,7 +1,7 @@
 """Tiled distance scan + exact top-k: the vector store's KNN core.
 
 Port of yams_tpu/ops/scan.py (`dense_scores`, `exact_topk_scan`,
-`exact_topk_pallas`):
+`exact_topk_pallas`, `grouped_topk_pallas`):
 
   - dot_f32 / dense_scores: (B, D) x (N, D) -> (B, N) f32 scores from bf16
     operands, invalid rows -> -1e30;
@@ -12,7 +12,14 @@ Port of yams_tpu/ops/scan.py (`dense_scores`, `exact_topk_scan`,
     top-k per query, and a top-k over the G*k candidates merges them. On a
     CUDA tensor the block step is the CUDA kernel `exact_topk_cuda`
     (csrc/exact_topk.cu); on a CPU tensor its plain twin
-    `exact_topk_reference`.
+    `exact_topk_reference`;
+  - grouped_topk_pallas: the grouped-max kernel (K1) emits one (max, last
+    argmax) per `group` consecutive rows per query, (B, N/group), and a
+    top-k over them merges the groups (lax.approx_max_k's one-hit-per-window
+    contract, fused with the product). On a CUDA tensor the group step is
+    `grouped_max_cuda` (csrc/fused_scan.cu); on a CPU tensor its plain twin
+    `grouped_max_reference`. Its only callers are the experiment
+    yams_tpu_torch/scripts/profile_grouped.py and the tests.
 
 The int8 tier (`quantize_int8`, `int8_topk_scan`) is not ported.
 """
@@ -165,3 +172,86 @@ def exact_topk_pallas(queries: torch.Tensor, corpus: torch.Tensor,
     cat_i = idx.transpose(0, 1).reshape(B, G * k)
     out_v, pos = top_k(cat_v, k)
     return out_v, cat_i.gather(1, pos)
+
+
+# ---------------------------------------------------------------------------
+# K1: per-group max/argmax (kernel + twin), then the merge
+# ---------------------------------------------------------------------------
+
+def grouped_max_reference(q: torch.Tensor, E: torch.Tensor, valid: torch.Tensor,
+                          group: int):
+    """Plain twin of `grouped_max_cuda`: (B, N/group) f32 values, i32 rows.
+
+    For each query and each run of `group` consecutive rows, the max of
+    q.E + (valid - 1) * 1e30 and the LAST row that reaches it, as the TPU
+    kernel's max(where(s >= m, lane, -1)) picks. A group with no live row
+    scores -1e30 throughout and so emits (-1e30, its last row)."""
+    B = q.shape[0]
+    N = E.shape[0]
+    out_v = torch.empty((B, N // group), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, N // group), dtype=torch.int32, device=q.device)
+    lane = torch.arange(group, device=q.device, dtype=torch.int32)
+    step = group * max(1, _SCORE_BUDGET // (B * group))
+    for lo in range(0, N, step):
+        hi = min(N, lo + step)
+        s3 = dense_scores(q, E[lo:hi], valid[lo:hi]).reshape(B, -1, group)
+        m = s3.amax(dim=2)
+        am = torch.where(s3 >= m[:, :, None], lane, -1).amax(dim=2)
+        base = torch.arange(lo, hi, group, device=q.device, dtype=torch.int32)
+        out_v[:, lo // group:hi // group] = m
+        out_i[:, lo // group:hi // group] = am + base
+    return out_v, out_i
+
+
+def grouped_max_cuda(q: torch.Tensor, E: torch.Tensor, valid: torch.Tensor, group: int):
+    """Launch the CUDA grouped-max kernel (csrc/fused_scan.cu): (B, N/group)."""
+    B, D = q.shape
+    N = E.shape[0]
+    if q.device.type != "cuda" or E.device != q.device or valid.device != q.device:
+        raise ValueError(f"grouped_max_cuda needs CUDA tensors on one card, got {q.device}")
+    if q.dtype != torch.bfloat16 or E.dtype != torch.bfloat16 or valid.dtype != torch.float32:
+        raise ValueError("grouped_max_cuda takes bf16 q and E and f32 valid")
+    if not (q.is_contiguous() and E.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("grouped_max_cuda takes contiguous tensors")
+    if E.shape[1] != D or valid.shape != (N,) or D % 16:
+        raise ValueError(f"shapes q {tuple(q.shape)}, E {tuple(E.shape)}: D % 16 != 0 or mismatch")
+    if group < 1 or 2048 % group or N % group:
+        raise ValueError(f"group {group}: a power of two <= 2048 that divides N={N}")
+    if (N + 2047) // 2048 >= 1 << 16:
+        raise ValueError(f"N={N}: at most 65,535 tiles of 2,048 rows per launch")
+    out_v = torch.empty((B, N // group), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, N // group), dtype=torch.int32, device=q.device)
+    if B == 0 or N == 0:
+        return out_v, out_i
+    lib = _build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.yt_grouped_max(q.data_ptr(), E.data_ptr(), valid.data_ptr(),
+                             out_v.data_ptr(), out_i.data_ptr(), B, N, D, group, stream)
+    grouped_max_cuda.launches += 1
+    _build.check(err, "grouped_max_cuda")
+    return out_v, out_i
+
+
+grouped_max_cuda.launches = 0
+
+
+def grouped_topk_pallas(queries: torch.Tensor, corpus: torch.Tensor,
+                        valid: torch.Tensor, k: int, block_rows: int = 2048,
+                        group: int = 256):
+    """Fused scan returning the approx top-k under grouped-winner semantics:
+    at most one hit per `group` consecutive rows, like lax.approx_max_k.
+    `block_rows` is the reference's layout contract (N % block_rows == 0,
+    block_rows % group == 0); the result does not depend on it."""
+    N = corpus.shape[0]
+    if N % block_rows or block_rows % group:
+        raise ValueError(f"N={N} % block_rows={block_rows} or block_rows % group={group} != 0")
+    q = queries.to(torch.bfloat16).contiguous()
+    E = corpus.to(torch.bfloat16)
+    if queries.device.type == "cuda":
+        vals, idx = grouped_max_cuda(q, E, valid, group)
+    elif queries.device.type == "cpu":
+        vals, idx = grouped_max_reference(q, E, valid, group)
+    else:
+        raise ValueError(f"grouped_topk_pallas: unsupported device {queries.device}")
+    out_v, pos = top_k(vals, k)
+    return out_v, idx.gather(1, pos)

@@ -5,9 +5,10 @@ Port of yams_tpu/search/engine.py for the path a first search takes:
 `search` / `search_batch` on the dense tier (search_batch's default branch,
 engine.py:592-1020), the PQ capacity tier (`ensure_pq` and search_batch's
 `use_pq` branch, engine.py:498-535, 849-897) and the result glue
-(:1137-1216). The host state is yams_tpu's own VectorIndex / LexicalIndex
-(subclassed for their torch device views), so both engines hold identical
-state for identical adds.
+(:1137-1216). The host state lives in the port's VectorIndex / LexicalIndex,
+copies of the reference's host code with torch device views, so both
+engines hold identical state for identical adds. It runs on the card unless
+the caller asks for the CPU.
 
 The PQ tier's vector leg is `VectorIndex.search_pq` with the doc mask
 always pushed into the scan (all ones over the used slots when unfiltered),
@@ -30,10 +31,9 @@ import time
 import numpy as np
 import torch
 
-from yams_tpu.core.config import EmbeddingConfig, LexicalIndexConfig, VectorIndexConfig
-from yams_tpu.embed.chunker import chunk_document
-
+from ..core.config import EmbeddingConfig, LexicalIndexConfig, VectorIndexConfig
 from ..device import resolve_device
+from ..embed.chunker import chunk_document
 from ..embed.provider import SimeonProvider
 from ..index.lexical_index import LexicalIndex
 from ..index.vector_index import VectorIndex
@@ -98,7 +98,7 @@ class SearchEngine:
         vector: VectorIndexConfig | None = None,
         lexical: LexicalIndexConfig | None = None,
         *,
-        device: str | torch.device,
+        device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
         self.config = config or SearchEngineConfig()
@@ -265,8 +265,8 @@ class SearchEngine:
         intent: str | None = None,
         per_query_filters: list[set[int] | None] | None = None,
     ) -> list[list[SearchResult]]:
-        """Batched hybrid search on the dense or the PQ tier (see yams_tpu's
-        SearchEngine.search_batch for the argument contract)."""
+        """Batched hybrid search on the dense or the PQ tier (the argument
+        contract of yams_tpu/search/engine.py SearchEngine.search_batch)."""
         t0 = time.monotonic()
         trace: dict = {"query_count": len(queries), "mode": mode, "stages": {}}
         if not self._doc_by_slot:
