@@ -18,8 +18,12 @@ seconds):
      (grouped_max_cuda) and K2 (windowed_scan_cuda) at edge shapes (B
      1/3/64; group 64/256; a dead group; an all-masked window, which must
      give (-1e30, 0); duplicate rows for ties; a ragged last tile; N of 1
-     and 3 spans) and at the experiments' shapes, values within 1e-4 and
-     every differing id a near-tie;
+     and 3 spans), at the edges of their 128-row x 256-query tiling (B
+     127/129/255/257; groups of 1, 8, 16, 32, 64 and 2,048 rows; a ragged
+     last 128-row tile whose live rows all score below 0; D 80), with a
+     misaligned E refused before any launch, and at the experiments'
+     shapes, values within 1e-4 and every differing id a near-tie, each
+     kernel timed beside dot_f32 (cuBLAS) on the same operands;
   2. add: a 128 MiB seeded zipf-word payload through device_chunk_hash
      (gear-hash CDC + SHA-256 on the card), checked against the host chunker
      and hashlib;
@@ -70,6 +74,8 @@ import traceback
 import numpy as np
 import torch
 
+from yams_tpu_torch.scripts._common import cuda_ms
+
 SEED = 0
 
 
@@ -80,19 +86,6 @@ def log(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over reps launches, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 # Published H100 SXM peaks (NVIDIA's data sheet, dense rates), at 700 W
@@ -380,11 +373,15 @@ def partition_true_score(q, E, valid=None, bias=None):
 
 
 def k1_inputs(dev, gen, B: int, case: str, N: int = 4 * 2048 + 512, D: int = 768):
-    """Edge inputs of the K1 group step: (q bf16, E bf16, valid f32). N
-    leaves a ragged 512-row last tile."""
+    """Edge inputs of the K1 group step: (q bf16, E bf16, valid f32). The
+    default N leaves a ragged 512-row last 2,048-row block."""
     E = torch.randn(N, D, generator=gen, device=dev)
-    E = (E / E.norm(dim=1, keepdim=True)).to(torch.bfloat16)
     q = torch.randn(B, D, generator=gen, device=dev)
+    if case == "negative_tail":    # the last 64 rows, all live, score below 0 for every query
+        q[:, 0] = q[:, 0].abs() + 4.0
+        E[N - 64:] = 0.02 * E[N - 64:]
+        E[N - 64:, 0] = -1.0
+    E = (E / E.norm(dim=1, keepdim=True)).to(torch.bfloat16)
     q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
     valid = (torch.rand(N, generator=gen, device=dev) > 0.05).float()
     if case == "duplicates":       # exact ties inside a group: the last row wins
@@ -392,11 +389,17 @@ def k1_inputs(dev, gen, B: int, case: str, N: int = 4 * 2048 + 512, D: int = 768
             E[[(11 + 7 * b) % N, (40 + 7 * b) % N, (2048 + 5 * b) % N, N - 1 - b]] = q[b]
     elif case == "dead_group":
         valid[1024:1280] = 0.0
+    elif case == "dead_2048":      # the second 2,048-row group has no live row
+        valid[2048:4096] = 0.0
+    elif case == "negative_tail":
+        valid[N - 64:] = 1.0
     return q, E.contiguous(), valid
 
 
 def k2_inputs(dev, gen, B: int, case: str, spans: int, D: int = 768):
-    """Edge inputs of the K2 window step: (q bf16, E bf16, bias f32)."""
+    """Edge inputs of the K2 window step: (q bf16, E bf16, bias f32). The
+    duplicates case plants copies for the first 128 queries (one window
+    each)."""
     from yams_tpu_torch.ops.flash_topk import SPAN
 
     N = spans * SPAN
@@ -410,7 +413,7 @@ def k2_inputs(dev, gen, B: int, case: str, spans: int, D: int = 768):
         bias[5:SPAN:128] = -1e30
         bias[N - SPAN + 127::128] = -1e30
     elif case == "duplicates":     # exact ties inside a window: the first row wins
-        for b in range(B):
+        for b in range(min(B, 128)):
             w = (3 + b) % 128
             E[[w + 128 * 9, w + 128 * 40, w + 128 * 41, N - SPAN + w]] = q[b]
             bias[[w + 128 * 9, w + 128 * 40, w + 128 * 41, N - SPAN + w]] = 0.0
@@ -421,12 +424,13 @@ def phase1_fused_scan_kernels(dev) -> dict:
     """K1 and K2 held against their twins on the card: edge shapes, then the
     shapes the two experiments run them at."""
     from yams_tpu_torch.ops import flash_topk, scan
+    from yams_tpu_torch.ops.flash_topk import SPAN
     from yams_tpu_torch.scripts.exp_flash_topk import clustered_corpus
     from yams_tpu_torch.scripts.profile_grouped import unit_corpus
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 13)
-    tol = 1e-4   # 768 bf16 products summed in f32 by mma.sync vs cuBLAS
+    tol = 1e-4   # 768 bf16 products summed in f32 by wgmma vs cuBLAS
     out = {}
     n_cases = n_diff = 0
     for B in (1, 3, 64):
@@ -475,6 +479,81 @@ def phase1_fused_scan_kernels(dev) -> dict:
     log(f"[phase1] windowed_scan_cuda: {n_cases} edge cases == twin "
         f"({n_diff} ids differ, all near-ties)")
 
+    # the 128-row x 256-query tiling's edges: partial query tiles; every
+    # epilogue path of K1 (groups of 1-8 rows inside a warp, 16, 32-128
+    # through the scratch, 2,048 folded over 16 tiles); a ragged last
+    # 128-row tile whose 64 live rows all score below 0 (TMA fills the rest
+    # with zeros); D = 80, not a multiple of the 64-wide D slice
+    n_cases = n_diff = 0
+    k1_edges = [(B, 256, 8704, 768, case) for B in (127, 129, 255, 257)
+                for case in ("random", "duplicates")]
+    k1_edges += [(64, g, 8768, 768, "negative_tail") for g in (1, 8, 16, 32, 64)]
+    k1_edges += [(B, 2048, 8192, 768, case) for B in (3, 257)
+                 for case in ("random", "duplicates", "dead_2048")]
+    k1_edges += [(B, g, 8704, 80, "random") for B in (3, 257) for g in (16, 128)]
+    for B, group, N, D, case in k1_edges:
+        q, E, valid = k1_inputs(dev, gen, B, case, N=N, D=D)
+        kv, ki = scan.grouped_max_cuda(q, E, valid, group)
+        tv, ti = scan.grouped_max_reference(q, E, valid, group)
+        torch.cuda.synchronize()
+        what = f"K1 {case} B={B} group={group} N={N} D={D}"
+        _, d = check_topk(what, kv, ki, tv, ti, partition_true_score(q, E, valid=valid), tol,
+                          ordered=False)
+        if case == "negative_tail":
+            check(bool((kv[:, -1] < 0).all() and (ki[:, -1] >= N - group).all()
+                       and (ki[:, -1] < N).all()),
+                  f"{what}: the ragged tile's live rows win their group, not the zero fill")
+        if case == "dead_2048":
+            check(bool((kv[:, 1] == -1e30).all() and (ki[:, 1] == 4095).all()),
+                  f"{what}: the dead group emits (-1e30, its last row)")
+        if case == "duplicates" and group == 2048:
+            check(all(int(ki[b, 0]) == 40 + 7 * b for b in range(B)
+                      if valid[11 + 7 * b] > 0 and valid[40 + 7 * b] > 0),
+                  f"{what}: ties go to the last row")
+        n_cases += 1
+        n_diff += d
+    k2_edges = [(B, 1, 768, case) for B in (127, 129, 255, 257)
+                for case in ("random", "masked_window", "duplicates")]
+    k2_edges += [(B, 2, 80, case) for B in (3, 257) for case in ("random", "masked_window")]
+    for B, spans, D, case in k2_edges:
+        q, E, bias = k2_inputs(dev, gen, B, case, spans, D=D)
+        kv, ki = flash_topk.windowed_scan_cuda(q, E, bias)
+        tv, ti = flash_topk.windowed_scan_reference(q, E, bias)
+        torch.cuda.synchronize()
+        what = f"K2 {case} B={B} spans={spans} D={D}"
+        _, d = check_topk(what, kv, ki, tv, ti, partition_true_score(q, E, bias=bias), tol,
+                          ordered=False)
+        if case == "masked_window":
+            check(bool((kv[:, 5] == -1e30).all() and (ki[:, 5] == 0).all()
+                       and (kv[:, -1] == -1e30).all() and (ki[:, -1] == 0).all()),
+                  f"{what}: all-masked windows emit (-1e30, 0)")
+        if case == "duplicates":
+            check(all(int(ki[b, (3 + b) % 128]) == (3 + b) % 128 for b in range(min(B, 128))),
+                  f"{what}: ties go to the first row")
+        n_cases += 1
+        n_diff += d
+    log(f"[phase1] K1/K2 tiling edges: {n_cases} cases == twin "
+        f"({n_diff} ids differ, all near-ties)")
+
+    # TMA needs 16-byte-aligned bases: E one element into its buffer raises
+    # before any launch
+    q, E, valid = k1_inputs(dev, gen, 3, "random", N=SPAN)
+    shifted = torch.empty(E.numel() + 8, dtype=E.dtype, device=dev)[1:1 + E.numel()].view_as(E)
+    shifted.copy_(E)
+    for name, fn in (("grouped_max_cuda", lambda: scan.grouped_max_cuda(q, shifted, valid, 64)),
+                     ("windowed_scan_cuda",
+                      lambda: flash_topk.windowed_scan_cuda(q, shifted, valid))):
+        before = (scan.grouped_max_cuda.launches, flash_topk.windowed_scan_cuda.launches)
+        try:
+            fn()
+            raised = False
+        except ValueError as e:
+            raised = "16-byte" in str(e)
+        check(raised and before == (scan.grouped_max_cuda.launches,
+                                    flash_topk.windowed_scan_cuda.launches),
+              f"{name} refuses a misaligned E before any launch")
+    log("[phase1] a misaligned E raises ValueError in both wrappers before any launch")
+
     # K1 at profile_grouped's shape: 1,003,520 x 768 unit-normal, B 256, group 256
     N, D, B, group = 1_003_520, 768, 256, 256
     E = unit_corpus(N, D, gen, dev)
@@ -486,14 +565,17 @@ def phase1_fused_scan_kernels(dev) -> dict:
     torch.cuda.synchronize()
     k1_err, d = check_topk("K1 experiment shape", kv, ki, tv, ti,
                            partition_true_score(q, E, valid=valid), tol, ordered=False)
-    k1_ms = cuda_ms(lambda: scan.grouped_max_cuda(q, E, valid, group), 5)
+    k1_ms = cuda_ms(lambda: scan.grouped_max_cuda(q, E, valid, group), 20)
     k1_plain_ms = cuda_ms(lambda: scan.grouped_max_reference(q, E, valid, group), 2)
+    dot_ms = cuda_ms(lambda: scan.dot_f32(q, E), 20)   # the mainloop's yardstick (cuBLAS)
     flops = 2.0 * B * N * D
     log(f"[phase1] grouped_max_cuda {N}x{D}, B={B}, group={group}: cuda {k1_ms:.3f} ms "
         f"({flops / k1_ms / 1e9:.1f} TFLOP/s), plain {k1_plain_ms:.3f} ms; "
+        f"dot_f32 on the same operands {dot_ms:.3f} ms ({flops / dot_ms / 1e9:.1f} TFLOP/s); "
         f"max err {k1_err:.3g}, {d} of {ki.numel()} ids differ (near-ties)")
     out["grouped_max_cuda"] = dict(
-        max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
+        max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms, dot_f32_ms=dot_ms,
+        tflops=flops / k1_ms / 1e9, dot_f32_tflops=flops / dot_ms / 1e9,
         shape=f"{N}x{D} bf16, B={B}, group={group} -> (B, N/group)",
         **bound(2.0 * N * D + 2.0 * B * D + 4.0 * N + 8.0 * kv.numel(), flops, PEAK_BF16))
     del E, kv, ki, tv, ti
@@ -509,14 +591,17 @@ def phase1_fused_scan_kernels(dev) -> dict:
     torch.cuda.synchronize()
     k2_err, d = check_topk("K2 experiment shape", kv, ki, tv, ti,
                            partition_true_score(q, E, bias=bias), tol, ordered=False)
-    k2_ms = cuda_ms(lambda: flash_topk.windowed_scan_cuda(q, E, bias), 3)
+    k2_ms = cuda_ms(lambda: flash_topk.windowed_scan_cuda(q, E, bias), 10)
     k2_plain_ms = cuda_ms(lambda: flash_topk.windowed_scan_reference(q, E, bias), 2)
+    dot_ms = cuda_ms(lambda: scan.dot_f32(q, E), 10)
     flops = 2.0 * B * N * D
     log(f"[phase1] windowed_scan_cuda {N}x{D}, B={B}: cuda {k2_ms:.3f} ms "
         f"({flops / k2_ms / 1e9:.1f} TFLOP/s), plain {k2_plain_ms:.3f} ms; "
+        f"dot_f32 on the same operands {dot_ms:.3f} ms ({flops / dot_ms / 1e9:.1f} TFLOP/s); "
         f"max err {k2_err:.3g}, {d} of {ki.numel()} ids differ (near-ties)")
     out["windowed_scan_cuda"] = dict(
-        max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
+        max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, dot_f32_ms=dot_ms,
+        tflops=flops / k2_ms / 1e9, dot_f32_tflops=flops / dot_ms / 1e9,
         shape=f"{N}x{D} bf16 clustered, B={B} -> (B, N/128)",
         **bound(2.0 * N * D + 2.0 * B * D + 4.0 * N + 8.0 * kv.numel(), flops, PEAK_BF16))
     return out
@@ -1078,7 +1163,9 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": k["max_abs_err"],
                         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"], "library_ms": None, "shape": k["shape"],
-                        "bound_bytes": k["bound_bytes"], "bound_ops": k["bound_ops"]})
+                        "bound_bytes": k["bound_bytes"], "bound_ops": k["bound_ops"],
+                        **{key: k[key] for key in ("dot_f32_ms", "tflops", "dot_f32_tflops")
+                           if key in k}})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -129,6 +129,47 @@ def test_windowed_scan_refuses_ragged_corpus():
         port_flash.windowed_scan(_t(q), _t(E[:-1]), _t(bias[:-1]))
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_window_twin_matches_pallas_interpret_at_d80(case):
+    """D = 80 is not a multiple of the CUDA kernel's 64-wide D slice."""
+    q, E, bias = _inputs(case, 80, seed=3)
+    want_v, want_i = ref_flash.windowed_scan(
+        jnp.asarray(q), jnp.asarray(E, jnp.bfloat16), jnp.asarray(bias), interpret=True)
+    got_v, got_i = port_flash.windowed_scan(_t(q), _t(E).to(torch.bfloat16), _t(bias))
+    _assert_same_winners(got_v, got_i, want_v, want_i, q, E)
+    if case == "masked_window":
+        assert (got_v[:, 5] == NEG).all() and (got_i[:, 5] == 0).all()
+
+
+def _misaligned(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of t that starts `offset` elements into its buffer."""
+    buf = torch.zeros(t.numel() + offset + 16, dtype=t.dtype)
+    return buf[offset:offset + t.numel()].view_as(t).copy_(t)
+
+
+# 1 element in (2 or 4 bytes); 9 bf16 elements in = one row of a 9-wide buffer
+@pytest.mark.parametrize("operand,offset", [("q", 1), ("E", 1), ("E", 9), ("bias", 1)])
+def test_windowed_scan_cuda_refuses_misaligned_bases(operand, offset):
+    """The kernel's TMA copies need 16-byte-aligned bases: a misaligned
+    operand raises ValueError before any launch."""
+    q, E, bias = _inputs("random", 64)
+    args = {"q": _t(q).to(torch.bfloat16), "E": _t(E).to(torch.bfloat16), "bias": _t(bias)}
+    args[operand] = _misaligned(args[operand], offset)
+    before = port_flash.windowed_scan_cuda.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        port_flash.windowed_scan_cuda(args["q"], args["E"], args["bias"])
+    assert port_flash.windowed_scan_cuda.launches == before
+
+
+def test_windowed_scan_cuda_alignment_check_passes_aligned_views():
+    """A view 8 bf16 elements (16 bytes) in passes the alignment check and
+    meets the device check instead."""
+    q, E, bias = _inputs("random", 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_flash.windowed_scan_cuda(_t(q).to(torch.bfloat16),
+                                      _misaligned(_t(E).to(torch.bfloat16), 8), _t(bias))
+
+
 def test_windowed_scan_cuda_refuses_cpu_tensors():
     q, E, bias = _inputs("random", 64)
     with pytest.raises(ValueError, match="CUDA"):

@@ -153,10 +153,10 @@ BLOCKS = (1024, 2048, 4096)
 K1_CASES = ("random", "dead_group", "duplicates", "last_lane_tie")
 
 
-def _k1_inputs(case: str, seed: int = 1):
+def _k1_inputs(case: str, seed: int = 1, dim: int = D):
     rng = np.random.default_rng(seed)
-    E = _unit(rng.standard_normal((GN, D)))
-    q = _unit(rng.standard_normal((B, D)))
+    E = _unit(rng.standard_normal((GN, dim)))
+    q = _unit(rng.standard_normal((B, dim)))
     valid = np.ones(GN, np.float32)
     valid[rng.random(GN) < 0.05] = 0.0
     if case == "dead_group":        # whole groups with no live row, at every group size
@@ -173,12 +173,12 @@ def _k1_inputs(case: str, seed: int = 1):
 
 def _ref_groups(q, E, valid, group, block_rows):
     """The reference's K1 step alone, transposed to (B, N/group)."""
-    G, nsub = GN // block_rows, block_rows // group
+    G, nsub, dim = GN // block_rows, block_rows // group, q.shape[1]
     v, i = pl.pallas_call(
         functools.partial(ref_scan._grouped_max_kernel, group=group),
         grid=(G,),
-        in_specs=[pl.BlockSpec((B, D), lambda g: (0, 0)),
-                  pl.BlockSpec((block_rows, D), lambda g: (g, 0)),
+        in_specs=[pl.BlockSpec((B, dim), lambda g: (0, 0)),
+                  pl.BlockSpec((block_rows, dim), lambda g: (g, 0)),
                   pl.BlockSpec((block_rows,), lambda g: (g,))],
         out_specs=(pl.BlockSpec((1, B, nsub), lambda g: (g, 0, 0)),
                    pl.BlockSpec((1, B, nsub), lambda g: (g, 0, 0))),
@@ -241,6 +241,55 @@ def test_grouped_topk_pallas_matches_reference(case, group, block_rows):
     assert got_i.dtype == torch.int32
 
 
+# Edges of the CUDA kernel's tiling (128 rows x 256 queries x 64-wide D
+# slices), held on the twin: groups wider than a row tile (2,048 rows: 16
+# tiles folded) and D = 80, not a multiple of the D slice.
+K1_EDGES = ((2048, 2048, 64), (2048, 4096, 64), (64, 2048, 80), (256, 2048, 80))
+
+
+@pytest.mark.parametrize("group,block_rows,dim", K1_EDGES)
+@pytest.mark.parametrize("case", K1_CASES)
+def test_k1_group_twin_matches_pallas_interpret_at_tile_edges(case, group, block_rows, dim):
+    q, E, valid = _k1_inputs(case, dim=dim)
+    want_v, want_i = _ref_groups(q, E, valid, group, block_rows)
+    got_v, got_i = port_scan.grouped_max_reference(
+        _t(q, torch.bfloat16), _t(E, torch.bfloat16), _t(valid), group)
+    assert got_v.shape == (B, GN // group)
+    _assert_same_winners(got_v, got_i, want_v, want_i, q, E, valid)
+    if case == "duplicates":        # two copies of q[b] in one group: the later wins
+        for b in range(B):
+            assert got_i[b, (40 + b) // group] == 40 + b
+
+
+def _misaligned(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of t that starts `offset` elements into its buffer."""
+    buf = torch.zeros(t.numel() + offset + 16, dtype=t.dtype)
+    return buf[offset:offset + t.numel()].view_as(t).copy_(t)
+
+
+# 1 element in (2 or 4 bytes); 9 bf16 elements in = one row of a 9-wide buffer
+@pytest.mark.parametrize("operand,offset", [("q", 1), ("E", 1), ("E", 9), ("valid", 1)])
+def test_grouped_max_cuda_refuses_misaligned_bases(operand, offset):
+    """The kernel's TMA copies need 16-byte-aligned bases: a misaligned
+    operand raises ValueError before any launch."""
+    q, E, valid = _k1_inputs("random")
+    args = {"q": _t(q, torch.bfloat16), "E": _t(E, torch.bfloat16), "valid": _t(valid)}
+    args[operand] = _misaligned(args[operand], offset)
+    before = port_scan.grouped_max_cuda.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        port_scan.grouped_max_cuda(args["q"], args["E"], args["valid"], 256)
+    assert port_scan.grouped_max_cuda.launches == before
+
+
+def test_grouped_max_cuda_alignment_check_passes_aligned_views():
+    """A view 8 bf16 elements (16 bytes) in passes the alignment check and
+    meets the device check instead."""
+    q, E, valid = _k1_inputs("random")
+    with pytest.raises(ValueError, match="CUDA"):
+        port_scan.grouped_max_cuda(_t(q, torch.bfloat16), _misaligned(_t(E, torch.bfloat16), 8),
+                                   _t(valid), 256)
+
+
 def test_grouped_topk_pallas_checks_its_layout():
     q, E, valid = _k1_inputs("random")
     with pytest.raises(ValueError):
@@ -266,3 +315,26 @@ def test_profile_grouped_runs_tiny_on_the_cpu():
     assert r["matmul_topc_recall10"] == 1.0           # its top-C is exact
     assert 0.5 <= r["kernel_recall10"] <= 1.0
     assert r["overlap10"] == r["kernel_recall10"]     # the matmul path is the oracle
+
+
+def test_fused_scan_split_cuts_the_kernel_after_its_mainloop(tmp_path):
+    """The measurement script's copy of csrc/ differs from it only by the
+    stub after the fused kernels' mainloop call."""
+    from yams_tpu_torch import _build
+    from yams_tpu_torch.scripts import fused_scan_split as split
+
+    dest = split.mainloop_only_sources(tmp_path / "src")
+    for src in _build._SRC_DIR.iterdir():
+        got = (dest / src.name).read_text()
+        if src.name == "fused_scan.cu":
+            assert got == src.read_text().replace(split.MARK, split.MARK + split.STUB, 1)
+            assert got.count(split.STUB) == 1
+        else:
+            assert got == src.read_text()
+
+
+def test_fused_scan_split_needs_a_card():
+    from yams_tpu_torch.scripts import fused_scan_split
+
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_scan_split.run(device="cpu")

@@ -42,8 +42,8 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-def _sources() -> list[pathlib.Path]:
-    return sorted(_SRC_DIR.glob("*.cu")) + sorted(_SRC_DIR.glob("*.cuh"))
+def _sources(src_dir: pathlib.Path) -> list[pathlib.Path]:
+    return sorted(src_dir.glob("*.cu")) + sorted(src_dir.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -56,18 +56,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path() -> pathlib.Path:
+def library_path(src_dir: pathlib.Path = _SRC_DIR) -> pathlib.Path:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(src_dir):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD_DIR / f"libyams_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> pathlib.Path:
-    """Compile csrc/*.cu unless the hashed library already exists: one nvcc
-    per source, in parallel, then one link."""
-    out = library_path()
+def build(src_dir: pathlib.Path = _SRC_DIR) -> pathlib.Path:
+    """Compile src_dir/*.cu (by default csrc/) unless the hashed library
+    already exists: one nvcc per source, in parallel, then one link."""
+    out = library_path(src_dir)
     if out.exists():
         return out
     tmp_dir = _BUILD_DIR / f"obj.{os.getpid()}"
@@ -75,7 +75,7 @@ def build() -> pathlib.Path:
     procs: list[subprocess.Popen] = []
     try:
         nvcc = _nvcc()
-        sources = [src for src in _sources() if src.suffix == ".cu"]
+        sources = [src for src in _sources(src_dir) if src.suffix == ".cu"]
         objs = [str(tmp_dir / f"{src.stem}.o") for src in sources]
         compiles = [[nvcc, *_FLAGS, "-c", str(src), "-o", obj]
                     for src, obj in zip(sources, objs)]
@@ -104,20 +104,34 @@ def build() -> pathlib.Path:
     return out
 
 
+def load(path: pathlib.Path) -> ctypes.CDLL:
+    """A built kernel library with its entry points' signatures set."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = load(build())
         return _lib
 
 
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def require_aligned(what: str, **tensors) -> None:
+    """Raise ValueError unless every tensor starts on a 16-byte boundary, as
+    a TMA copy's global base must (csrc/bf16_scan.cuh)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} starts {t.data_ptr() % 16} bytes past a "
+                             f"16-byte boundary; TMA needs 16-byte-aligned bases")

@@ -22,223 +22,336 @@
 //       emits (-1e30, 0), row 0, not a row of that window, as the TPU
 //       kernel's scratch starts. Out: (B, N/128).
 //
-// What bounds them on the H100: at the experiments' shapes K1 (1,003,520 x
+// What bounds them on the H100: K1 at its experiment's shape (1,003,520 x
 // 768, B 256) needs 0.40 ms of tensor work against 1.54 GB read once
-// (0.46 ms), so bytes; K2 (1,015,808 x 768, B 1,024) 1.62 ms of tensor work
-// against 1.62 GB (0.49 ms), so operations. The epilogues are small beside
-// either.
+// (0.46 ms), so bytes; K2 at its experiment's shape (1,015,808 x 768,
+// B 1,024) needs 1.62 ms of tensor work against 1.62 GB (0.49 ms), so
+// operations. The epilogues are small beside either.
 //
-// Design: K3's tile (csrc/exact_topk.cu). One block of 16 warps owns 16
-// queries; the query tile is staged in shared memory, and each warp
-// computes 64-row x 16-query score tiles with the tensor cores' warp-level
-// mma.sync (m16n8k16, bf16 in, f32 accumulate), A fragments straight from E
-// in global memory, into a 16 x 2,048 f32 tile in shared memory (128 KB).
-//   K1: a block scores one 2,048-row tile, which holds 2,048/group whole
-//       groups (group is a power of two <= 2,048). Warp w reduces
-//       (query, group) pairs: each lane keeps the max of its stripe with the
-//       highest row on ties (`>=` in increasing order), and a butterfly of
-//       shuffles keeps (max, highest row). Rows past N (a ragged last tile)
-//       are loaded from row N-1 and never read back.
-//   K2: a 16,384-row span is wider than a tile, and on the card blocks run
-//       in no order, so nothing can carry a running pair between blocks as
-//       the TPU's 32 inner grid steps do in VMEM scratch. One block loops
-//       over the span's eight tiles in row order instead, and each thread
-//       keeps the running (max, argmax) of 4 of the span's 16 x 128
-//       (query, window) pairs in registers across them: one pass, no
-//       partials in device memory, and the fold order is the TPU's.
-// The query tile is the fast grid axis, so the blocks that read one row
-// tile run together and find it in L2. No cuBLAS, no wgmma or TMA: a simple
-// kernel that is right.
+// What held the first port back (a 16-query tile whose warps loaded E in
+// 4-byte fragments): each E byte that reached an SM fed 2 x 16 FLOP, so E
+// crossed from L2 into the SMs B/16 times and both kernels ran at ~45
+// TFLOP/s, the rate of that traffic.
+//
+// Design: the shared mainloop of bf16_scan.cuh. A tile is 128 corpus rows x
+// 256 queries, fed by TMA into a 4-stage ring and multiplied by wgmma, so
+// each E byte in shared memory feeds 256 queries and E crosses from L2
+// B/256 times (K1 at B 256: once; K2 at B 1,024: 4 times), with no load
+// instruction per element. The scores stay in the wgmma accumulators (128
+// f32 registers a consumer thread); no score tile is staged in shared
+// memory. A block is persistent (one per SM) and walks (row tile, query
+// tile) units, query tile fastest, so the blocks that read one row tile run
+// at the same time and the tile comes from HBM once.
+//
+// Epilogue, after each tile: a thread holds 2 rows x 64 queries. Each
+// column's maximum goes round the 8 lanes that share it by shuffles, 8
+// columns side by side so one column's shuffles hide another's latency; a
+// ballot of the lanes whose score equals the maximum names the winning row
+// (K1 the last, K2 the first), so no row index is shuffled. Lanes 0-3 put
+// each warp's 16-row partial into a 16 KB scratch, and after a barrier of
+// the 256 consumer threads, thread t merges the 8 warps' partials of query t.
+//   K2: the row tile is a window, not 128 consecutive rows. E is seen by a
+//       3-D tensor map as (span chunk, window, D), and a box of one window x
+//       128 chunks brings exactly the 128 rows {j*16384 + c*128 + w} of
+//       window (j, w). The fold over a window is then a reduction over the
+//       tile's rows and each unit emits one finished column: no running state
+//       crosses units and no second merge pass is needed (neither persistent
+//       span walks nor split spans), and the 31,744 units at the experiment's
+//       shape (7,936 windows x 4 query tiles) spread evenly over 132 blocks.
+//       The reduction takes the maximum and, among equal values, the lowest
+//       row; a maximum <= -1e30 becomes (-1e30, 0). That is the fold's result
+//       in any order of combination: the fold keeps the first row reaching
+//       the largest value above -1e30, and (-1e30, 0) if none is above.
+//   K1: a group of 16 rows or more is the merge of its warps' partials; a
+//       group wider than the tile (up to 2,048 rows, 16 tiles) is one unit
+//       whose tiles are folded in a register per query. Groups of 1-8 rows
+//       (kGroupedSmall) are reduced inside a warp and written by their first
+//       lane. Rows at or past N (a ragged last tile, which TMA fills with
+//       zeros, and a 0 would beat a live negative score) are masked
+//       explicitly, and their validity is never read.
+// Queries past B (a partial query tile) are zeros from TMA and never
+// written.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bf16_scan.cuh"
+
 namespace {
 
-constexpr int kQT = 16;                 // queries per block: two n-tiles of 8
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMGroup = 4;              // 16-row m-tiles per warp pass
-constexpr int kTile = 2048;             // rows scored into shared memory per pass
-constexpr int kWindow = 128;            // K2: windows per span
-constexpr int kSpan = 16384;            // K2: rows folded into one window block
-constexpr int kPairs = kQT * kWindow / kThreads;   // K2: (query, window) pairs per thread
+using namespace yt_scan;
+
+constexpr int kWindow = 128;            // K2: windows per span = rows per window tile
+constexpr int kSpan = kWindow * kRows;  // K2: rows folded into one block of 128 columns
+constexpr int kWarps = kConsumerThreads / 32;   // warp w holds tile rows [16 w, 16 w + 16)
 constexpr float kNeg = -1e30f;
+constexpr int kBatch = 8;               // epilogue columns reduced side by side
 
-enum Mode { kGrouped = 0, kWindowed = 1 };
+// K1 has two instantiations, groups of 16 rows or more (kGrouped) and of
+// 1-8 rows (kGroupedSmall), so that each kernel holds only the epilogue it
+// runs.
+enum Mode { kGrouped = 0, kWindowed = 1, kGroupedSmall = 2 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+struct Params {
+  const float* aux;      // (N,): validity (K1) or bias (K2)
+  float* out_v;
+  int32_t* out_i;
+  int B;
+  int N;
+  int k_slices;          // ceil(D / 64)
+  int q_tiles;           // ceil(B / 256)
+  int tiles_per_unit;    // K1: group / 128 for groups wider than a tile, else 1
+  int64_t n_units;
+  int group;             // K1 rows per group; K2 128 (one window per tile)
+  int n_cols;            // output columns per query
+};
+
+// Per-warp partials of the cross-warp reduction.
+struct Scratch {
+  float v[kWarps][kQueries];
+  int r[kWarps][kQueries];
+};
+
+// (value, row) order: K1 keeps the last row on equal values, K2 the first.
+template <int kMode>
+__device__ __forceinline__ void keep(float& bv, int& br, float v, int r) {
+  const bool tie_wins = kMode == kWindowed ? r < br : r > br;
+  if (v > bv || (v == bv && tie_wins)) { bv = v; br = r; }
 }
 
-// s[qi * kTile + r] = q_tile[qi] . E[row0 + r] (f32 sums) for r < kTile;
-// rows at or past n_rows read row n_rows - 1.
-__device__ __forceinline__ void score_tile(const uint32_t* __restrict__ qs,
-                                           const uint32_t* __restrict__ e,
-                                           int64_t row0, int64_t n_rows, int dw,
-                                           float* __restrict__ s) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gid = lane >> 2;   // fragment row (A) / column (B, C)
-  const int tig = lane & 3;    // thread in group
-  constexpr int kMTiles = kTile / 16;
-  for (int mt0 = warp * kMGroup; mt0 < kMTiles; mt0 += kWarps * kMGroup) {
-    float acc[kMGroup][2][4];
+// Global row of tile row rl (K2: tile t is window t % 128 of span t / 128).
+template <int kMode>
+__device__ __forceinline__ int tile_row(int t, int rl) {
+  if constexpr (kMode != kWindowed) return t * kRows + rl;
+  return (t / kWindow) * kSpan + rl * kWindow + t % kWindow;
+}
+
+// The winner among a warp's 16 rows of one column: lo_hit / hi_hit are the
+// lanes of that column whose row lane/4 / 8 + lane/4 reaches the maximum.
+// K1 takes the last such row, K2 the first. -> row 0..15 of the warp.
+template <int kMode>
+__device__ __forceinline__ int warp_winner(unsigned lo_hit, unsigned hi_hit) {
+  if constexpr (kMode != kWindowed)
+    return hi_hit ? 8 + ((31 - __clz(hi_hit)) >> 2) : (31 - __clz(lo_hit)) >> 2;
+  return lo_hit ? (__ffs(lo_hit) - 1) >> 2 : 8 + ((__ffs(hi_hit) - 1) >> 2);
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads) : "memory");
+}
+
+__device__ __forceinline__ void put(const Params& p, int b, int col, float v, int r) {
+  const int64_t o = static_cast<int64_t>(b) * p.n_cols + col;
+  p.out_v[o] = v;
+  p.out_i[o] = r;
+}
+
+// A consumer thread's two accumulator rows of tile t (tile rows rl0 and
+// rl0 + 8): global rows, whether they lie below N, and their additive terms.
+struct TileRows {
+  int ra, rb;
+  bool la, lb;
+  float ta, tb;
+};
+
+template <int kMode>
+__device__ __forceinline__ TileRows tile_rows(const Params& p, int t, int rl0) {
+  TileRows r;
+  r.ra = tile_row<kMode>(t, rl0);
+  r.rb = tile_row<kMode>(t, rl0 + 8);
+  if constexpr (kMode != kWindowed) {   // rows at or past N are TMA's zeros: masked
+    r.la = r.ra < p.N;
+    r.lb = r.rb < p.N;
+    r.ta = r.la ? __fmul_rn(__fsub_rn(__ldg(p.aux + r.ra), 1.0f), 1e30f) : 0.f;
+    r.tb = r.lb ? __fmul_rn(__fsub_rn(__ldg(p.aux + r.rb), 1.0f), 1e30f) : 0.f;
+  } else {
+    r.la = r.lb = true;
+    r.ta = __ldg(p.aux + r.ra);
+    r.tb = __ldg(p.aux + r.rb);
+  }
+  return r;
+}
+
+__device__ __forceinline__ float neg_inf() {   // loses to any score
+  return __int_as_float(0xff800000u);
+}
+
+// Groups of 1-8 rows (K1): a thread's two rows lie in different groups. A
+// group's lanes share its maximum by shuffles and a ballot of the lanes
+// that reach it names its last row.
+__device__ __forceinline__ void epilogue_small(const Params& p, const float (&acc)[kAccRegs],
+                                               const TileRows& tr, int t, int q0, int ct) {
+  const int lane = ct & 31, warp = ct >> 5;
+  const int g0 = (lane >> 2) & ~(p.group - 1);
+  const unsigned group_lanes = (0x11111111u << (lane & 3)) &
+      ((p.group == 8 ? 0xffffffffu : (1u << (4 * p.group)) - 1) << (4 * g0));
+  const bool writer = ((lane >> 2) & (p.group - 1)) == 0;
 #pragma unroll
-    for (int m = 0; m < kMGroup; ++m)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[m][n][c] = 0.f;
-    const uint32_t* lo[kMGroup];
-    const uint32_t* hi[kMGroup];
-#pragma unroll
-    for (int m = 0; m < kMGroup; ++m) {
-      const int64_t r = row0 + (mt0 + m) * 16 + gid;
-      lo[m] = e + (r < n_rows ? r : n_rows - 1) * dw;
-      hi[m] = e + (r + 8 < n_rows ? r + 8 : n_rows - 1) * dw;
+  for (int i = 0; i < kAccRegs; ++i) {
+    const int hi = (i >> 1) & 1;
+    const bool live = hi ? tr.lb : tr.la;
+    const float s = live ? __fadd_rn(acc[i], hi ? tr.tb : tr.ta) : neg_inf();
+    float m = s;
+    for (int x = 4; x < 4 * p.group; x <<= 1) m = fmaxf(m, __shfl_xor_sync(~0u, m, x));
+    const unsigned hit = __ballot_sync(~0u, s == m) & group_lanes;
+    const int b = q0 + acc_col(ct & 127, i);
+    if (writer && live && b < p.B) {
+      const int r = tile_row<kGroupedSmall>(t, 16 * warp + 8 * hi + ((31 - __clz(hit)) >> 2));
+      put(p, b, r / p.group, m, r);
     }
-    for (int kw = tig; kw < dw; kw += 8) {   // 16 dims = 8 words per step
-      const uint32_t b00 = qs[gid * dw + kw], b01 = qs[gid * dw + kw + 4];
-      const uint32_t b10 = qs[(8 + gid) * dw + kw], b11 = qs[(8 + gid) * dw + kw + 4];
+  }
+}
+
+// Groups of >= 16 rows (K2: the 128-row window): each column's best over
+// the warp's 16 rows. Each column's maximum goes round its 8 lanes by
+// shuffles, kBatch columns side by side, level by level, so one column's
+// shuffles hide another's latency; a ballot of the lanes that reach it
+// names the winning row, so no row index is carried or shuffled. The
+// warp's partials go to red.
+template <int kMode>
+__device__ __forceinline__ void epilogue_warp(const float (&acc)[kAccRegs], const TileRows& tr,
+                                              int t, int ct, Scratch* red) {
+  const int lane = ct & 31, warp = ct >> 5;
+  const unsigned same_col = 0x11111111u << (lane & 3);   // the lanes holding my columns
 #pragma unroll
-      for (int m = 0; m < kMGroup; ++m) {
-        uint32_t a[4];
-        a[0] = __ldg(lo[m] + kw);
-        a[1] = __ldg(hi[m] + kw);
-        a[2] = __ldg(lo[m] + kw + 4);
-        a[3] = __ldg(hi[m] + kw + 4);
-        mma_bf16(acc[m][0], a, b00, b01);
-        mma_bf16(acc[m][1], a, b10, b11);
-      }
+  for (int c0 = 0; c0 < kAccRegs / 2; c0 += kBatch) {
+    float lo[kBatch], hi[kBatch], m[kBatch];
+#pragma unroll
+    for (int c = 0; c < kBatch; ++c) {   // column c0 + c: registers i (row rl0), i + 2 (rl0 + 8)
+      const int i = 2 * (c0 + c) - ((c0 + c) & 1);
+      lo[c] = tr.la ? __fadd_rn(acc[i], tr.ta) : neg_inf();
+      hi[c] = tr.lb ? __fadd_rn(acc[i + 2], tr.tb) : neg_inf();
+      m[c] = fmaxf(lo[c], hi[c]);
     }
-    // C fragment: c0 (row gid, query 2*tig), c1 (gid, 2*tig+1),
-    //             c2 (gid+8, 2*tig), c3 (gid+8, 2*tig+1)
 #pragma unroll
-    for (int m = 0; m < kMGroup; ++m) {
-      const int r = (mt0 + m) * 16 + gid;
+    for (int x = 4; x <= 16; x <<= 1)
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int qc = n * 8 + 2 * tig;
-        s[qc * kTile + r] = acc[m][n][0];
-        s[(qc + 1) * kTile + r] = acc[m][n][1];
-        s[qc * kTile + r + 8] = acc[m][n][2];
-        s[(qc + 1) * kTile + r + 8] = acc[m][n][3];
+      for (int c = 0; c < kBatch; ++c) m[c] = fmaxf(m[c], __shfl_xor_sync(~0u, m[c], x));
+#pragma unroll
+    for (int c = 0; c < kBatch; ++c) {
+      const unsigned lo_hit = __ballot_sync(~0u, lo[c] == m[c]) & same_col;
+      const unsigned hi_hit = __ballot_sync(~0u, hi[c] == m[c]) & same_col;
+      if (lane < 4) {
+        const int col = acc_col(ct & 127, 2 * (c0 + c) - ((c0 + c) & 1));
+        red->v[warp][col] = m[c];
+        red->r[warp][col] = tile_row<kMode>(t, 16 * warp + warp_winner<kMode>(lo_hit, hi_hit));
       }
     }
   }
 }
 
 template <int kMode>
-__global__ void __launch_bounds__(kThreads)
-fused_scan_kernel(const uint32_t* __restrict__ q,    // (B, D/2) bf16 pairs
-                  const uint32_t* __restrict__ e,    // (N, D/2) bf16 pairs
-                  const float* __restrict__ aux,     // (N,): valid (K1) or bias (K2)
-                  float* __restrict__ out_v,         // (B, N/group) or (B, N/128)
-                  int32_t* __restrict__ out_i,
-                  int B, int64_t N, int D, int group) {
-  extern __shared__ float smem[];
-  float* s = smem;                                                 // [kQT][kTile]
-  uint32_t* qs = reinterpret_cast<uint32_t*>(s + kQT * kTile);     // [kQT][D/2]
-  const int q0 = blockIdx.x * kQT;
-  const int dw = D / 2;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  for (int i = threadIdx.x; i < kQT * dw; i += kThreads) {
-    const int qi = i / dw;
-    qs[i] = (q0 + qi < B) ? q[static_cast<int64_t>(q0 + qi) * dw + (i - qi * dw)] : 0u;
-  }
+__global__ void __launch_bounds__(kThreads, 1)
+fused_scan_kernel(const __grid_constant__ CUtensorMap e_map,
+                  const __grid_constant__ CUtensorMap q_map, const Params p) {
+  extern __shared__ uint8_t smem[];
+  Ring ring;
+  Scratch* red = reinterpret_cast<Scratch*>(ring.carve(smem));
+  if (threadIdx.x == 0) ring.init();
   __syncthreads();
 
-  if constexpr (kMode == kGrouped) {
-    const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kTile;
-    score_tile(qs, e, row0, N, dw, s);
-    __syncthreads();
-    const int64_t n_groups = N / group;
-    const int per_tile = kTile / group;
-    for (int p = warp; p < kQT * per_tile; p += kWarps) {
-      const int qi = p / per_tile;
-      const int gi = p - qi * per_tile;
-      const int b = q0 + qi;
-      const int64_t g0 = row0 + static_cast<int64_t>(gi) * group;
-      if (b >= B || g0 >= N) continue;
-      const float* sq = s + qi * kTile + gi * group;
-      float bv = __int_as_float(0xff800000u);   // -inf: a lane with no row loses
-      int bi = -1;
-      for (int c = lane; c < group; c += 32) {   // `>=`: the last row wins ties
-        const float v = __fadd_rn(sq[c], __fmul_rn(__fsub_rn(aux[g0 + c], 1.0f), 1e30f));
-        if (v >= bv) { bv = v; bi = c; }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (ov > bv || (ov == bv && oi > bi)) { bv = ov; bi = oi; }
-      }
-      if (lane == 0) {
-        const int64_t o = static_cast<int64_t>(b) * n_groups + g0 / group;
-        out_v[o] = bv;
-        out_i[o] = static_cast<int32_t>(g0 + bi);
-      }
-    }
-  } else {
-    const int64_t span0 = static_cast<int64_t>(blockIdx.y) * kSpan;
-    float rv[kPairs];
-    int32_t ri[kPairs];
-#pragma unroll
-    for (int k = 0; k < kPairs; ++k) { rv[k] = kNeg; ri[k] = 0; }
-    for (int t = 0; t < kSpan / kTile; ++t) {
-      const int64_t row0 = span0 + static_cast<int64_t>(t) * kTile;
-      score_tile(qs, e, row0, N, dw, s);
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kPairs; ++k) {
-        const int p = threadIdx.x + k * kThreads;
-        const int qi = p / kWindow;
-        const int w = p - qi * kWindow;
-        const float* sq = s + qi * kTile;
-        for (int c = w; c < kTile; c += kWindow) {   // increasing rows, strict `>`
-          const float v = __fadd_rn(sq[c], aux[row0 + c]);
-          if (v > rv[k]) { rv[k] = v; ri[k] = static_cast<int32_t>(row0 + c); }
+  if (threadIdx.x >= kConsumerThreads) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    producer_regs();
+    if (threadIdx.x == kConsumerThreads) {
+      Cursor c;
+      for (int64_t u = blockIdx.x; u < p.n_units; u += gridDim.x) {
+        const int q0 = static_cast<int>(u % p.q_tiles) * kQueries;
+        const int t0 = static_cast<int>(u / p.q_tiles) * p.tiles_per_unit;
+        for (int t = t0; t < t0 + p.tiles_per_unit; ++t) {
+          produce_tile(ring, c, p.k_slices, [&](uint32_t e, uint32_t q, uint32_t bar, int k) {
+            if constexpr (kMode != kWindowed)
+              tma_load_2d(e, &e_map, bar, k * kK, t * kRows);
+            else   // window (j, w) = tile t: chunks [128 j, 128 j + 128) of window w
+              tma_load_3d(e, &e_map, bar, k * kK, t % kWindow, (t / kWindow) * kRows);
+            tma_load_2d(q, &q_map, bar, k * kK, q0);
+          });
         }
       }
-      __syncthreads();   // the next tile overwrites s
     }
-    const int64_t width = N / kSpan * kWindow;
+    return;
+  }
+
+  // ---- consumer warpgroups ----
+  consumer_regs();
+  const int ct = threadIdx.x;
+  const int rl0 = 64 * (ct >> 7) + acc_row(ct & 127, 0);   // this thread's tile rows: rl0, rl0 + 8
+  float acc[kAccRegs];
 #pragma unroll
-    for (int k = 0; k < kPairs; ++k) {
-      const int p = threadIdx.x + k * kThreads;
-      const int qi = p / kWindow;
-      const int w = p - qi * kWindow;
-      if (q0 + qi >= B) continue;
-      const int64_t o = static_cast<int64_t>(q0 + qi) * width + blockIdx.y * kWindow + w;
-      out_v[o] = rv[k];
-      out_i[o] = ri[k];
+  for (int i = 0; i < kAccRegs; ++i) acc[i] = 0.f;
+
+  Cursor c;
+  for (int64_t u = blockIdx.x; u < p.n_units; u += gridDim.x) {
+    const int q0 = static_cast<int>(u % p.q_tiles) * kQueries;
+    const int t0 = static_cast<int>(u / p.q_tiles) * p.tiles_per_unit;
+    float run_v = neg_inf();   // K1, groups wider than a tile: query q0 + ct's running pair
+    int run_r = -1;
+    for (int t = t0; t < t0 + p.tiles_per_unit; ++t) {
+      const TileRows tr = tile_rows<kMode>(p, t, rl0);
+      consume_tile(ring, c, p.k_slices, ct >> 7, acc);
+      if constexpr (kMode == kGroupedSmall) {
+        epilogue_small(p, acc, tr, t, q0, ct);
+        continue;
+      }
+      consumer_sync();   // the previous tile's readers are done with red
+      epilogue_warp<kMode>(acc, tr, t, ct, red);
+      consumer_sync();
+
+      // thread ct finishes query q0 + ct: the warps of each group, in row order
+      const int b = q0 + ct;
+      const int wpg = (p.group < kRows ? p.group : kRows) / 16;   // warps per group in the tile
+      for (int g0 = 0; g0 < kWarps; g0 += wpg) {
+        float bv = neg_inf();
+        int br = -1;
+        for (int w = g0; w < g0 + wpg; ++w) keep<kMode>(bv, br, red->v[w][ct], red->r[w][ct]);
+        if constexpr (kMode == kWindowed) {
+          if (b < p.B) {
+            if (bv > kNeg) put(p, b, t, bv, br);
+            else put(p, b, t, kNeg, 0);
+          }
+        } else if (p.group <= kRows) {
+          const int row0 = t * kRows + g0 * 16;
+          if (b < p.B && row0 < p.N) put(p, b, row0 / p.group, bv, br);
+        } else {
+          keep<kMode>(run_v, run_r, bv, br);
+        }
+      }
+      if (kMode == kGrouped && p.group > kRows && t == t0 + p.tiles_per_unit - 1 && b < p.B)
+        put(p, b, (t0 * kRows) / p.group, run_v, run_r);
     }
   }
 }
 
 template <int kMode>
-int launch(const void* q, const void* e, const void* aux, void* out_v, void* out_i,
-           int64_t B, int64_t N, int64_t D, int64_t group, unsigned int grid_y,
-           void* stream) {
-  const size_t smem = sizeof(float) * kQT * kTile + sizeof(uint16_t) * kQT * D;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_scan_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+int launch(const CUtensorMap& e_map, const void* q, const void* aux, void* out_v, void* out_i,
+           int64_t B, int64_t N, int64_t D, int group, int64_t tiles, int tiles_per_unit,
+           int n_cols, void* stream) {
+  CUtensorMap q_map;
+  cudaError_t err = query_map(&q_map, q, B, D);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned int>((B + kQT - 1) / kQT), grid_y);
-  fused_scan_kernel<kMode><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(e),
-      static_cast<const float*>(aux), static_cast<float*>(out_v),
-      static_cast<int32_t*>(out_i), static_cast<int>(B), N, static_cast<int>(D),
-      static_cast<int>(group));
+  Params p;
+  p.aux = static_cast<const float*>(aux);
+  p.out_v = static_cast<float*>(out_v);
+  p.out_i = static_cast<int32_t*>(out_i);
+  p.B = static_cast<int>(B);
+  p.N = static_cast<int>(N);
+  p.k_slices = static_cast<int>((D + kK - 1) / kK);
+  p.q_tiles = static_cast<int>((B + kQueries - 1) / kQueries);
+  p.tiles_per_unit = tiles_per_unit;
+  p.n_units = tiles / tiles_per_unit * p.q_tiles;
+  p.group = group;
+  p.n_cols = n_cols;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int smem = kRingSmem + static_cast<int>(sizeof(Scratch));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fused_scan_kernel<kMode>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t grid = p.n_units < sms ? p.n_units : sms;   // persistent: one block per SM
+  fused_scan_kernel<kMode><<<static_cast<unsigned int>(grid), kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(e_map, q_map, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -248,14 +361,36 @@ extern "C" int yt_grouped_max(const void* q, const void* e, const void* valid,
                               void* out_v, void* out_i, int64_t B, int64_t N,
                               int64_t D, int64_t group, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  return launch<kGrouped>(q, e, valid, out_v, out_i, B, N, D, group,
-                          static_cast<unsigned int>((N + kTile - 1) / kTile), stream);
+  // E as (N rows, D): boxes of 64 dims x 128 consecutive rows
+  CUtensorMap e_map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t box[2] = {kK, kRows};
+  const cudaError_t err = bf16_map(&e_map, e, 2, dims, strides, box);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles = (N + kRows - 1) / kRows;
+  const int per_unit = group > kRows ? static_cast<int>(group / kRows) : 1;
+  if (group < 16)
+    return launch<kGroupedSmall>(e_map, q, valid, out_v, out_i, B, N, D, static_cast<int>(group),
+                                 tiles, per_unit, static_cast<int>(N / group), stream);
+  return launch<kGrouped>(e_map, q, valid, out_v, out_i, B, N, D, static_cast<int>(group), tiles,
+                          per_unit, static_cast<int>(N / group), stream);
 }
 
 extern "C" int yt_windowed_scan(const void* q, const void* e, const void* bias,
                                 void* out_v, void* out_i, int64_t B, int64_t N,
                                 int64_t D, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  return launch<kWindowed>(q, e, bias, out_v, out_i, B, N, D, 0,
-                           static_cast<unsigned int>(N / kSpan), stream);
+  // E as (N/128 chunks, 128 windows, D): boxes of 64 dims x 1 window x 128
+  // chunks, i.e. the 128 rows of one window of a span
+  CUtensorMap e_map;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(kWindow),
+                              static_cast<cuuint64_t>(N / kWindow)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(D) * 2 * kWindow};
+  const cuuint32_t box[3] = {kK, 1, kRows};
+  const cudaError_t err = bf16_map(&e_map, e, 3, dims, strides, box);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch<kWindowed>(e_map, q, bias, out_v, out_i, B, N, D, kWindow, N / kWindow, 1,
+                           static_cast<int>(N / kWindow), stream);
 }

@@ -64,6 +64,7 @@ def windowed_scan_cuda(q: torch.Tensor, E: torch.Tensor, bias: torch.Tensor):
     """Launch the CUDA window kernel (csrc/fused_scan.cu): (B, N/128)."""
     B, D = q.shape
     N = E.shape[0]
+    _build.require_aligned("windowed_scan_cuda", q=q, E=E, bias=bias)
     if q.device.type != "cuda" or E.device != q.device or bias.device != q.device:
         raise ValueError(f"windowed_scan_cuda needs CUDA tensors on one card, got {q.device}")
     if q.dtype != torch.bfloat16 or E.dtype != torch.bfloat16 or bias.dtype != torch.float32:
@@ -72,8 +73,8 @@ def windowed_scan_cuda(q: torch.Tensor, E: torch.Tensor, bias: torch.Tensor):
         raise ValueError("windowed_scan_cuda takes contiguous tensors")
     if E.shape[1] != D or bias.shape != (N,) or D % 16:
         raise ValueError(f"shapes q {tuple(q.shape)}, E {tuple(E.shape)}: D % 16 != 0 or mismatch")
-    if N % SPAN or N // SPAN >= 1 << 16:
-        raise ValueError(f"N={N}: a multiple of {SPAN} below 65,536 spans (use pad_corpus)")
+    if N % SPAN or N >= 1 << 31:
+        raise ValueError(f"N={N}: a multiple of {SPAN} below 2**31 rows (use pad_corpus)")
     W = N // SPAN * WINDOW
     out_v = torch.empty((B, W), dtype=torch.float32, device=q.device)
     out_i = torch.empty((B, W), dtype=torch.int32, device=q.device)

@@ -207,6 +207,7 @@ def grouped_max_cuda(q: torch.Tensor, E: torch.Tensor, valid: torch.Tensor, grou
     """Launch the CUDA grouped-max kernel (csrc/fused_scan.cu): (B, N/group)."""
     B, D = q.shape
     N = E.shape[0]
+    _build.require_aligned("grouped_max_cuda", q=q, E=E, valid=valid)
     if q.device.type != "cuda" or E.device != q.device or valid.device != q.device:
         raise ValueError(f"grouped_max_cuda needs CUDA tensors on one card, got {q.device}")
     if q.dtype != torch.bfloat16 or E.dtype != torch.bfloat16 or valid.dtype != torch.float32:
@@ -217,8 +218,8 @@ def grouped_max_cuda(q: torch.Tensor, E: torch.Tensor, valid: torch.Tensor, grou
         raise ValueError(f"shapes q {tuple(q.shape)}, E {tuple(E.shape)}: D % 16 != 0 or mismatch")
     if group < 1 or 2048 % group or N % group:
         raise ValueError(f"group {group}: a power of two <= 2048 that divides N={N}")
-    if (N + 2047) // 2048 >= 1 << 16:
-        raise ValueError(f"N={N}: at most 65,535 tiles of 2,048 rows per launch")
+    if N >= 1 << 31:
+        raise ValueError(f"N={N}: rows are int32")
     out_v = torch.empty((B, N // group), dtype=torch.float32, device=q.device)
     out_i = torch.empty((B, N // group), dtype=torch.int32, device=q.device)
     if B == 0 or N == 0:

@@ -28,6 +28,20 @@ def qps_windows(run, iters: int, batch: int, windows: int, device: torch.device)
     return float(np.median(out)), out
 
 
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over reps launches, after a warm-up
+    (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def recall(ids: np.ndarray, oracle: np.ndarray) -> float:
     """Mean |ids[j] & oracle[j]| / k over rows, both (rows, k)."""
     k = oracle.shape[1]
