@@ -9,12 +9,18 @@ seconds):
   1. each CUDA kernel built from yams_tpu_torch/csrc (one nvcc per source,
      in parallel) and held against its plain PyTorch twin on the card, with
      both timed: gear hash and SHA-256 bit-exact; K3 (exact_topk_cuda) at
-     edge shapes (B 1/3/64, k 1/10/100, duplicate rows, an all-dead block, a
-     block with k-1 live rows) and at the bench shape (1,048,576 x 768,
-     B 1,024, k 10), values within 1e-4 and every differing id a near-tie;
-     K4 (pq4_adc_cuda) bit-equal at edge shapes (group 8/64/128, B 1/3/256,
-     dead rows) and at the capacity shape (16,777,216 rows, m 48, group 128,
-     B 256), with the QPS of the whole top-64 selection; K1
+     edge shapes (B 1/3/64 and 255/256/257; k 1/10/16 on its threshold
+     epilogue and 17/100/128/129/2,048 on its score dump; duplicate rows,
+     ties across 128-row tile and block edges, scores rising with the row,
+     an all-dead block, a block with k-1 live rows; block_rows 64, 192 and
+     2,048) and at the bench shape (1,048,576 x 768, B 1,024, k 10, beside
+     dot_f32 on the same operands, and with rising scores), values within
+     1e-4 and every differing id a near-tie; K4 (pq4_adc_cuda) at edge
+     shapes (m 8/32/48/50/96/200, groups 1-256, B 1/3/127/128/129/256, dead
+     tiles, ragged last tiles) and at the capacity shape (16,777,216 rows,
+     m 48, group 128, B 256), with the QPS of the whole top-64 selection,
+     each case bit-equal to the twin or (the tensor cores' f32 sum rounds
+     otherwise) within 1e-4 with every differing row a near-tie; K1
      (grouped_max_cuda) and K2 (windowed_scan_cuda) at edge shapes (B
      1/3/64; group 64/256; a dead group; an all-masked window, which must
      give (-1e30, 0); duplicate rows for ties; a ragged last tile; N of 1
@@ -88,10 +94,15 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-# Published H100 SXM peaks (NVIDIA's data sheet, dense rates), at 700 W
-PEAK_BF16 = 989e12     # FLOP/s, dense bf16 tensor cores
-PEAK_CORE = 67e12      # FLOP/s, f32 outside the tensor cores (integer ops counted here too)
-PEAK_BYTES = 3.35e12   # B/s, HBM3
+# H100 SXM peaks at 700 W. The bf16 and memory rates are NVIDIA's data
+# sheet's (dense). The data sheet's 67 TFLOP/s of f32 counts an FMA as two
+# operations (132 SMs x 128 f32 lanes x 2 x 1.98 GHz); a plain f32 add or
+# compare is one operation a lane a clock, half that, and 32-bit integer
+# work runs on 64 lanes a clock per SM, half that again.
+PEAK_BF16 = 989e12                 # FLOP/s, dense bf16 tensor cores
+PEAK_CORE = 132 * 128 * 1.98e9     # f32 adds or compares /s (~33.5e12)
+PEAK_INT = 132 * 64 * 1.98e9       # 32-bit integer ops /s (~16.7e12)
+PEAK_BYTES = 3.35e12               # B/s, HBM3
 
 
 def bound(nbytes: float, ops: float, rate: float) -> dict:
@@ -189,14 +200,14 @@ def phase1_kernels(dev) -> dict:
         # int32 gear values in, int32 hashes out; h = (h << 1) + g: 2 ops a byte
         "gear_hash_cuda": dict(max_abs_err=gear_err, ms=gear_ms, plain_ms=gear_plain_ms,
                                shape="64 MiB (67,108,864 positions)",
-                               **bound(8.0 * n, 2.0 * n, PEAK_CORE)),
+                               **bound(8.0 * n, 2.0 * n, PEAK_INT)),
         # message bytes, starts and lengths in, 32-byte digests out; ~2,200
         # 32-bit integer ops per 64-byte block (64 rounds + the schedule)
         "sha256_cuda": dict(max_abs_err=sha_err, ms=sha_ms, plain_ms=sha_plain_ms,
                             shape=f"{rows} rows x ~{width} B",
                             ms_4096_chunks_to_256KiB=sha_big_ms,
                             **bound(float(lens.sum()) + 44.0 * rows, 2200.0 * blocks,
-                                    PEAK_CORE)),
+                                    PEAK_INT)),
     }
 
 
@@ -226,21 +237,38 @@ def check_topk(what: str, kv, ki, tv, ti, true_score, tol: float,
     return err, int(diff.sum())
 
 
-def k3_inputs(dev, gen, B: int, k: int, case: str, N: int = 4 * 2048, D: int = 768):
+def k3_inputs(dev, gen, B: int, k: int, case: str, N: int = 4 * 2048, D: int = 768,
+              block_rows: int = 2048):
     """Edge inputs of the K3 block step: (q bf16, E bf16, valid f32)."""
     E = torch.randn(N, D, generator=gen, device=dev)
-    E = (E / E.norm(dim=1, keepdim=True)).to(torch.bfloat16)
     q = torch.randn(B, D, generator=gen, device=dev)
+    E = (E / E.norm(dim=1, keepdim=True)).to(torch.bfloat16)
     q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    if case == "rising":           # every query scores row r of a block exactly r / 2,048
+        r = torch.arange(N, device=dev) % block_rows   # (every tile inserts)
+        E.zero_()
+        E[:, 0] = (r // 16).float() / 128       # both exact in bf16
+        E[:, 1] = (r % 16).float() / 16
+        q.zero_()
+        q[:, 0] = 1.0
+        q[:, 1] = 1.0 / 128
     valid = (torch.rand(N, generator=gen, device=dev) > 0.05).float()
     if case == "duplicates":       # exact ties at the top, inside and across blocks
         for b in range(B):
             E[[(11 + 7 * b) % N, (700 + 7 * b) % N, (2048 + 5 * b) % N, (6000 + b) % N]] = q[b]
+    elif case == "tile_ties":      # query b's copies on both sides of a 128-row tile edge
+        edges = N // 128 - 1       # j = 16 straddles rows 2,047 / 2,048, a block edge
+        for b in range(B):
+            j = 1 + (b * 15) % edges
+            E[[128 * j - 1, 128 * j]] = q[b]
+            valid[[128 * j - 1, 128 * j]] = 1.0
     elif case == "dead_block":
-        valid[2048:4096] = 0.0
+        valid[block_rows:2 * block_rows] = 0.0
     elif case == "k_minus_1_live":
-        valid[4096:6144] = 0.0
-        valid[4096 + torch.randperm(2048, generator=gen, device=dev)[:k - 1]] = 1.0
+        valid[block_rows:2 * block_rows] = 0.0
+        valid[block_rows + torch.randperm(block_rows, generator=gen, device=dev)[:k - 1]] = 1.0
+    elif case == "rising":
+        valid[:] = 1.0
     return q, E.contiguous(), valid
 
 
@@ -252,34 +280,66 @@ def k3_true_score(q, E, valid):
     return true
 
 
-def phase1_search_kernels(dev) -> dict:
-    """K3 and K4 held against their twins on the card: edge shapes, then the
-    shapes the vector store runs them at."""
-    from yams_tpu_torch.ops import pq_pallas, scan
-    from yams_tpu_torch.ops.pq import pq_lut
+def k4_true_score(lut, codes, valid):
+    """f64 ADC score of (pos (.., 2) = (query, window), row ids)."""
+    def true(pos, ids):
+        r = ids.long()
+        c = torch.stack([codes[r] & 15, codes[r] >> 4], dim=2).reshape(r.numel(), -1).long()
+        s = lut[pos[:, 0]].double().gather(2, c[:, :, None])[:, :, 0].sum(dim=1)
+        return torch.where(valid[r] > 0, s, -1e30)
+    return true
+
+
+def check_k4(what: str, kv, ki, tv, ti, lut, codes, valid, tol: float) -> tuple[bool, float, int]:
+    """K4 against its twin: bit-equal, or (if the tensor-core sum rounds
+    otherwise) values within tol and every differing row a near-tie.
+    -> (bit-equal, max value error, #rows that differ)."""
+    if torch.equal(kv, tv) and torch.equal(ki, ti):
+        return True, 0.0, 0
+    err, d = check_topk(what, kv, ki, tv, ti, k4_true_score(lut, codes, valid), tol,
+                        ordered=False)
+    return False, err, d
+
+
+def phase1_k3(dev) -> dict:
+    """K3 held against its twin on the card: edge shapes, then the bench
+    shape, timed beside dot_f32 (cuBLAS) on the same operands."""
+    from yams_tpu_torch.ops import scan
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 7)
-    out = {}
-    tol = 1e-4   # 768 bf16 products summed in f32 by mma.sync vs cuBLAS
-    n_cases = n_diff = 0
-    for B in (1, 3, 64):
-        for k in (1, 10, 100):
-            for case in ("random", "duplicates", "dead_block", "k_minus_1_live"):
-                q, E, valid = k3_inputs(dev, gen, B, k, case)
-                kv, ki = scan.exact_topk_cuda(q, E, valid, k)
-                tv, ti = scan.exact_topk_reference(q, E, valid, k)
-                torch.cuda.synchronize()
-                _, d = check_topk(f"K3 {case} B={B} k={k}", kv, ki, tv, ti,
-                                  k3_true_score(q, E, valid), tol)
-                if case in ("dead_block", "k_minus_1_live"):
-                    check(bool((kv <= -1e29).any()), f"K3 {case}: -1e30 slots present")
-                n_cases += 1
-                n_diff += d
-    log(f"[phase1] exact_topk_cuda: {n_cases} edge cases == twin "
+    tol = 1e-4   # 768 bf16 products summed in f32 by wgmma vs cuBLAS
+    # (B, k, case, N, block_rows): the first port's cases; then the edges of
+    # the 128-row x 256-query tile and of the threshold epilogue (k <= 16)
+    # against the score dump (k > 16), block_rows 64 and 192 (TMA's zeros
+    # past a block's end), ties across tile and block edges, scores rising
+    # with the row (every tile inserts), a dead block, k - 1 live rows
+    cases = [(B, k, case, 8192, 2048) for B in (1, 3, 64) for k in (1, 10, 100)
+             for case in ("random", "duplicates", "dead_block", "k_minus_1_live")]
+    cases += [(B, k, "random", 8192, 2048) for B in (255, 256, 257)
+              for k in (1, 10, 16, 17, 128, 129, 2048)]
+    cases += [(B, k, "tile_ties", 8192, 2048) for B in (3, 257) for k in (1, 10, 129)]
+    cases += [(B, k, "rising", 8192, 2048) for B in (3, 257) for k in (1, 10, 16, 129)]
+    cases += [(257, k, case, 8192, 2048) for k in (10, 129)
+              for case in ("duplicates", "dead_block", "k_minus_1_live")]
+    cases += [(B, k, case, N, br) for B in (3, 257) for N, br, ks in
+              ((8192, 64, (1, 10, 64)), (7680, 192, (10, 16, 129, 192)))
+              for k in ks for case in ("random", "dead_block", "k_minus_1_live")]
+    n_diff = 0
+    for B, k, case, N, br in cases:
+        q, E, valid = k3_inputs(dev, gen, B, k, case, N=N, block_rows=br)
+        kv, ki = scan.exact_topk_cuda(q, E, valid, k, br)
+        tv, ti = scan.exact_topk_reference(q, E, valid, k, br)
+        torch.cuda.synchronize()
+        what = f"K3 {case} B={B} k={k} N={N} block_rows={br}"
+        _, d = check_topk(what, kv, ki, tv, ti, k3_true_score(q, E, valid), tol)
+        if case in ("dead_block", "k_minus_1_live"):
+            check(bool((kv <= -1e29).any()), f"{what}: -1e30 slots present")
+        n_diff += d
+    log(f"[phase1] exact_topk_cuda: {len(cases)} edge cases == twin "
         f"({n_diff} ids differ, all near-ties)")
 
-    # K3 at the bench shape: 1,048,576 x 768 clustered, B = 1,024, k = 10
+    # the bench shape: 1,048,576 x 768 clustered, B = 1,024, k = 10
     cgen = torch.Generator(device=dev)
     cgen.manual_seed(SEED)
     E = clustered_corpus(dev, cgen)
@@ -291,38 +351,85 @@ def phase1_search_kernels(dev) -> dict:
     tv, ti = scan.exact_topk_reference(q, E, valid, 10)
     torch.cuda.synchronize()
     k3_err, d = check_topk("K3 bench shape", kv, ki, tv, ti, k3_true_score(q, E, valid), tol)
-    k3_ms = cuda_ms(lambda: scan.exact_topk_cuda(q, E, valid, 10), 3)
+    k3_ms = cuda_ms(lambda: scan.exact_topk_cuda(q, E, valid, 10), 5)
     k3_plain_ms = cuda_ms(lambda: scan.exact_topk_reference(q, E, valid, 10), 3)
+    dot_ms = cuda_ms(lambda: scan.dot_f32(q, E), 5)
     flops = 2.0 * 1024 * N * D
     log(f"[phase1] exact_topk_cuda {N}x{D}, B=1024, k=10: cuda {k3_ms:.3f} ms "
-        f"({flops / k3_ms / 1e9:.1f} TFLOP/s), plain {k3_plain_ms:.3f} ms; "
+        f"({flops / k3_ms / 1e9:.1f} TFLOP/s), plain {k3_plain_ms:.3f} ms; dot_f32 on the "
+        f"same operands {dot_ms:.3f} ms ({flops / dot_ms / 1e9:.1f} TFLOP/s); "
         f"max err {k3_err:.3g}, {d} of {ki.numel()} ids differ (near-ties)")
-    out["exact_topk_cuda"] = dict(
-        max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms,
-        shape=f"{N}x{D} bf16, B=1024, k=10 (G x B x k blocks)",
-        **bound(2.0 * N * D + 2.0 * 1024 * D + 4.0 * N + 8.0 * kv.numel(), flops, PEAK_BF16))
+    out = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms, dot_f32_ms=dot_ms,
+               tflops=flops / k3_ms / 1e9, dot_f32_tflops=flops / dot_ms / 1e9,
+               shape=f"{N}x{D} bf16, B=1024, k=10 (G x B x k blocks)",
+               **bound(2.0 * N * D + 2.0 * 1024 * D + 4.0 * N + 8.0 * kv.numel(), flops,
+                       PEAK_BF16))
     del E, kv, ki, tv, ti
+    # the threshold's worst case at the same size: scores rising with the row
+    q, E, valid = k3_inputs(dev, gen, 1024, 10, "rising", N=N)
+    kv, ki = scan.exact_topk_cuda(q, E, valid, 10)
+    tv, ti = scan.exact_topk_reference(q, E, valid, 10)
+    torch.cuda.synchronize()
+    _, d = check_topk("K3 rising scores, bench size", kv, ki, tv, ti,
+                      k3_true_score(q, E, valid), tol)
+    out["rising_ms"] = cuda_ms(lambda: scan.exact_topk_cuda(q, E, valid, 10), 3)
+    log(f"[phase1] exact_topk_cuda, scores rising with the row ({N}x{D}, B=1024, k=10): "
+        f"{out['rising_ms']:.3f} ms; {d} ids differ (near-ties)")
+    return {"exact_topk_cuda": out}
 
-    # K4 edge shapes: 65,536 rows, m = 48, random codes, dead rows
+
+def k4_inputs(dev, gen, B: int, m: int, N: int, dsub: int = 16):
+    """K4 inputs: (bf16 LUT (B, m, 16), packed codes (N, m/2), valid) with
+    ~10% dead rows and a dead 4,096-row span (whole 128-row tiles)."""
+    from yams_tpu_torch.ops.pq import pq_lut
+
+    codes = torch.randint(0, 256, (N, m // 2), generator=gen, device=dev, dtype=torch.uint8)
+    valid = (torch.rand(N, generator=gen, device=dev) > 0.1).float()
+    valid[4096:8192] = 0.0
+    cent = torch.randn(m, 16, dsub, generator=gen, device=dev)
+    lut = pq_lut(torch.randn(B, m * dsub, generator=gen, device=dev),
+                 cent).to(torch.bfloat16).contiguous()
+    return lut, codes, valid
+
+
+def phase1_k4(dev) -> dict:
+    """K4 held against its twin on the card: edge shapes, then the capacity
+    shape with the top-64 selection."""
+    from yams_tpu_torch.ops import pq_pallas
+    from yams_tpu_torch.ops.pq import pq_lut
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    tol = 1e-4
+    # (m, group, B, N): the first port's cases (m 48, groups 8/64/128, B
+    # 1/3/256); every m tile width (n 128 to m 48, 64 to 104, 32 to 192, 16
+    # beyond) and the largest m; groups 1-256 (inside a warp, across warps,
+    # across the two warpgroups, across two tiles); query tiles at B 127-129
+    # and 256; a ragged last 128-row tile (N = 65,536 + 64, and + 8)
+    cases = [(48, g, B, 65536) for g in (8, 64, 128) for B in (1, 3, 256)]
+    cases += [(m, g, B, 65536) for m in (8, 32, 48, 96, 200) for g in (8, 64, 128, 256)
+              for B in (1, 127, 128, 129, 256)]
+    cases += [(48, g, B, 65536) for g in (1, 2, 4, 16, 32) for B in (3, 129)]
+    cases += [(m, g, 129, 65536 + 64) for m in (8, 50) for g in (1, 8, 16, 64)]
+    cases += [(50, g, 3, 65536 + 8) for g in (1, 8)]   # its last copy is 8 bytes
+    n_equal = n_diff = 0
+    k4_case_err = 0.0
+    for m, group, B, N in cases:
+        lut, codes, valid = k4_inputs(dev, gen, B, m, N)
+        kv, ki = pq_pallas.pq4_adc_cuda(lut, codes, valid, group, group)
+        tv, ti = pq_pallas.pq4_adc_reference(lut, codes, valid, group, group)
+        torch.cuda.synchronize()
+        eq, err, d = check_k4(f"K4 m={m} group={group} B={B} N={N}", kv, ki, tv, ti,
+                              lut, codes, valid, tol)
+        n_equal += eq
+        n_diff += d
+        k4_case_err = max(k4_case_err, err)
+    log(f"[phase1] pq4_adc_cuda: {len(cases)} edge cases against the twin: {n_equal} bit-equal; "
+        f"the rest within {tol} (max err {k4_case_err:.3g}), {n_diff} rows differ, all near-ties")
+
+    # the capacity shape (scripts/bench_pq.py): 16,777,216 rows, D 768, m 48,
+    # ksub 16, group 128, block 2,048, 256 queries, top-64 candidates
     m, dsub = 48, 16
-    for group in (8, 64, 128):
-        for B in (1, 3, 256):
-            codes = torch.randint(0, 256, (65536, m // 2), generator=gen, device=dev,
-                                  dtype=torch.uint8)
-            valid = (torch.rand(65536, generator=gen, device=dev) > 0.1).float()
-            valid[4096:8192] = 0.0
-            cent = torch.randn(m, 16, dsub, generator=gen, device=dev)
-            lut = pq_lut(torch.randn(B, m * dsub, generator=gen, device=dev),
-                         cent).to(torch.bfloat16).contiguous()
-            kv, ki = pq_pallas.pq4_adc_cuda(lut, codes, valid, group)
-            tv, ti = pq_pallas.pq4_adc_reference(lut, codes, valid, group)
-            torch.cuda.synchronize()
-            check(torch.equal(kv, tv) and torch.equal(ki, ti),
-                  f"pq4_adc_cuda == twin (bit-equal) at group={group} B={B}")
-    log("[phase1] pq4_adc_cuda: 9 edge cases bit-equal to the twin")
-
-    # K4 at the capacity shape (scripts/bench_pq.py): 16,777,216 rows, D 768,
-    # m 48, ksub 16, group 128, block 2,048, 256 queries, top-64 candidates
     N, B, group = 16_777_216, 256, 128
     t = time.perf_counter()
     codes = torch.randint(0, 256, (N, m // 2), generator=gen, device=dev, dtype=torch.uint8)
@@ -338,26 +445,29 @@ def phase1_search_kernels(dev) -> dict:
     kv, ki = pq_pallas.pq4_adc_cuda(lut, codes, valid, group)
     tv, ti = pq_pallas.pq4_adc_reference(lut, codes, valid, group)
     torch.cuda.synchronize()
-    k4_err = float((kv - tv).abs().max())
-    check(torch.equal(kv, tv) and torch.equal(ki, ti), "pq4_adc_cuda == twin at capacity")
+    eq, k4_err, d = check_k4("K4 capacity shape", kv, ki, tv, ti, lut, codes, valid, tol)
     del kv, ki, tv, ti
-    k4_ms = cuda_ms(lambda: pq_pallas.pq4_adc_cuda(lut, codes, valid, group), 5)
+    k4_ms = cuda_ms(lambda: pq_pallas.pq4_adc_cuda(lut, codes, valid, group), 10)
     k4_plain_ms = cuda_ms(lambda: pq_pallas.pq4_adc_reference(lut, codes, valid, group), 1)
     topk_ms = cuda_ms(lambda: pq_pallas.pq4_adc_topk_pallas(
         qf, codes, cent, valid, 64, group=group, block_rows=2048), 5)
     lookups = float(N) * B * m
+    onehot_flops = 2.0 * N * 16 * m * B
     log(f"[phase1] pq4_adc_cuda {N} rows, m={m}, group={group}, B={B}: cuda {k4_ms:.3f} ms "
-        f"({lookups / k4_ms / 1e9:.2f}e12 lookups/s), plain {k4_plain_ms:.1f} ms; bit-equal; "
-        f"pq4_adc_topk_pallas (top-64) {topk_ms:.3f} ms = {B / topk_ms * 1e3:.1f} QPS")
+        f"({lookups / k4_ms / 1e9:.2f}e12 lookups/s; the one-hot product at "
+        f"{onehot_flops / k4_ms / 1e9:.1f} TFLOP/s), plain {k4_plain_ms:.1f} ms; "
+        + ("bit-equal" if eq else f"max err {k4_err:.3g}, {d} rows differ (near-ties)")
+        + f"; pq4_adc_topk_pallas (top-64) {topk_ms:.3f} ms = {B / topk_ms * 1e3:.1f} QPS")
     # codes, validity and the bf16 LUT in, one (value, row) per group out;
     # one f32 add per (row, query, subspace) and one compare per (row, query)
-    out["pq4_adc_cuda"] = dict(max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms,
-                               shape=f"{N} rows, m=48 packed, group 128, B=256",
-                               topk_pallas_ms=topk_ms, topk_pallas_qps=B / topk_ms * 1e3,
-                               **bound(codes.numel() + 4.0 * N + 2.0 * lut.numel()
-                                       + 8.0 * B * (N // group),
-                                       float(N) * B * (m + 1), PEAK_CORE))
-    return out
+    return {"pq4_adc_cuda": dict(
+        max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms, bit_equal=eq,
+        edge_cases_bit_equal=f"{n_equal} of {len(cases)}",
+        shape=f"{N} rows, m=48 packed, group 128, B=256",
+        onehot_tflops=onehot_flops / k4_ms / 1e9,
+        topk_pallas_ms=topk_ms, topk_pallas_qps=B / topk_ms * 1e3,
+        **bound(codes.numel() + 4.0 * N + 2.0 * lut.numel() + 8.0 * B * (N // group),
+                float(N) * B * (m + 1), PEAK_CORE))}
 
 
 def partition_true_score(q, E, valid=None, bias=None):
@@ -1097,7 +1207,8 @@ def main() -> int:
         return {name: fn.launches for name, fn in counters.items()}
 
     kernels = phase("phase1", phase1_kernels, dev)
-    kernels.update(phase("phase1 search kernels", phase1_search_kernels, dev))
+    kernels.update(phase("phase1 K3", phase1_k3, dev))
+    kernels.update(phase("phase1 K4", phase1_k4, dev))
     kernels.update(phase("phase1 fused scan kernels", phase1_fused_scan_kernels, dev))
     torch.cuda.empty_cache()   # phase 1's large blocks must not crowd the paths' allocations
     data = zipf_text(128 << 20, SEED)

@@ -206,3 +206,74 @@ def test_pq4_adc_cuda_refuses_cpu_tensors(data):
     lut = port_pq.pq_lut(_t(data["q"]), _t(data["cent"])).bfloat16()
     with pytest.raises(ValueError, match="CUDA"):
         port_pallas.pq4_adc_cuda(lut, _t(data["packed"]), _t(data["valid"]), 8, 512)
+
+
+# Edges of the CUDA kernel's design, held on the twin against the Pallas
+# kernel: the subspace counts that pick each query-tile width (m 8 and 32:
+# 128 queries a block; 96: 64), groups inside a warp (8) and across two
+# 128-row tiles (256), and query tiles at B 1, 127 and 129. Random codes and
+# centroids; a dead 128-row tile. Tolerances as above: values to 1e-5, rows
+# equal wherever a window's best two differ by more than 1e-5.
+K4_N = 2048
+
+
+def _k4_edge_inputs(m: int, bq: int, seed: int = 11, dsub: int = 2):
+    rng = np.random.default_rng(seed)
+    cent = rng.standard_normal((m, 16, dsub)).astype(np.float32)
+    packed = rng.integers(0, 256, (K4_N, m // 2), dtype=np.uint8)
+    valid = np.ones(K4_N, np.float32)
+    valid[rng.random(K4_N) < 0.05] = 0.0
+    valid[256:384] = 0.0
+    q = rng.standard_normal((bq, m * dsub)).astype(np.float32)
+    return q, packed, cent, valid
+
+
+@pytest.mark.parametrize("bq", [1, 127, 129])
+@pytest.mark.parametrize("group", [8, 256])
+@pytest.mark.parametrize("m", [8, 32, 96])
+def test_k4_twin_matches_pallas_interpret_at_kernel_edges(m, group, bq):
+    q, packed, cent, valid = _k4_edge_inputs(m, bq)
+    want_v, want_i = ref_pallas.pq4_adc_grouped(
+        jnp.asarray(q), jnp.asarray(packed), jnp.asarray(cent), jnp.asarray(valid),
+        group=group, block_rows=512, interpret=True)
+    got_v, got_i = port_pallas.pq4_adc_grouped(_t(q), _t(packed), _t(cent), _t(valid),
+                                               group=group, block_rows=512)
+    assert got_v.shape == (bq, K4_N // group)
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), atol=1e-5, rtol=0)
+    lut = port_pq.pq_lut(_t(q), _t(cent)).bfloat16()
+    scores = port_pq.adc_scores(lut, port_pq.pq4_unpack(_t(packed))).numpy()
+    scores += ((valid - 1.0) * 1e30)[None, :]
+    top2 = -np.sort(-scores.reshape(bq, -1, group), axis=2)[:, :, :2]
+    sure = (top2[:, :, 0] - top2[:, :, 1]) > 1e-5
+    np.testing.assert_array_equal(got_i.numpy()[sure], np.asarray(want_i)[sure])
+    if group == 8:                  # the dead tile's windows: (-1e30, their first row)
+        cols = np.arange(256 // 8, 384 // 8)
+        assert (got_v.numpy()[:, cols] <= -1e29).all()
+        assert (got_i.numpy()[:, cols] == cols * 8).all()
+
+
+# (m, B, queries a block): the resident LUT sets the widest tile, and a small
+# B halves it while half still covers B
+K4_TILES = [(48, 256, 128), (48, 129, 128), (48, 65, 128), (48, 64, 64), (48, 33, 64),
+            (48, 17, 32), (48, 16, 16), (48, 1, 16), (8, 256, 128), (50, 256, 64),
+            (104, 256, 64), (106, 256, 32), (192, 256, 32), (194, 256, 16), (200, 3, 16)]
+
+
+@pytest.mark.parametrize("m,bq,want", K4_TILES)
+def test_pq4_query_tile_fits_the_resident_lut(m, bq, want):
+    n = port_pallas.pq4_query_tile(bq, m)
+    assert n == want
+    assert port_pallas.pq4_smem_bytes(m, n) <= port_pallas._SMEM_LIMIT
+    if n < 128:                     # the next width up would not fit, or B does not need it
+        assert port_pallas.pq4_smem_bytes(m, 2 * n) > port_pallas._SMEM_LIMIT or n >= bq
+
+
+def test_pq4_smem_bytes_counts_the_padded_lut_and_code_tiles():
+    # m 48: 12 slices of 4 subspaces x 128 queries x 128 B, two 128-row code
+    # tiles of 24 B, an 8-warp (f32, i32) scratch, one barrier, 1 KB slack
+    assert port_pallas.pq4_smem_bytes(48, 128) == 1024 + 12 * 16384 + 2 * 128 * 24 + 8192 + 8
+    # m 50 pads to 14 slices (an even count)
+    assert port_pallas.pq4_smem_bytes(50, 64) == 1024 + 14 * 8192 + 2 * 128 * 25 + 4096 + 8
+    for m in range(2, 201, 2):      # the whole contract fits
+        assert port_pallas.pq4_smem_bytes(m, port_pallas.pq4_query_tile(1024, m)) \
+            <= port_pallas._SMEM_LIMIT

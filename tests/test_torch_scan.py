@@ -146,6 +146,134 @@ def test_exact_topk_cuda_refuses_cpu_tensors():
                                   _t(valid), 10, BR)
 
 
+# Edges of the CUDA kernel's design, held on the twin against the Pallas
+# kernel: query tiles of 256 (B 255-257); the threshold epilogue (k <= 16)
+# and the score dump (k > 16); ties on both sides of a 128-row tile edge and
+# of a block edge; scores that rise with the row (every tile inserts); a
+# dead block and k - 1 live rows at block_rows 64 and 192 (TMA's zeros past
+# a block's end). Tolerances as above: values to 1e-5, live ids equal.
+EDGE_D = 64
+
+
+def _edge_inputs(case: str, k: int, bq: int, n: int, br: int, seed: int = 7):
+    rng = np.random.default_rng(seed)
+    E = _unit(rng.standard_normal((n, EDGE_D)))
+    q = _unit(rng.standard_normal((bq, EDGE_D)))
+    valid = np.ones(n, np.float32)
+    valid[rng.random(n) < 0.05] = 0.0
+    if case == "tile_ties":         # copies of q[b] at rows 127/128, br-1/br, 383/384
+        for b in range(bq):
+            pair = ((127, 128), (br - 1, br), (383, 384))[b % 3]
+            E[list(pair)] = q[b]
+            valid[list(pair)] = 1.0
+    elif case == "rising":          # row r of a block scores (r % br) / 2,048 exactly
+        r = np.arange(n) % br
+        E[:] = 0.0
+        E[:, 0], E[:, 1] = (r // 16) / 128, (r % 16) / 16
+        q[:] = 0.0
+        q[:, 0], q[:, 1] = 1.0, 1.0 / 128
+        valid[:] = 1.0
+    elif case == "dead_block":
+        valid[br:2 * br] = 0.0
+    elif case == "k_minus_1_live":
+        valid[br:2 * br] = 0.0
+        valid[br + rng.choice(br, k - 1, replace=False)] = 1.0
+    return q, E, valid
+
+
+def _ref_blocks_at(q, E, valid, k, br):
+    """The reference's K3 block step at any (B, N, block_rows)."""
+    (bq, dim), G = q.shape, E.shape[0] // br
+    return pl.pallas_call(
+        functools.partial(ref_scan._topk_block_kernel, k=k),
+        grid=(G,),
+        in_specs=[pl.BlockSpec((bq, dim), lambda i: (0, 0)),
+                  pl.BlockSpec((br, dim), lambda i: (i, 0)),
+                  pl.BlockSpec((br,), lambda i: (i,))],
+        out_specs=(pl.BlockSpec((1, bq, k), lambda i: (i, 0, 0)),
+                   pl.BlockSpec((1, bq, k), lambda i: (i, 0, 0))),
+        out_shape=(jax.ShapeDtypeStruct((G, bq, k), jnp.float32),
+                   jax.ShapeDtypeStruct((G, bq, k), jnp.int32)),
+        interpret=True,
+    )(jnp.asarray(q, jnp.bfloat16), jnp.asarray(E, jnp.bfloat16), jnp.asarray(valid))
+
+
+K3_EDGES = [   # (case, k, B, N, block_rows)
+    ("random", 10, 255, 1024, 512),
+    ("random", 10, 256, 1024, 512),
+    ("random", 16, 257, 1024, 512),
+    ("random", 1, 3, 1024, 512),
+    ("random", 17, 3, 1024, 512),
+    ("random", 128, 3, 1024, 512),
+    ("random", 129, 3, 1024, 512),
+    ("tile_ties", 1, 3, 1024, 256),
+    ("tile_ties", 10, 3, 1024, 256),
+    ("rising", 10, 3, 1024, 256),
+    ("rising", 129, 3, 1024, 256),
+    ("dead_block", 10, 3, 512, 64),
+    ("k_minus_1_live", 10, 3, 512, 64),
+    ("dead_block", 16, 3, 768, 192),
+    ("k_minus_1_live", 129, 3, 768, 192),
+]
+
+
+@pytest.mark.parametrize("case,k,bq,n,br", K3_EDGES)
+def test_k3_block_twin_matches_pallas_interpret_at_kernel_edges(case, k, bq, n, br):
+    q, E, valid = _edge_inputs(case, k, bq, n, br)
+    want_v, want_i = _ref_blocks_at(q, E, valid, k, br)
+    got_v, got_i = port_scan.exact_topk_reference(
+        _t(q, torch.bfloat16), _t(E, torch.bfloat16), _t(valid), k, br)
+    assert got_v.shape == (n // br, bq, k)
+    _assert_topk_equal(got_v, got_i, want_v, want_i)
+    dead = np.asarray(want_v) <= -1e29
+    np.testing.assert_array_equal(got_i.numpy()[dead], np.asarray(want_i)[dead])
+    if case == "tile_ties":         # the copy at the lower row ranks first
+        for b in range(bq):
+            lo = ((127, 128), (br - 1, br), (383, 384))[b % 3][0]
+            g = lo // br
+            assert got_i[g, b, 0] == lo
+    if case == "rising":            # each block's top-k is its last k rows, highest first
+        last = (np.arange(n // br)[:, None] + 1) * br - 1 - np.arange(k)[None, :]
+        np.testing.assert_array_equal(got_i.numpy()[:, 0], last)
+    if case in ("dead_block", "k_minus_1_live"):
+        assert dead.any()
+
+
+@pytest.mark.parametrize("br", [64, 192])
+def test_k3_block_twin_at_k_equal_block_rows_matches_exact_scan(br):
+    """k = block_rows: each block's whole ranking. Held per block against the
+    port's exact_topk_scan of that block alone (its dead tail is (-1e30, -1);
+    the block step's is (-1e30, block start)). Values to 1e-5, live ids equal."""
+    n = 4 * br
+    q, E, valid = _edge_inputs("k_minus_1_live", 5, 3, n, br)
+    got_v, got_i = port_scan.exact_topk_reference(
+        _t(q, torch.bfloat16), _t(E, torch.bfloat16), _t(valid), br, br)
+    for g in range(n // br):
+        sl = slice(g * br, (g + 1) * br)
+        want_v, want_i = port_scan.exact_topk_scan(
+            _t(q), _t(E[sl], torch.bfloat16), _t(valid[sl]), br, block_rows=br)
+        live = want_v.numpy() > -1e29
+        np.testing.assert_allclose(got_v[g].numpy(), want_v.numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_array_equal(got_i[g].numpy()[live], want_i.numpy()[live] + g * br)
+        assert (got_i[g].numpy()[~live] == g * br).all()
+
+
+@pytest.mark.parametrize("n,want", [(1 << 20, 64), (1 << 26, 1), (1 << 30, 1), (4096, 16384)])
+def test_dump_query_slice_bounds_the_score_buffer(n, want):
+    """K3's score dump (k > 16) takes queries in slices whose N x b f32
+    scores stay within 256 MB, at least one query a slice."""
+    got = port_scan.dump_query_slice(n)
+    assert got == want
+    assert got == 1 or 4 * n * got <= port_scan._DUMP_BYTES
+
+
+def test_exact_topk_cuda_refuses_misaligned_queries():
+    q, E, valid = _inputs("random", 10)
+    qq = _misaligned(_t(q, torch.bfloat16), 1)
+    with pytest.raises(ValueError, match="16-byte"):
+        port_scan.exact_topk_cuda(qq, _t(E, torch.bfloat16), _t(valid), 10, BR)
+
+
 # -- K1: per-group max / last argmax, and grouped_topk_pallas -------------------
 GN = 8192
 GROUPS = (64, 128, 256)
@@ -319,14 +447,15 @@ def test_profile_grouped_runs_tiny_on_the_cpu():
 
 def test_fused_scan_split_cuts_the_kernel_after_its_mainloop(tmp_path):
     """The measurement script's copy of csrc/ differs from it only by the
-    stub after the fused kernels' mainloop call."""
+    stub after the mainloop call of the fused scans and of K3."""
     from yams_tpu_torch import _build
     from yams_tpu_torch.scripts import fused_scan_split as split
 
     dest = split.mainloop_only_sources(tmp_path / "src")
+    assert set(split.CUT) == {"fused_scan.cu", "exact_topk.cu"}
     for src in _build._SRC_DIR.iterdir():
         got = (dest / src.name).read_text()
-        if src.name == "fused_scan.cu":
+        if src.name in split.CUT:
             assert got == src.read_text().replace(split.MARK, split.MARK + split.STUB, 1)
             assert got.count(split.STUB) == 1
         else:

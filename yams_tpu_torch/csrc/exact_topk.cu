@@ -1,170 +1,421 @@
 // Exact KNN block step: per row block, each query's top-k, on Hopper.
 //
-// Replaces: yams_tpu/ops/scan.py `_topk_block_kernel` / `exact_topk_pallas`
-// (the Pallas kernel K3).
+// Replaces: yams_tpu/ops/scan.py:94 `_topk_block_kernel`, called at :139
+// `exact_topk_pallas` (the Pallas kernel K3).
 //
 // For row block g (block_rows rows of E) and query b it emits the k pairs
 // (score, row) that k rounds of "max, first argmax, knock the winner out to
 // -1e30" give over s[r] = q_b . E_r + (valid_r - 1) * 1e30: the block's
-// top-k by score, then lower row. When fewer than k live rows remain, every
-// further round sees only -1e30 and picks the block's first row again, so
-// those slots hold (-1e30, block start), as on the TPU. The caller merges the
-// G * k candidates with a top-k.
+// top-k of the live rows (s > -1e30) by score, then lower row. When fewer
+// than k live rows exist, every further round sees only -1e30 and picks the
+// block's first row again, so those slots hold (-1e30, block start), as on
+// the TPU. The caller merges the G * k candidates with a top-k.
 //
 // What bounds it on the H100: the product. At the bench shape (1,048,576 x
 // 768 corpus, 1,024 queries) it is 1.65 TFLOP of bf16 products with f32
-// sums, against 0.4 MB of output; the per-block selection is k passes over a
-// 2,048-float row in shared memory, small beside it.
+// sums (1.67 ms at the bf16 peak) against 1.6 GB of corpus and 0.4 MB of
+// output.
 //
-// Design: one block of 16 warps owns (one row block, 16 queries). The query
-// tile is staged in shared memory; each warp computes 64-row x 16-query
-// score tiles with the tensor cores' warp-level mma.sync (m16n8k16, bf16 in,
-// f32 accumulate): A fragments straight from E in global memory, B fragments
-// from the query tile. The 16 x block_rows f32 score tile lands in shared
-// memory (128 KB at 2,048 rows), the validity bias is added, and then warp w
-// runs query w's k rounds: each lane keeps the max of its stripe (lowest
-// column on ties), a butterfly of shuffles picks the warp's (max, lowest
-// column), and the owning lane knocks it out. The query tile is the fast
-// grid axis, so the 64 blocks that read one row block run together and find
-// it in L2. No cuBLAS, no wgmma or TMA: a simple kernel that is right.
+// What held the first port back: a 16-query tile of mma.sync whose warps
+// loaded E in 4-byte fragments from L2 (E crossed from L2 into the SMs B/16
+// times, ~43 TFLOP/s), and a 16 x 2,048 score tile in shared memory re-read
+// by each of k rounds.
+//
+// Design: the shared mainloop of bf16_scan.cuh, unchanged: 128 E rows x 256
+// queries a tile, TMA into a 4-stage ring, wgmma m64n256k16 from two
+// consumer warpgroups. A unit is (one row block, one 256-query tile): its
+// ceil(block_rows / 128) tiles. E is seen through a 3-D tensor map as
+// (G, block_rows, D), so a 128-row box never crosses a block's end, and the
+// zeros TMA fills past it (block_rows 64 or 192) are masked like rows past
+// N. Persistent blocks walk the units, query tile fastest, so the blocks
+// that read one row block run together and find it in L2.
+//
+// Epilogue for k <= 16 (kThreshold): no score tile and no rounds. Each
+// query keeps, in shared memory, its top-k so far (sorted) and a threshold:
+// the k-th best score once it has k, else -1e30. After each tile every
+// consumer thread compares its 2 rows x 128 queries of scores (validity bias
+// added) with the thresholds; the few that beat one are appended to that
+// query's list by a shared atomic (20 slots a query: the list, then the
+// candidates), and thread b merges query b's candidates into its list by
+// (score desc, row asc) and raises the threshold. Rows arrive in increasing
+// order, so a later row that only ties the k-th score never enters, as the
+// reference's first-row-on-ties keeps it out. When a query's candidates
+// overflow their slots, the tile is scanned again against the raised
+// thresholds, skipping what each thread already placed (a bit per
+// accumulator), until nothing overflows. The first tile of a unit would
+// make every live row a candidate: its threshold starts instead just below
+// the k-th largest of 16 sampled scores (each warp's best two of every
+// query), which at least k of its rows reach. Scores that rise with the row
+// still make every tile insert and take several passes (timed by the
+// smoke). A warp skips a batch of 8 accumulators in which no lane has a
+// candidate. Shared memory left beside the 4-stage ring (~34 KB) holds 256
+// queries x 20 slots. Where the time goes (`PERF.md`): each candidate costs
+// a dependent shared atomic and stores, with two consumer warps a scheduler
+// to hide them; tried and slower were batching a warp's atomics (spills)
+// and per-warp slots found by ballots (more passes).
+//
+// For 16 < k <= block_rows (kDump) the thresholds would not fit: the kernel
+// writes the tile's biased scores to a buffer in device memory, (G, B,
+// block_rows) f32 (the caller bounds it by splitting B), and a second
+// kernel sorts each (block, query)'s row in shared memory (a bitonic sort of
+// (score, row) keys) and keeps its first k.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bf16_scan.cuh"
+
 namespace {
 
-constexpr int kQT = 16;                 // queries per block: two n-tiles of 8
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMGroup = 4;              // 16-row m-tiles per warp pass
-constexpr float kNeg = -1e30f;
+using namespace yt_scan;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr float kNeg = -1e30f;
+constexpr int kSmallK = 16;     // k above this takes kDump
+constexpr int kList = 20;       // slots a query: its top-k so far, then this pass's candidates
+constexpr int kMaxBlock = 2048;
+constexpr int kSelectThreads = 512;
+
+enum Mode { kThreshold = 0, kDump = 1 };
+
+struct Params {
+  const float* valid;    // (N,)
+  float* out_v;          // (G, B, k)
+  int32_t* out_i;
+  float* dump;           // kDump: (G, B, block_rows) biased scores
+  int B, k, block_rows, k_slices, q_tiles, tiles_per_unit, n_units;
+};
+
+struct TopkScratch {
+  float thr[kQueries];               // a candidate must beat this
+  int cnt[kQueries];                 // slots in use: the list, then this pass's candidates
+  float v[kList][kQueries];          // slot j of query b at [j][b]: thread b's merge is
+  uint16_t r[kList][kQueries];       // free of bank conflicts; r is the row within the block
+  int overflow[2];                   // by pass parity: some candidate found no slot
+};
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads) : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
-exact_topk_kernel(const uint32_t* __restrict__ q,    // (B, D/2) bf16 pairs
-                  const uint32_t* __restrict__ e,    // (N, D/2) bf16 pairs
-                  const float* __restrict__ valid,   // (N,)
-                  float* __restrict__ out_v,         // (G, B, k)
-                  int32_t* __restrict__ out_i,       // (G, B, k)
-                  int B, int D, int k, int block_rows) {
-  extern __shared__ float smem[];
-  float* s = smem;                                              // [kQT][block_rows]
-  uint32_t* qs = reinterpret_cast<uint32_t*>(s + kQT * block_rows);  // [kQT][D/2]
-  const int q0 = blockIdx.x * kQT;
-  const int g = blockIdx.y;
-  const int64_t row0 = static_cast<int64_t>(g) * block_rows;
-  const int dw = D / 2;
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
 
-  for (int i = threadIdx.x; i < kQT * dw; i += kThreads) {
-    const int qi = i / dw;
-    qs[i] = (q0 + qi < B) ? q[static_cast<int64_t>(q0 + qi) * dw + (i - qi * dw)] : 0u;
+__device__ __forceinline__ float bias_of(float valid) {
+  return __fmul_rn(__fsub_rn(valid, 1.0f), 1e30f);
+}
+
+// Sort query b's slots [len, n) into its sorted list [0, len) by (score
+// desc, row asc); the first min(n, k) are its new top-k.
+__device__ __forceinline__ void merge_slots(TopkScratch* sc, int b, int len, int n) {
+  for (int j = len; j < n; ++j) {
+    const float v = sc->v[j][b];
+    const uint16_t r = sc->r[j][b];
+    int i = j;
+    while (i > 0 && (v > sc->v[i - 1][b] || (v == sc->v[i - 1][b] && r < sc->r[i - 1][b]))) {
+      sc->v[i][b] = sc->v[i - 1][b];
+      sc->r[i][b] = sc->r[i - 1][b];
+      --i;
+    }
+    sc->v[i][b] = v;
+    sc->r[i][b] = r;
+  }
+}
+
+// The first tile of a unit: a threshold that at least k of its rows reach,
+// so that its first pass takes ~k candidates a query instead of all 128. Each
+// warp's two best scores of every query (16 rows: two distinct rows) go to
+// slots [2 warp, 2 warp + 2); thread b takes the k-th largest of query b's 16
+// and sets the threshold just below it (a row equal to it may still be in
+// the top-k), or -1e30 when that is not a live score. The list is empty.
+__device__ __forceinline__ void bootstrap(TopkScratch* sc, const float (&acc)[kAccRegs], float ta,
+                                          float tb, int ct, int k) {
+  constexpr int kBatch = 8;
+  const int lane = ct & 31, warp = ct >> 5;
+#pragma unroll
+  for (int c0 = 0; c0 < kAccRegs / 2; c0 += kBatch) {
+    float m1[kBatch], m2[kBatch];
+#pragma unroll
+    for (int c = 0; c < kBatch; ++c) {   // column c0 + c: registers i (row rl0) and i + 2 (rl0 + 8)
+      const int i = 2 * (c0 + c) - ((c0 + c) & 1);
+      const float a = __fadd_rn(acc[i], ta), b = __fadd_rn(acc[i + 2], tb);
+      m1[c] = fmaxf(a, b);
+      m2[c] = fminf(a, b);
+    }
+#pragma unroll
+    for (int x = 4; x <= 16; x <<= 1) {
+#pragma unroll
+      for (int c = 0; c < kBatch; ++c) {
+        const float o1 = __shfl_xor_sync(~0u, m1[c], x), o2 = __shfl_xor_sync(~0u, m2[c], x);
+        m2[c] = fmaxf(fminf(m1[c], o1), fmaxf(m2[c], o2));
+        m1[c] = fmaxf(m1[c], o1);
+      }
+    }
+    if (lane < 4) {
+#pragma unroll
+      for (int c = 0; c < kBatch; ++c) {
+        const int col = acc_col(ct & 127, 2 * (c0 + c) - ((c0 + c) & 1));
+        sc->v[2 * warp][col] = m1[c];
+        sc->v[2 * warp + 1][col] = m2[c];
+      }
+    }
+  }
+  consumer_sync();
+  float w[2 * kConsumerThreads / 32];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) w[j] = sc->v[j][ct];
+#pragma unroll
+  for (int r = 0; r < 16; ++r)           // odd-even transposition: descending
+#pragma unroll
+    for (int j = r & 1; j + 1 < 16; j += 2) {
+      const float hi = fmaxf(w[j], w[j + 1]), lo = fminf(w[j], w[j + 1]);
+      w[j] = hi;
+      w[j + 1] = lo;
+    }
+  float th = w[0];
+#pragma unroll
+  for (int j = 1; j < 16; ++j) th = j == k - 1 ? w[j] : th;
+  sc->thr[ct] = fmaxf(kNeg, nextafterf(th, neg_inf()));
+  consumer_sync();
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+exact_topk_kernel(const __grid_constant__ CUtensorMap e_map,
+                  const __grid_constant__ CUtensorMap q_map, const Params p) {
+  extern __shared__ uint8_t smem[];
+  Ring ring;
+  TopkScratch* sc = reinterpret_cast<TopkScratch*>(ring.carve(smem));
+  if (threadIdx.x == 0) {
+    ring.init();
+    sc->overflow[0] = sc->overflow[1] = 0;
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gid = lane >> 2;   // fragment row (A) / column (B, C)
-  const int tig = lane & 3;    // thread in group
-  const int mtiles = block_rows / 16;
-  for (int mt0 = warp * kMGroup; mt0 < mtiles; mt0 += kWarps * kMGroup) {
-    float acc[kMGroup][2][4];
-#pragma unroll
-    for (int m = 0; m < kMGroup; ++m)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[m][n][c] = 0.f;
-    const uint32_t* erow[kMGroup];
-#pragma unroll
-    for (int m = 0; m < kMGroup; ++m)
-      erow[m] = e + (row0 + (mt0 + m) * 16 + gid) * dw;
-    for (int kw = tig; kw < dw; kw += 8) {   // 16 dims = 8 words per step
-      const uint32_t b00 = qs[gid * dw + kw], b01 = qs[gid * dw + kw + 4];
-      const uint32_t b10 = qs[(8 + gid) * dw + kw], b11 = qs[(8 + gid) * dw + kw + 4];
-#pragma unroll
-      for (int m = 0; m < kMGroup; ++m) {
-        uint32_t a[4];
-        a[0] = __ldg(erow[m] + kw);
-        a[1] = __ldg(erow[m] + 8 * dw + kw);
-        a[2] = __ldg(erow[m] + kw + 4);
-        a[3] = __ldg(erow[m] + 8 * dw + kw + 4);
-        mma_bf16(acc[m][0], a, b00, b01);
-        mma_bf16(acc[m][1], a, b10, b11);
+  if (threadIdx.x >= kConsumerThreads) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    producer_regs();
+    if (threadIdx.x == kConsumerThreads) {
+      Cursor c;
+      for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
+        const int q0 = (u % p.q_tiles) * kQueries;
+        const int g = u / p.q_tiles;
+        for (int tt = 0; tt < p.tiles_per_unit; ++tt) {
+          produce_tile(ring, c, p.k_slices, [&](uint32_t e, uint32_t q, uint32_t bar, int k) {
+            tma_load_3d(e, &e_map, bar, k * kK, tt * kRows, g);   // zeros past the block's end
+            tma_load_2d(q, &q_map, bar, k * kK, q0);
+          });
+        }
       }
     }
-    // C fragment: c0 (row gid, query 2*tig), c1 (gid, 2*tig+1),
-    //             c2 (gid+8, 2*tig), c3 (gid+8, 2*tig+1)
-#pragma unroll
-    for (int m = 0; m < kMGroup; ++m) {
-      const int r = (mt0 + m) * 16 + gid;
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int qc = n * 8 + 2 * tig;
-        s[qc * block_rows + r] = acc[m][n][0];
-        s[(qc + 1) * block_rows + r] = acc[m][n][1];
-        s[qc * block_rows + r + 8] = acc[m][n][2];
-        s[(qc + 1) * block_rows + r + 8] = acc[m][n][3];
-      }
-    }
+    return;
   }
-  __syncthreads();
 
-  for (int qi = warp; qi < kQT; qi += kWarps) {
-    const int b = q0 + qi;
-    if (b >= B) break;
-    float* sq = s + qi * block_rows;
-    for (int c = lane; c < block_rows; c += 32)
-      sq[c] = __fadd_rn(sq[c], __fmul_rn(__fsub_rn(valid[row0 + c], 1.0f), 1e30f));
-    __syncwarp();
-    const int64_t out0 = (static_cast<int64_t>(g) * B + b) * k;
-    for (int j = 0; j < k; ++j) {
-      float bv = sq[lane];
-      int bi = lane;
-      for (int c = lane + 32; c < block_rows; c += 32) {
-        const float v = sq[c];
-        if (v > bv) { bv = v; bi = c; }
-      }
+  // ---- consumer warpgroups ----
+  consumer_regs();
+  const int ct = threadIdx.x;
+  const int rl0 = 64 * (ct >> 7) + acc_row(ct & 127, 0);   // this thread's tile rows: rl0, rl0 + 8
+  float acc[kAccRegs];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+  for (int i = 0; i < kAccRegs; ++i) acc[i] = 0.f;
+  int pass = 0;   // the same count in every consumer thread
+
+  Cursor c;
+  for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
+    const int q0 = (u % p.q_tiles) * kQueries;
+    const int g = u / p.q_tiles;
+    const int64_t base = static_cast<int64_t>(g) * p.block_rows;
+    int len = 0;   // kThreshold: the length of query q0 + ct's list
+    if constexpr (kMode == kThreshold) {
+      sc->thr[ct] = kNeg;
+      sc->cnt[ct] = 0;
+      consumer_sync();   // every thread sees the reset thresholds
+    }
+    for (int tt = 0; tt < p.tiles_per_unit; ++tt) {
+      // rows within the block; those at or past block_rows are TMA's zeros
+      const int la = tt * kRows + rl0, lb = la + 8;
+      const float ta = la < p.block_rows ? bias_of(__ldg(p.valid + base + la)) : neg_inf();
+      const float tb = lb < p.block_rows ? bias_of(__ldg(p.valid + base + lb)) : neg_inf();
+      consume_tile(ring, c, p.k_slices, ct >> 7, acc);
+
+      if constexpr (kMode == kDump) {
+#pragma unroll
+        for (int i = 0; i < kAccRegs; ++i) {
+          const int hi = (i >> 1) & 1;
+          const int lr = hi ? lb : la;
+          const int b = q0 + acc_col(ct & 127, i);
+          if (b < p.B && lr < p.block_rows)
+            p.dump[(static_cast<int64_t>(g) * p.B + b) * p.block_rows + lr] =
+                __fadd_rn(acc[i], hi ? tb : ta);
+        }
+        continue;
       }
-      if (lane == 0) {
-        out_v[out0 + j] = bv;
-        out_i[out0 + j] = static_cast<int32_t>(row0 + bi);
+
+      if (tt == 0) bootstrap(sc, acc, ta, tb, ct, p.k);
+      uint32_t placed[kAccRegs / 32] = {};   // accumulators already given a slot
+      for (;;) {
+        // scores that beat their query's threshold take a slot; a warp skips
+        // a batch of 8 accumulators in which no lane has one
+#pragma unroll
+        for (int i0 = 0; i0 < kAccRegs; i0 += 8) {
+          const float2 th0 = *reinterpret_cast<const float2*>(&sc->thr[acc_col(ct & 127, i0)]);
+          const float2 th1 = *reinterpret_cast<const float2*>(&sc->thr[acc_col(ct & 127, i0 + 4)]);
+          float s[8];
+          uint32_t want = 0;
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            s[x] = __fadd_rn(acc[i0 + x], ((x >> 1) & 1) ? tb : ta);
+            const float th = x < 4 ? ((x & 1) ? th0.y : th0.x) : ((x & 1) ? th1.y : th1.x);
+            want |= static_cast<uint32_t>(s[x] > th) << x;
+          }
+          want &= ~(placed[i0 >> 5] >> (i0 & 31)) & 0xffu;
+          if (!__any_sync(~0u, want != 0)) continue;
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            if (!(want & (1u << x))) continue;
+            const int i = i0 + x;
+            const int col = acc_col(ct & 127, i);
+            const int slot = atomicAdd(&sc->cnt[col], 1);
+            if (slot < kList) {
+              sc->v[slot][col] = s[x];
+              sc->r[slot][col] = static_cast<uint16_t>(((x >> 1) & 1) ? lb : la);
+              placed[i >> 5] |= 1u << (i & 31);
+            } else {
+              sc->overflow[pass & 1] = 1;
+            }
+          }
+        }
+        consumer_sync();
+        // thread ct merges query q0 + ct's candidates into its list
+        const int n = min(sc->cnt[ct], kList);
+        if (n > len) {
+          merge_slots(sc, ct, len, n);
+          len = min(n, p.k);
+          sc->thr[ct] = len == p.k ? sc->v[p.k - 1][ct] : kNeg;
+        }
+        sc->cnt[ct] = len;
+        if (ct == 0) sc->overflow[(pass + 1) & 1] = 0;   // the next pass's flag; read by none now
+        consumer_sync();
+        const bool again = sc->overflow[pass & 1] != 0;
+        ++pass;
+        if (!again) break;
       }
-      if (lane == (bi & 31)) sq[bi] = kNeg;
-      __syncwarp();
+    }
+
+    if constexpr (kMode == kThreshold) {
+      const int b = q0 + ct;
+      if (b < p.B) {
+        const int64_t o = (static_cast<int64_t>(g) * p.B + b) * p.k;
+        for (int j = 0; j < p.k; ++j) {
+          p.out_v[o + j] = j < len ? sc->v[j][ct] : kNeg;
+          p.out_i[o + j] = static_cast<int32_t>(base + (j < len ? sc->r[j][ct] : 0));
+        }
+      }
     }
   }
+}
+
+// f32 -> u32 that orders as the floats do
+__device__ __forceinline__ uint32_t ordered(float v) {
+  const uint32_t u = __float_as_uint(v);
+  return u ^ ((u >> 31) ? 0xffffffffu : 0x80000000u);
+}
+__device__ __forceinline__ float unordered(uint32_t o) {
+  return __uint_as_float((o >> 31) ? (o ^ 0x80000000u) : ~o);
+}
+
+// kDump's second step: block gb = g * B + b sorts its block_rows scores as
+// keys (score, then lower row) in descending order and writes the first k.
+__global__ void __launch_bounds__(kSelectThreads)
+select_kernel(const float* __restrict__ dump, float* __restrict__ out_v,
+              int32_t* __restrict__ out_i, int B, int k, int block_rows) {
+  __shared__ unsigned long long key[kMaxBlock];
+  const int64_t gb = blockIdx.x;
+  const int64_t base = (gb / B) * block_rows;
+  int n2 = 64;
+  while (n2 < block_rows) n2 <<= 1;
+  const float* s = dump + gb * block_rows;
+  for (int i = threadIdx.x; i < n2; i += blockDim.x)   // padding sorts last
+    key[i] = i < block_rows
+        ? (static_cast<unsigned long long>(ordered(s[i])) << 32) | (0xffffffffu - i) : 0ull;
+  __syncthreads();
+  for (int size = 2; size <= n2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < n2 / 2; i += blockDim.x) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const bool desc = (lo & size) == 0;
+        const unsigned long long a = key[lo], b = key[hi];
+        if (desc ? a < b : a > b) {
+          key[lo] = b;
+          key[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    const unsigned long long x = key[j];
+    const float v = unordered(static_cast<uint32_t>(x >> 32));
+    const int r = static_cast<int>(0xffffffffu - static_cast<uint32_t>(x));
+    const bool live = v > kNeg;
+    out_v[gb * k + j] = live ? v : kNeg;
+    out_i[gb * k + j] = static_cast<int32_t>(base + (live ? r : 0));
+  }
+}
+
+template <int kMode>
+int launch(const CUtensorMap& e_map, const CUtensorMap& q_map, const Params& p,
+           cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int smem = kRingSmem + static_cast<int>(sizeof(TopkScratch));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(exact_topk_kernel<kMode>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = p.n_units < sms ? p.n_units : sms;   // persistent: one block per SM
+  exact_topk_kernel<kMode><<<grid, kThreads, smem, stream>>>(e_map, q_map, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// dump: (G, B, block_rows) f32 scratch when k > 16, else unused (may be null).
 extern "C" int yt_exact_topk(const void* q, const void* e, const void* valid,
-                             void* out_v, void* out_i, int64_t B, int64_t N,
+                             void* out_v, void* out_i, void* dump, int64_t B, int64_t N,
                              int64_t D, int64_t k, int64_t block_rows, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  const size_t smem = sizeof(float) * kQT * block_rows + sizeof(uint16_t) * kQT * D;
-  cudaError_t err = cudaFuncSetAttribute(
-      exact_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  if (block_rows % 64 || block_rows > kMaxBlock || N % block_rows || k < 1 || k > block_rows
+      || D % 16 || (k > kSmallK && dump == nullptr) || N >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t G = N / block_rows;
+  // E as (G, block_rows, D): boxes of 64 dims x 128 rows of one block
+  CUtensorMap e_map, q_map;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(block_rows),
+                              static_cast<cuuint64_t>(G)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(D) * 2 * block_rows};
+  const cuuint32_t box[3] = {kK, kRows, 1};
+  cudaError_t err = bf16_map(&e_map, e, 3, dims, strides, box);
+  if (err == cudaSuccess) err = query_map(&q_map, q, B, D);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned int>((B + kQT - 1) / kQT),
-                  static_cast<unsigned int>(N / block_rows));
-  exact_topk_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(e),
-      static_cast<const float*>(valid), static_cast<float*>(out_v),
-      static_cast<int32_t*>(out_i), static_cast<int>(B), static_cast<int>(D),
-      static_cast<int>(k), static_cast<int>(block_rows));
+  Params p;
+  p.valid = static_cast<const float*>(valid);
+  p.out_v = static_cast<float*>(out_v);
+  p.out_i = static_cast<int32_t*>(out_i);
+  p.dump = static_cast<float*>(dump);
+  p.B = static_cast<int>(B);
+  p.k = static_cast<int>(k);
+  p.block_rows = static_cast<int>(block_rows);
+  p.k_slices = static_cast<int>((D + kK - 1) / kK);
+  p.q_tiles = static_cast<int>((B + kQueries - 1) / kQueries);
+  p.tiles_per_unit = static_cast<int>((block_rows + kRows - 1) / kRows);
+  p.n_units = static_cast<int>(G) * p.q_tiles;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= kSmallK) return launch<kThreshold>(e_map, q_map, p, s);
+  const int rc = launch<kDump>(e_map, q_map, p, s);
+  if (rc != 0) return rc;
+  select_kernel<<<static_cast<unsigned int>(G * B), kSelectThreads, 0, s>>>(
+      p.dump, p.out_v, p.out_i, p.B, p.k, p.block_rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,6 +33,14 @@ from .select import top_k
 
 NEG = -1e30
 _SCORE_BUDGET = 1 << 26   # f32 scores per chunk of the plain paths (256 MB)
+_TOPK_SMALL_K = 16        # K3: k above this takes the score dump (csrc/exact_topk.cu)
+_DUMP_BYTES = 1 << 28     # K3's score dump: bytes a launch may hold
+
+
+def dump_query_slice(N: int) -> int:
+    """Queries one K3 dump launch takes: its (G, b, block_rows) f32 scores,
+    N * b * 4 bytes, stay within _DUMP_BYTES (at least one query)."""
+    return max(1, _DUMP_BYTES // (4 * N))
 
 
 def dot_f32(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
@@ -117,9 +125,14 @@ def exact_topk_reference(q: torch.Tensor, E: torch.Tensor, valid: torch.Tensor,
 
 def exact_topk_cuda(q: torch.Tensor, E: torch.Tensor, valid: torch.Tensor,
                     k: int, block_rows: int = 2048):
-    """Launch the CUDA block top-k kernel (csrc/exact_topk.cu): (G, B, k)."""
+    """Launch the CUDA block top-k kernel (csrc/exact_topk.cu): (G, B, k).
+
+    k <= 16 keeps each query's top-k in shared memory behind a threshold;
+    a larger k dumps the biased scores to a (G, b, block_rows) f32 buffer
+    and sorts each row of it, b queries a launch (`dump_query_slice`)."""
     B, D = q.shape
     N = E.shape[0]
+    _build.require_aligned("exact_topk_cuda", q=q, E=E)
     if q.device.type != "cuda" or E.device != q.device or valid.device != q.device:
         raise ValueError(f"exact_topk_cuda needs CUDA tensors on one card, got {q.device}")
     if q.dtype != torch.bfloat16 or E.dtype != torch.bfloat16 or valid.dtype != torch.float32:
@@ -131,20 +144,35 @@ def exact_topk_cuda(q: torch.Tensor, E: torch.Tensor, valid: torch.Tensor,
     if block_rows % 64 or block_rows > 2048 or N % block_rows or not 1 <= k <= block_rows:
         raise ValueError(f"block_rows {block_rows} (a multiple of 64, <= 2048, "
                          f"dividing N={N}) and 1 <= k={k} <= block_rows")
+    if N >= 1 << 31:
+        raise ValueError(f"N={N}: rows are int32")
     G = N // block_rows
-    if G >= 1 << 16:
-        raise ValueError(f"{G} row blocks: at most 65,535 per launch")
     out_v = torch.empty((G, B, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((G, B, k), dtype=torch.int32, device=q.device)
     if B == 0 or G == 0:
         return out_v, out_i
     lib = _build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.yt_exact_topk(q.data_ptr(), E.data_ptr(), valid.data_ptr(),
-                            out_v.data_ptr(), out_i.data_ptr(),
-                            B, N, D, k, block_rows, stream)
-    exact_topk_cuda.launches += 1
-    _build.check(err, "exact_topk_cuda")
+    if k <= _TOPK_SMALL_K:
+        err = lib.yt_exact_topk(q.data_ptr(), E.data_ptr(), valid.data_ptr(),
+                                out_v.data_ptr(), out_i.data_ptr(), None,
+                                B, N, D, k, block_rows, stream)
+        exact_topk_cuda.launches += 1
+        _build.check(err, "exact_topk_cuda")
+        return out_v, out_i
+    step = dump_query_slice(N)
+    for b0 in range(0, B, step):
+        b1 = min(B, b0 + step)
+        dump = torch.empty((G, b1 - b0, block_rows), dtype=torch.float32, device=q.device)
+        sv = torch.empty((G, b1 - b0, k), dtype=torch.float32, device=q.device)
+        si = torch.empty((G, b1 - b0, k), dtype=torch.int32, device=q.device)
+        err = lib.yt_exact_topk(q[b0:b1].data_ptr(), E.data_ptr(), valid.data_ptr(),
+                                sv.data_ptr(), si.data_ptr(), dump.data_ptr(),
+                                b1 - b0, N, D, k, block_rows, stream)
+        exact_topk_cuda.launches += 1
+        _build.check(err, "exact_topk_cuda")
+        out_v[:, b0:b1] = sv
+        out_i[:, b0:b1] = si
     return out_v, out_i
 
 

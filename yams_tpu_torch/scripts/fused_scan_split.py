@@ -1,13 +1,15 @@
-"""Where the fused scans' time goes: K1 and K2 against their own mainloop
-alone, and against dot_f32 (cuBLAS) on the same operands.
+"""Where the time of the kernels on the shared mainloop (csrc/bf16_scan.cuh)
+goes: K1, K2 and K3 against their own mainloop alone, and against dot_f32
+(cuBLAS) on the same operands.
 
 The kernel library is built twice: from csrc/ as it is, and from a copy
-whose csrc/fused_scan.cu stops each tile after the mainloop (the
-accumulators are summed into a test that never holds, so nothing is
-written). Both go into yams_tpu_torch/_build/. Each kernel is timed at the
-experiments' shapes (profile_grouped: 1,003,520 x 768 unit-normal, B 256,
-group 256; exp_flash_topk: 1,015,808 x 768 clustered, B 1,024) with CUDA
-events, in turns (as is, mainloop only, mainloop only, as is); the
+whose csrc/fused_scan.cu and csrc/exact_topk.cu stop each tile after the
+mainloop (the accumulators are summed into a test that never holds, so
+nothing is written). Both go into yams_tpu_torch/_build/. Each kernel is
+timed with CUDA events at the shape its caller runs (profile_grouped:
+1,003,520 x 768 unit-normal, B 256, group 256; exp_flash_topk: 1,015,808 x
+768 clustered, B 1,024; K3 at the bench shape: 1,048,576 x 768 clustered,
+B 1,024, k 10), in turns (as is, mainloop only, mainloop only, as is); the
 epilogue's cost is the difference of the medians. Needs a card and nvcc.
 Prints one JSON line.
 
@@ -27,7 +29,7 @@ import torch
 from .. import _build
 from ..device import resolve_device
 from ..ops.flash_topk import windowed_scan_cuda
-from ..ops.scan import dot_f32, grouped_max_cuda
+from ..ops.scan import dot_f32, exact_topk_cuda, grouped_max_cuda
 from ._common import cuda_ms, device_name
 from .exp_flash_topk import clustered_corpus
 from .profile_grouped import unit_corpus
@@ -42,15 +44,19 @@ STUB = ("      {   // mainloop only: consume the accumulators, write nothing\n"
         "      }\n")
 
 
+CUT = ("fused_scan.cu", "exact_topk.cu")   # the kernels on the shared mainloop
+
+
 def mainloop_only_sources(dest: pathlib.Path) -> pathlib.Path:
-    """A copy of csrc/ in dest whose fused kernels skip their epilogue."""
+    """A copy of csrc/ in dest whose mainloop kernels skip their epilogue."""
     shutil.rmtree(dest, ignore_errors=True)
     shutil.copytree(_build._SRC_DIR, dest)
-    f = dest / "fused_scan.cu"
-    src = f.read_text()
-    if MARK not in src:
-        raise RuntimeError("csrc/fused_scan.cu no longer has the mainloop call this script cuts at")
-    f.write_text(src.replace(MARK, MARK + STUB, 1))
+    for name in CUT:
+        f = dest / name
+        src = f.read_text()
+        if MARK not in src:
+            raise RuntimeError(f"csrc/{name} no longer has the mainloop call this script cuts at")
+        f.write_text(src.replace(MARK, MARK + STUB, 1))
     return dest
 
 
@@ -71,8 +77,11 @@ def run(reps: int = 20, device: str | torch.device = "cuda", seed: int = 0) -> d
     q2 = torch.nn.functional.normalize(torch.randn(1024, 768, generator=gen, device=dev), dim=1)
     q2 = q2.to(torch.bfloat16)
     b2 = torch.zeros(E2.shape[0], device=dev)
+    E3 = clustered_corpus(1 << 20, 768, 4096, 0.35, gen, dev)
+    v3 = torch.ones(E3.shape[0], device=dev)
     cases = {"grouped_max_cuda": (lambda: grouped_max_cuda(q1, E1, v1, 256), q1, E1),
-             "windowed_scan_cuda": (lambda: windowed_scan_cuda(q2, E2, b2), q2, E2)}
+             "windowed_scan_cuda": (lambda: windowed_scan_cuda(q2, E2, b2), q2, E2),
+             "exact_topk_cuda": (lambda: exact_topk_cuda(q2, E3, v3, 10), q2, E3)}
     times = {name: {v: [] for v in libs} for name in cases}
     saved = _build._lib
     try:
