@@ -250,30 +250,3 @@ def test_k4_twin_matches_pallas_interpret_at_kernel_edges(m, group, bq):
         cols = np.arange(256 // 8, 384 // 8)
         assert (got_v.numpy()[:, cols] <= -1e29).all()
         assert (got_i.numpy()[:, cols] == cols * 8).all()
-
-
-# (m, B, queries a block): the resident LUT sets the widest tile, and a small
-# B halves it while half still covers B
-K4_TILES = [(48, 256, 128), (48, 129, 128), (48, 65, 128), (48, 64, 64), (48, 33, 64),
-            (48, 17, 32), (48, 16, 16), (48, 1, 16), (8, 256, 128), (50, 256, 64),
-            (104, 256, 64), (106, 256, 32), (192, 256, 32), (194, 256, 16), (200, 3, 16)]
-
-
-@pytest.mark.parametrize("m,bq,want", K4_TILES)
-def test_pq4_query_tile_fits_the_resident_lut(m, bq, want):
-    n = port_pallas.pq4_query_tile(bq, m)
-    assert n == want
-    assert port_pallas.pq4_smem_bytes(m, n) <= port_pallas._SMEM_LIMIT
-    if n < 128:                     # the next width up would not fit, or B does not need it
-        assert port_pallas.pq4_smem_bytes(m, 2 * n) > port_pallas._SMEM_LIMIT or n >= bq
-
-
-def test_pq4_smem_bytes_counts_the_padded_lut_and_code_tiles():
-    # m 48: 12 slices of 4 subspaces x 128 queries x 128 B, two 128-row code
-    # tiles of 24 B, an 8-warp (f32, i32) scratch, one barrier, 1 KB slack
-    assert port_pallas.pq4_smem_bytes(48, 128) == 1024 + 12 * 16384 + 2 * 128 * 24 + 8192 + 8
-    # m 50 pads to 14 slices (an even count)
-    assert port_pallas.pq4_smem_bytes(50, 64) == 1024 + 14 * 8192 + 2 * 128 * 25 + 4096 + 8
-    for m in range(2, 201, 2):      # the whole contract fits
-        assert port_pallas.pq4_smem_bytes(m, port_pallas.pq4_query_tile(1024, m)) \
-            <= port_pallas._SMEM_LIMIT

@@ -149,7 +149,8 @@ def test_exact_topk_cuda_refuses_cpu_tensors():
 # Edges of the CUDA kernel's design, held on the twin against the Pallas
 # kernel: query tiles of 256 (B 255-257); the threshold epilogue (k <= 16)
 # and the score dump (k > 16); ties on both sides of a 128-row tile edge and
-# of a block edge; scores that rise with the row (every tile inserts); a
+# of a block edge; 24 exact ties inside one 128-row tile (more than the
+# kernel's 20 slots a query); scores that rise with the row (every tile inserts); a
 # dead block and k - 1 live rows at block_rows 64 and 192 (TMA's zeros past
 # a block's end). Tolerances as above: values to 1e-5, live ids equal.
 EDGE_D = 64
@@ -166,6 +167,11 @@ def _edge_inputs(case: str, k: int, bq: int, n: int, br: int, seed: int = 7):
             pair = ((127, 128), (br - 1, br), (383, 384))[b % 3]
             E[list(pair)] = q[b]
             valid[list(pair)] = 1.0
+    elif case == "tile_dupes":      # q[b]'s 24 copies in one 128-row tile: more than 20 slots
+        for b in range(bq):
+            rows = _tile_dupe_rows(b, n)
+            E[rows] = q[b]
+            valid[rows] = 1.0
     elif case == "rising":          # row r of a block scores (r % br) / 2,048 exactly
         r = np.arange(n) % br
         E[:] = 0.0
@@ -179,6 +185,13 @@ def _edge_inputs(case: str, k: int, bq: int, n: int, br: int, seed: int = 7):
         valid[br:2 * br] = 0.0
         valid[br + rng.choice(br, k - 1, replace=False)] = 1.0
     return q, E, valid
+
+
+def _tile_dupe_rows(b: int, n: int) -> list[int]:
+    """Every 5th row of 128-row tile b % (n / 128), from offset (b // (n /
+    128)) % 5: 24 ascending rows, shared by no two of up to 5 n / 128 queries."""
+    tiles = n // 128
+    return [128 * (b % tiles) + (b // tiles) % 5 + 5 * i for i in range(24)]
 
 
 def _ref_blocks_at(q, E, valid, k, br):
@@ -208,6 +221,10 @@ K3_EDGES = [   # (case, k, B, N, block_rows)
     ("random", 129, 3, 1024, 512),
     ("tile_ties", 1, 3, 1024, 256),
     ("tile_ties", 10, 3, 1024, 256),
+    ("tile_dupes", 10, 3, 1024, 512),
+    ("tile_dupes", 16, 3, 1024, 512),
+    ("tile_dupes", 17, 3, 1024, 512),
+    ("tile_dupes", 16, 20, 1024, 256),
     ("rising", 10, 3, 1024, 256),
     ("rising", 129, 3, 1024, 256),
     ("dead_block", 10, 3, 512, 64),
@@ -232,6 +249,10 @@ def test_k3_block_twin_matches_pallas_interpret_at_kernel_edges(case, k, bq, n, 
             lo = ((127, 128), (br - 1, br), (383, 384))[b % 3][0]
             g = lo // br
             assert got_i[g, b, 0] == lo
+    if case == "tile_dupes":        # exact ties: the lowest rows, in row order
+        for b in range(bq):
+            rows = _tile_dupe_rows(b, n)
+            assert got_i[rows[0] // br, b, :min(k, 24)].tolist() == rows[:k]
     if case == "rising":            # each block's top-k is its last k rows, highest first
         last = (np.arange(n // br)[:, None] + 1) * br - 1 - np.arange(k)[None, :]
         np.testing.assert_array_equal(got_i.numpy()[:, 0], last)
@@ -258,10 +279,10 @@ def test_k3_block_twin_at_k_equal_block_rows_matches_exact_scan(br):
         assert (got_i[g].numpy()[~live] == g * br).all()
 
 
-@pytest.mark.parametrize("n,want", [(1 << 20, 64), (1 << 26, 1), (1 << 30, 1), (4096, 16384)])
+@pytest.mark.parametrize("n,want", [(1 << 20, 256), (1 << 26, 4), (1 << 30, 1), (4096, 65536)])
 def test_dump_query_slice_bounds_the_score_buffer(n, want):
     """K3's score dump (k > 16) takes queries in slices whose N x b f32
-    scores stay within 256 MB, at least one query a slice."""
+    scores stay within 1 GiB, at least one query a slice."""
     got = port_scan.dump_query_slice(n)
     assert got == want
     assert got == 1 or 4 * n * got <= port_scan._DUMP_BYTES

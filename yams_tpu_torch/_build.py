@@ -33,7 +33,7 @@ _SIGNATURES = {
     "yt_gear_hash": (_P, _P, _I64, _P),
     "yt_sha256_rows": (_P, _P, _P, _P, _I64, _P),
     "yt_exact_topk": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P),
-    "yt_pq4_adc": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P),
+    "yt_pq4_adc": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "yt_grouped_max": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "yt_windowed_scan": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
 }

@@ -37,12 +37,16 @@
 // added) with the thresholds; the few that beat one are appended to that
 // query's list by a shared atomic (20 slots a query: the list, then the
 // candidates), and thread b merges query b's candidates into its list by
-// (score desc, row asc) and raises the threshold. Rows arrive in increasing
-// order, so a later row that only ties the k-th score never enters, as the
-// reference's first-row-on-ties keeps it out. When a query's candidates
+// (score desc, row asc) and raises the threshold. Tiles arrive in row order,
+// so a row of a later tile that only ties the k-th score never enters, as
+// the reference's first-row-on-ties keeps it out. When a query's candidates
 // overflow their slots, the tile is scanned again against the raised
 // thresholds, skipping what each thread already placed (a bit per
-// accumulator), until nothing overflows. The first tile of a unit would
+// accumulator), until nothing overflows. The slots of a pass go in no fixed
+// order, so an unplaced row of the same tile may tie the raised k-th score
+// from a lower row: after an overflow the threshold is set just below the
+// k-th score, the re-pass takes such ties too, and the merge keeps the
+// lowest rows (a tie from a higher row is taken and dropped). The first tile of a unit would
 // make every live row a candidate: its threshold starts instead just below
 // the k-th largest of 16 sampled scores (each warp's best two of every
 // query), which at least k of its rows reach. Scores that rise with the row
@@ -56,9 +60,12 @@
 //
 // For 16 < k <= block_rows (kDump) the thresholds would not fit: the kernel
 // writes the tile's biased scores to a buffer in device memory, (G, B,
-// block_rows) f32 (the caller bounds it by splitting B), and a second
-// kernel sorts each (block, query)'s row in shared memory (a bitonic sort of
-// (score, row) keys) and keeps its first k.
+// block_rows) f32 (the caller bounds it by splitting B, 256 queries a
+// launch at 1M rows), and a second kernel selects each (block, query)'s k
+// best: a radix select of the k-th score, then a bitonic sort of the k
+// (score, row) keys alone. The first version sorted all block_rows keys and
+// took 64 queries a launch: 87 ms at k 17-128 at the bench shape on an H100
+// 80GB HBM3, slower than the plain twin (`PERF.md`).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -284,12 +291,16 @@ exact_topk_kernel(const __grid_constant__ CUtensorMap e_map,
           }
         }
         consumer_sync();
-        // thread ct merges query q0 + ct's candidates into its list
+        // thread ct merges query q0 + ct's candidates into its list; after an
+        // overflow the threshold goes just below the k-th score, so that the
+        // next pass also takes this tile's unplaced rows that tie it
+        const bool over = sc->overflow[pass & 1] != 0;
         const int n = min(sc->cnt[ct], kList);
         if (n > len) {
           merge_slots(sc, ct, len, n);
           len = min(n, p.k);
-          sc->thr[ct] = len == p.k ? sc->v[p.k - 1][ct] : kNeg;
+          const float kth = sc->v[p.k - 1][ct];
+          sc->thr[ct] = len < p.k ? kNeg : over ? fmaxf(kNeg, nextafterf(kth, neg_inf())) : kth;
         }
         sc->cnt[ct] = len;
         if (ct == 0) sc->overflow[(pass + 1) & 1] = 0;   // the next pass's flag; read by none now
@@ -322,20 +333,114 @@ __device__ __forceinline__ float unordered(uint32_t o) {
   return __uint_as_float((o >> 31) ? (o ^ 0x80000000u) : ~o);
 }
 
-// kDump's second step: block gb = g * B + b sorts its block_rows scores as
-// keys (score, then lower row) in descending order and writes the first k.
+// kDump's second step: block gb = g * B + b keeps the k best of its
+// block_rows scores by (score desc, row asc). A radix select finds the k-th
+// score T over the scores' 32-bit order keys, 8 bits a pass, each thread
+// holding its kPer scores in registers (histograms by warp-aggregated shared
+// atomics); the rows above T and the lowest rows equal to T (ranked in row
+// order by ballots) make exactly k keys (score, then lower row), which a
+// bitonic sort over the next power of two puts in order.
 __global__ void __launch_bounds__(kSelectThreads)
 select_kernel(const float* __restrict__ dump, float* __restrict__ out_v,
               int32_t* __restrict__ out_i, int B, int k, int block_rows) {
+  constexpr int kPer = kMaxBlock / kSelectThreads;     // scores a thread holds
+  constexpr int kWarps = kSelectThreads / 32;
+  static_assert(kPer * kWarps == 64, "the tie counts are scanned two a lane by one warp");
   __shared__ unsigned long long key[kMaxBlock];
+  __shared__ uint32_t hist[256];
+  __shared__ int ties_before[kPer * kWarps];   // ties at T in earlier (sweep, warp)s: row order
+  __shared__ uint32_t pick[2];                 // T's digits so far; keys still wanted at them
+  __shared__ int taken;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int64_t gb = blockIdx.x;
   const int64_t base = (gb / B) * block_rows;
-  int n2 = 64;
-  while (n2 < block_rows) n2 <<= 1;
   const float* s = dump + gb * block_rows;
-  for (int i = threadIdx.x; i < n2; i += blockDim.x)   // padding sorts last
-    key[i] = i < block_rows
-        ? (static_cast<unsigned long long>(ordered(s[i])) << 32) | (0xffffffffu - i) : 0ull;
+  uint32_t u[kPer];   // the key of row t + kSelectThreads j
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = t + j * kSelectThreads;
+    u[j] = i < block_rows ? ordered(s[i]) : 0u;
+  }
+  uint32_t prefix = 0, mask = 0;
+  int want = k;   // keys still to take among those that match prefix under mask
+#pragma unroll 1
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    if (t < 256) hist[t] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const bool in = t + j * kSelectThreads < block_rows && (u[j] & mask) == prefix;
+      const uint32_t bin = in ? (u[j] >> shift) & 255u : 256u;
+      const unsigned peers = __match_any_sync(~0u, bin);
+      if (in && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));
+    }
+    __syncthreads();
+    if (warp == 0) {   // lane l: bins 255 - 8 l down to 248 - 8 l; the bin of the want-th key
+      uint32_t c[8], sum = 0;
+#pragma unroll
+      for (int x = 0; x < 8; ++x) {
+        c[x] = hist[255 - 8 * lane - x];
+        sum += c[x];
+      }
+      uint32_t incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t v = __shfl_up_sync(~0u, incl, o);
+        if (lane >= o) incl += v;
+      }
+      uint32_t run = incl - sum, bin = 0, above = 0;
+      const uint32_t w = static_cast<uint32_t>(want);
+      const bool mine = run < w && w <= incl;   // one lane's bins hold the want-th key
+#pragma unroll
+      for (int x = 0; x < 8; ++x) {
+        if (run < w && run + c[x] >= w) {
+          bin = 255u - 8 * lane - x;
+          above = run;
+        }
+        run += c[x];
+      }
+      if (mine) {
+        pick[0] = prefix | (bin << shift);
+        pick[1] = w - above;
+      }
+    }
+    __syncthreads();
+    prefix = pick[0];
+    want = static_cast<int>(pick[1]);
+    mask |= 255u << shift;
+  }
+  // prefix is T: take every key above it and the first `want` equal to it in
+  // row order (row t + 512 j is lane t % 32 of warp t / 32 in sweep j)
+  uint32_t ties[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    ties[j] = __ballot_sync(~0u, t + j * kSelectThreads < block_rows && u[j] == prefix);
+    if (lane == 0) ties_before[j * kWarps + warp] = __popc(ties[j]);
+  }
+  if (t == 0) taken = 0;
+  __syncthreads();
+  if (warp == 0) {   // exclusive scan of the kPer x kWarps counts, two a lane
+    const int a = ties_before[2 * lane], b = ties_before[2 * lane + 1];
+    int incl = a + b;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(~0u, incl, o);
+      if (lane >= o) incl += v;
+    }
+    ties_before[2 * lane] = incl - a - b;
+    ties_before[2 * lane + 1] = incl - b;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = t + j * kSelectThreads;
+    const int rank = ties_before[j * kWarps + warp] + __popc(ties[j] & ((1u << lane) - 1));
+    if (i < block_rows && (u[j] > prefix || (u[j] == prefix && rank < want)))
+      key[atomicAdd(&taken, 1)] = (static_cast<unsigned long long>(u[j]) << 32) | (0xffffffffu - i);
+  }
+  int n2 = 2;
+  while (n2 < k) n2 <<= 1;
+  for (int i = k + t; i < n2; i += kSelectThreads) key[i] = 0ull;   // padding sorts last
   __syncthreads();
   for (int size = 2; size <= n2; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {

@@ -32,11 +32,11 @@
 //     memory; the codes (64 m bytes a tile) are the only operand streamed,
 //     double-buffered by cp.async while the current tile's wgmmas run.
 //   - n is chosen by m so that the whole contract (m <= 200) fits the 227 KB
-//     of shared memory: the host picks the largest of 128, 64, 32, 16 whose
-//     LUT, code buffers and epilogue scratch fit (128 up to m 48, 64 up to
-//     m 104, 32 up to m 192, 16 beyond; ops/pq_pallas.py `pq4_query_tile`),
-//     rather than streaming LUT slices through a ring, and halves it
-//     while half still covers B. The slices are padded to an even count
+//     of shared memory: the launch picks the largest of 128, 64, 32, 16
+//     whose LUT, code buffers and epilogue scratch fit (128 up to m 48, 64
+//     up to m 104, 32 up to m 192, 16 beyond; `query_tile`), rather than
+//     streaming LUT slices through a ring, and halves it while half still
+//     covers B. The slices are padded to an even count
 //     (two A fragment sets in flight); the padding subspaces get all-zero
 //     one-hots and a zero-filled LUT slice.
 //   - Per slice a thread turns its two rows' nibbles into four one-hot A
@@ -76,10 +76,18 @@ constexpr int kSmemLimit = 232448;      // dynamic shared memory a block may hav
 __host__ __device__ constexpr int lut_slices(int m) { return 2 * ((m + 7) / 8); }
 
 // Alignment slack, the resident LUT, two code tiles, the epilogue's scratch
-// (8 warps x n queries x (f32, i32)) and one mbarrier. Mirrored by
-// ops/pq_pallas.py `pq4_smem_bytes`.
+// (8 warps x n queries x (f32, i32)) and one mbarrier.
 __host__ __device__ constexpr int smem_bytes(int m, int n) {
   return 1024 + lut_slices(m) * n * 128 + 2 * kTileRows * (m / 2) + kBlockWarps * n * 8 + 8;
+}
+
+// Queries a block owns: the widest of 128, 64, 32, 16 whose shared memory
+// fits, halved while half still covers B.
+int query_tile(int64_t B, int m) {
+  int n = 128;
+  while (n > 16 && smem_bytes(m, n) > kSmemLimit) n /= 2;
+  while (n > 16 && n / 2 >= B) n /= 2;
+  return n;
 }
 
 struct Params {
@@ -428,12 +436,12 @@ int launch(const CUtensorMap& map, const Params& p, int q_tiles, int smem, cudaS
 
 extern "C" int yt_pq4_adc(const void* lut, const void* codes, const void* valid,
                           void* out_v, void* out_i, int64_t B, int64_t m,
-                          int64_t N, int64_t group, int64_t n_tile, void* stream) {
+                          int64_t N, int64_t group, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  if (m < 2 || m % 2 || m > 200 || group < 1 || 256 % group || N % group || N >= (1LL << 31)
-      || (n_tile != 16 && n_tile != 32 && n_tile != 64 && n_tile != 128))
+  if (m < 2 || m % 2 || m > 200 || group < 1 || 256 % group || N % group || N >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = smem_bytes(static_cast<int>(m), static_cast<int>(n_tile));
+  const int n_tile = query_tile(B, static_cast<int>(m));
+  const int smem = smem_bytes(static_cast<int>(m), n_tile);
   const int64_t q_tiles = (B + n_tile - 1) / n_tile;
   if (smem > kSmemLimit || q_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   // the LUT (B, m, 16) as a (B, 16 m) bf16 matrix: boxes of 64 columns (4

@@ -27,31 +27,6 @@ def _check_shapes(N: int, group: int, block_rows: int) -> None:
         raise ValueError(f"N={N} % block_rows={block_rows} % group={group}")
 
 
-# The CUDA kernel keeps one query tile's LUT resident in shared memory, so
-# the tile width n (queries a block) follows from m. These mirror
-# csrc/pq4_adc.cu `smem_bytes` and the launch's checks.
-_SMEM_LIMIT = 232_448          # dynamic shared memory an H100 block may have
-_QUERY_TILES = (128, 64, 32, 16)
-
-
-def pq4_smem_bytes(m: int, n: int) -> int:
-    """Shared memory of one K4 block: alignment slack, the LUT in slices of
-    4 subspaces padded to an even count (n rows of 128 bytes each), two
-    128-row code tiles, the epilogue's 8-warp scratch, one barrier."""
-    slices = 2 * ((m + 7) // 8)
-    return 1024 + slices * n * 128 + 2 * 128 * (m // 2) + 8 * n * 8 + 8
-
-
-def pq4_query_tile(B: int, m: int) -> int:
-    """Queries a K4 block owns: the widest of 128/64/32/16 whose resident LUT
-    fits (128 up to m 48, 64 up to m 104, 32 up to m 192, 16 beyond),
-    halved while half still covers B."""
-    n = next(n for n in _QUERY_TILES if pq4_smem_bytes(m, n) <= _SMEM_LIMIT)
-    while n > _QUERY_TILES[-1] and n // 2 >= B:
-        n //= 2
-    return n
-
-
 def pq4_adc_reference(lut: torch.Tensor, codes: torch.Tensor, valid: torch.Tensor,
                       group: int, block_rows: int = 2048):
     """Plain twin of `pq4_adc_cuda`: per-subspace gathers from the bf16 LUT
@@ -101,8 +76,7 @@ def pq4_adc_cuda(lut: torch.Tensor, codes: torch.Tensor, valid: torch.Tensor,
     lib = _build.library()
     stream = torch.cuda.current_stream(lut.device).cuda_stream
     err = lib.yt_pq4_adc(lut.data_ptr(), codes.data_ptr(), valid.data_ptr(),
-                         out_v.data_ptr(), out_i.data_ptr(), B, m, N, group,
-                         pq4_query_tile(B, m), stream)
+                         out_v.data_ptr(), out_i.data_ptr(), B, m, N, group, stream)
     pq4_adc_cuda.launches += 1
     _build.check(err, "pq4_adc_cuda")
     return out_v, out_i

@@ -34,12 +34,13 @@ from .select import top_k
 NEG = -1e30
 _SCORE_BUDGET = 1 << 26   # f32 scores per chunk of the plain paths (256 MB)
 _TOPK_SMALL_K = 16        # K3: k above this takes the score dump (csrc/exact_topk.cu)
-_DUMP_BYTES = 1 << 28     # K3's score dump: bytes a launch may hold
+_DUMP_BYTES = 1 << 30     # K3's score dump: bytes a launch may hold
 
 
 def dump_query_slice(N: int) -> int:
     """Queries one K3 dump launch takes: its (G, b, block_rows) f32 scores,
-    N * b * 4 bytes, stay within _DUMP_BYTES (at least one query)."""
+    N * b * 4 bytes, stay within _DUMP_BYTES (at least one query). At 1M
+    rows that is 256, one whole query tile of the kernel's mainloop."""
     return max(1, _DUMP_BYTES // (4 * N))
 
 
@@ -129,7 +130,7 @@ def exact_topk_cuda(q: torch.Tensor, E: torch.Tensor, valid: torch.Tensor,
 
     k <= 16 keeps each query's top-k in shared memory behind a threshold;
     a larger k dumps the biased scores to a (G, b, block_rows) f32 buffer
-    and sorts each row of it, b queries a launch (`dump_query_slice`)."""
+    and selects each row's k best, b queries a launch (`dump_query_slice`)."""
     B, D = q.shape
     N = E.shape[0]
     _build.require_aligned("exact_topk_cuda", q=q, E=E)
