@@ -59,7 +59,24 @@ seconds):
      profile_grouped (K1: 1,003,520 x 768 unit-normal, B 256, 8 batches,
      block 4,096, group 256, C 32) and exp_flash_topk (K2: 1,015,808 x 768
      clustered, B 1,024, 8 batches, C 32), each against the matmul + top-C
-     path: QPS and recall@10 of both paths against the exact top-10.
+     path: QPS and recall@10 of both paths against the exact top-10;
+  8. the streaming blocked scan and the int8 corpus tier: hybrid_query at
+     4,194,304 x 768 (phase 4's generator and postings, B 1,024, C 32,
+     blocks of 262,144 rows), bf16 and int8 (the same corpus quantized on
+     the card, held to quantize_int8 on a slice), each against its
+     materialized program at the largest B whose (B, rows) scores fit (ids
+     equal except near-ties within 1e-4, values within 1e-5), with QPS
+     (median of 5 windows), peak memory (the streaming peak must stay below
+     the (B, rows) f32 bytes at B 1,024), int8 recall@10 against bf16
+     (>= 0.85), the split between the products and the per-block top-C,
+     and torch._int_mm against dot_f32 at one block's shape with their
+     bounds; then a 65,536-doc flat engine, bf16 and int8, with lowered
+     streaming thresholds: search_batch must pick the streaming tier itself
+     (unfiltered, a shared filter, per-query filters), then
+     remove_document, touch_hot and record_feedback, each intent and
+     search_expanded, every search with top-10 overlap 1.0 against the same
+     engine on the CPU (16 queries), no removed doc returned, and stats()
+     counting the searches.
 
 The kernel launch counters are zeroed just before each path and read just
 after: the add path (phases 2-3) must launch gear_hash_cuda and
@@ -67,7 +84,8 @@ sha256_cuda, the vector store (phase 5) exact_topk_cuda and pq4_adc_cuda,
 the engine's PQ tier (phase 6) must launch pq4_adc_cuda zero times (it
 always pushes a doc mask into the scan, and K4 serves the unfiltered scan
 only), and the experiments (phase 7) grouped_max_cuda and
-windowed_scan_cuda. At the end no module of yams_tpu, jax, jaxlib or flax
+windowed_scan_cuda; phase 8's path runs torch operations only, and its
+counts are printed. At the end no module of yams_tpu, jax, jaxlib or flax
 may be loaded. The second-last line is the kernels' JSON record (each with
 its launches, error, time, twin's time and bound), the last line the device
 record.
@@ -978,9 +996,27 @@ def clustered_corpus(dev, gen, N: int = 1 << 20, D: int = 768) -> torch.Tensor:
     return (ef / ef.norm(dim=1, keepdim=True).clamp_min(1e-9)).to(torch.bfloat16)
 
 
+def packed_postings(dev, N: int, V: int, WIN: int):
+    """bench.py's packed postings: each of V terms -> WIN/2 multiplicative-
+    hash docs of N, zipf impacts -> ((V, WIN) i32 packed, impact scale)."""
+    from yams_tpu_torch.ops.bm25 import packed_qbits
+
+    per_term = WIN // 2
+    qbits = packed_qbits(N)
+    qmax, vmax = (1 << qbits) - 1, 5.25
+    tt = torch.arange(V, device=dev, dtype=torch.int64)[:, None]
+    cc = torch.arange(WIN, device=dev, dtype=torch.int64)[None, :]
+    arp = tt * per_term + cc
+    docs = ((arp * 2654435761) & 0xFFFFFFFF) % N
+    imp = 0.5 + 4.75 * (1.0 + cc.float()) ** -0.7
+    q = torch.clamp(torch.round(imp * (qmax / vmax)), 0, qmax).long()
+    packed = torch.where(cc < per_term, (docs << qbits) | q, N << qbits).to(torch.int32)
+    return packed, torch.tensor(vmax, dtype=torch.float32, device=dev)
+
+
 def phase4_bench(dev, N: int = 1 << 20, D: int = 768, B: int = 1024,
                  V: int = 65536) -> dict:
-    from yams_tpu_torch.ops.bm25 import bm25_topk_candidates_packed, packed_qbits
+    from yams_tpu_torch.ops.bm25 import bm25_topk_candidates_packed
     from yams_tpu_torch.ops.select import top_k
     from yams_tpu_torch.search.config import SearchEngineConfig
     from yams_tpu_torch.ops.scan import dot_f32
@@ -993,19 +1029,7 @@ def phase4_bench(dev, N: int = 1 << 20, D: int = 768, B: int = 1024,
     E = clustered_corpus(dev, gen, N, D)
     proj = torch.where(torch.rand(S, D, generator=gen, device=dev) < 0.5, 1.0, -1.0)
     proj = (proj / np.sqrt(D)).to(torch.bfloat16)
-    # packed postings: each term -> WIN/2 multiplicative-hash docs, zipf impacts
-    per_term = WIN // 2
-    qbits = packed_qbits(N)
-    qmax, vmax = (1 << qbits) - 1, 5.25
-    tt = torch.arange(V, device=dev, dtype=torch.int64)[:, None]
-    cc = torch.arange(WIN, device=dev, dtype=torch.int64)[None, :]
-    arp = tt * per_term + cc
-    docs = ((arp * 2654435761) & 0xFFFFFFFF) % N
-    imp = 0.5 + 4.75 * (1.0 + cc.float()) ** -0.7
-    q = torch.clamp(torch.round(imp * (qmax / vmax)), 0, qmax).long()
-    packed = torch.where(cc < per_term, (docs << qbits) | q, N << qbits).to(torch.int32)
-    del arp, docs
-    scale = torch.tensor(vmax, dtype=torch.float32, device=dev)
+    packed, scale = packed_postings(dev, N, V, WIN)
     valid = torch.ones(N, device=dev)
     row2slot = torch.arange(N, device=dev, dtype=torch.int32)
     dummy = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -1252,6 +1276,317 @@ def phase7_experiments(dev) -> dict:
     return out
 
 
+# -- phase 8 ------------------------------------------------------------------
+PEAK_INT8 = 1979e12                # int8 operations /s, dense tensor cores
+
+
+def fused_agree(what: str, av, ai, bv, bi, tol: float = 1e-5, tie: float = 1e-4):
+    """Two programs' fused top-k on the same inputs: values rank by rank
+    within `tol`, and every differing id a near-tie: the doc's score in the
+    other list within `tie` of its own or, where the other list lacks it,
+    within `tie` of that list's last score. -> (max value error, ids that
+    differ)."""
+    av, ai, bv, bi = (t.cpu().numpy() for t in (av, ai, bv, bi))
+    err = float(np.abs(av - bv).max())
+    check(err <= tol, f"{what}: fused values within {tol} (max error {err:.3g})")
+    differ = 0
+    for q, j in zip(*np.nonzero(ai != bi)):
+        differ += 1
+        hit = np.nonzero(bi[q] == ai[q, j])[0]
+        other = bv[q, hit[0]] if hit.size else bv[q, -1]
+        check(abs(float(av[q, j]) - float(other)) <= tie,
+              f"{what}: query {q} rank {j}: id {ai[q, j]} differs and is no near-tie")
+    return err, differ
+
+
+def phase8_streaming(dev, N: int = 1 << 22, D: int = 768, B: int = 1024,
+                     V: int = 65536, block: int = 262_144) -> dict:
+    """The streaming blocked scan and the int8 corpus at 4,194,304 x 768:
+    hybrid_query on phase 4's clustered generator and packed postings, bf16
+    and int8, each against its materialized program at the largest B whose
+    (B, rows) scores fit; QPS, peak memory, the product / top-C split, and
+    torch._int_mm against dot_f32 at one block's shape."""
+    from yams_tpu_torch.ops.scan import dot_f32, int8_mm, int8_product, quantize_int8, quantize_rows
+    from yams_tpu_torch.ops.select import top_k
+    from yams_tpu_torch.scripts._common import qps_windows, recall
+    from yams_tpu_torch.search.config import SearchEngineConfig
+    from yams_tpu_torch.search.fusion import hybrid_query, pack_weights
+
+    S, T, K, C, WIN, ITERS, WINDOWS = 4096, 16, 10, 32, 1024, 4, 5
+    out: dict = {"rows": N, "dim": D, "batch": B, "scan_block_rows": block}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    t = time.perf_counter()
+    E = clustered_corpus(dev, gen, N, D)
+    proj = torch.where(torch.rand(S, D, generator=gen, device=dev) < 0.5, 1.0, -1.0)
+    proj = (proj / np.sqrt(D)).to(torch.bfloat16)
+    packed, scale = packed_postings(dev, N, V, WIN)
+    # the int8 tier of the same corpus: per-row codes and scales, quantized
+    # on the card in row chunks with the host tier's arithmetic
+    E8 = torch.empty(N, D, dtype=torch.int8, device=dev)
+    scale8 = torch.empty(N, dtype=torch.float32, device=dev)
+    for lo in range(0, N, 1 << 18):
+        E8[lo:lo + (1 << 18)], scale8[lo:lo + (1 << 18)] = quantize_rows(
+            E[lo:lo + (1 << 18)].float())
+    h8, hs = quantize_int8(E[:4096].float().cpu().numpy())
+    check(np.array_equal(E8[:4096].cpu().numpy(), h8)
+          and np.array_equal(scale8[:4096].cpu().numpy(), hs),
+          "the card's int8 codes and scales equal quantize_int8's")
+    ones = torch.ones(N, device=dev)
+    row2slot = torch.arange(N, device=dev, dtype=torch.int32)
+    dummy = torch.zeros(1, dtype=torch.int32, device=dev)
+    hot = torch.zeros(N, device=dev)
+    w = torch.from_numpy(pack_weights(SearchEngineConfig())).to(dev)
+    sketches = torch.randn(ITERS, B, S, generator=gen, device=dev)
+    tids = torch.randint(0, V, (ITERS, B, T), generator=gen, device=dev, dtype=torch.int32)
+    tmask = torch.ones(ITERS, B, T, device=dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t
+    log(f"[phase8] corpus {N}x{D} bf16 ({E.nbytes / 1e9:.2f} GB) and int8 "
+        f"({(E8.nbytes + scale8.nbytes) / 1e9:.2f} GB), packed postings {V}x{WIN}, "
+        f"built in {out['build_s']:.2f} s")
+
+    def run(i, int8, b=B, scan=block):
+        return hybrid_query(
+            sketches[i, :b], tids[i, :b], tmask[i, :b], proj, E8 if int8 else E, ones,
+            row2slot, scale8 if int8 else ones, packed, scale, dummy, dummy, ones, hot, w,
+            k=K, rrf_cand=C, window=WIN, num_slots=N, rows_are_docs=True,
+            bm25_prefilter=256, packed_lexical=True, int8_corpus=int8, scan_block_rows=scan)
+
+    def peak_of(fn):
+        """Bytes the call adds above what was allocated before it."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        r = fn()
+        torch.cuda.synchronize()
+        return r, torch.cuda.max_memory_allocated(dev) - base
+
+    matrix_bytes = B * N * 4
+    slots = {}
+    for name, int8 in (("bf16", False), ("int8", True)):
+        (vals, _, _, _), peak = peak_of(lambda: run(0, int8))
+        check(bool(torch.isfinite(vals).all()) and vals.shape == (B, K),
+              f"{name}: finite (B, k) fused scores")
+        qps, windows = qps_windows(lambda i: run(i, int8), ITERS, B, WINDOWS, dev)
+        slots[name] = torch.stack([run(i, int8)[1] for i in range(ITERS)]).cpu().numpy()
+        log(f"[phase8] streaming {name}: QPS median {qps:.1f} over {WINDOWS} windows of "
+            f"{ITERS} batches of B={B} (windows: " + ", ".join(f"{x:.1f}" for x in windows)
+            + f"); peak {peak / 1e9:.3f} GB above the resident corpus, against "
+            f"{matrix_bytes / 1e9:.2f} GB of (B, rows) f32 scores")
+        check(peak < matrix_bytes, f"{name}: streaming peak below the (B, rows) f32 bytes")
+        out[name] = {"qps_median": qps, "qps_windows": windows, "peak_bytes": peak}
+    r_int8 = recall(slots["int8"].reshape(-1, K), slots["bf16"].reshape(-1, K))
+    log(f"[phase8] int8 recall@10 against the bf16 program's top-10: {r_int8:.4f}")
+    check(r_int8 >= 0.85, "int8 recall@10 >= 0.85 against bf16")
+    out["int8"]["recall10_vs_bf16"] = r_int8
+
+    # the materialized programs at the largest B whose (B, rows) scores fit:
+    # the int8 program holds its int32 product and the f32 scores at once,
+    # and the top-C its own temporaries, so four matrices must fit
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    b_cmp = B
+    while b_cmp > 8 and 4 * b_cmp * N * 4 > free:
+        b_cmp //= 2
+    out["materialized_batch"] = b_cmp
+    for name, int8 in (("bf16", False), ("int8", True)):
+        sv, si, _, _ = run(0, int8, b_cmp)
+        (mv, mi, _, _), peak = peak_of(lambda: run(0, int8, b_cmp, scan=0))
+        err, d = fused_agree(f"{name} streaming vs materialized", sv, si, mv, mi)
+        t_m = cuda_ms(lambda: run(0, int8, b_cmp, scan=0), 2)
+        t_s = cuda_ms(lambda: run(0, int8, b_cmp), 2)
+        log(f"[phase8] {name} at B={b_cmp} (the largest whose (B, rows) scores fit "
+            f"{free / 1e9:.1f} GB free four times): streaming == materialized, max value "
+            f"error {err:.3g}, {d} of {si.numel()} ids differ (near-ties within 1e-4); "
+            f"materialized peak {peak / 1e9:.3f} GB, {t_m:.2f} ms; streaming {t_s:.2f} ms")
+        out[name].update(materialized_peak_bytes=peak, materialized_ms=t_m,
+                         streaming_ms_at_cmp=t_s, max_err_vs_materialized=err,
+                         ids_differ_vs_materialized=d)
+        torch.cuda.empty_cache()
+
+    # where a streaming batch's time goes: its totals, then each device
+    # operation of one block (CUDA events) with its launches a batch and
+    # its bound
+    G = N // block
+    qv = dot_f32(sketches[0], proj.t())
+    qv = qv / qv.norm(dim=-1, keepdim=True)
+    q8, qs = quantize_rows(qv)
+
+    def products(int8):
+        for g in range(G):
+            sl = slice(g * block, (g + 1) * block)
+            if int8:
+                int8_product(q8, qs, E8[sl], scale8[sl])
+            else:
+                dot_f32(qv, E[sl])
+
+    s_blk = dot_f32(qv, E[:block])
+    i_blk = int8_mm(q8, E8[:block])
+    zero_bias = ((ones[:block] - 1.0) * 1e30)[None, :]
+    cand = torch.randn(B, C * (G + 1), generator=gen, device=dev)
+    scores_bytes, mac = B * block * 4, 2.0 * B * block * D
+    table = {}
+    for name, fn, launches, nbytes, nops, rate in (
+            ("dot_f32 (bf16 product)", lambda: dot_f32(qv, E[:block]), G,
+             2 * B * D + 2 * block * D + scores_bytes, mac, PEAK_BF16),
+            ("torch._int_mm (int8 product)", lambda: int8_mm(q8, E8[:block]), G,
+             B * D + block * D + scores_bytes, mac, PEAK_INT8),
+            ("int8 dequantization", lambda: torch.mul(i_blk, qs[:, None]).mul_(scale8[:block]),
+             G, 2 * scores_bytes + 4 * (B + block), 2.0 * B * block, PEAK_CORE),
+            ("validity and doc-mask biases", lambda: s_blk.add_(zero_bias).add_(zero_bias), G,
+             2 * scores_bytes + 8 * block, 2.0 * B * block, PEAK_CORE),
+            ("per-block top-C (select.top_k)", lambda: top_k(s_blk, C), G,
+             scores_bytes + 12 * B * C, 1.0 * B * block, PEAK_CORE),
+            ("merge top-C (select.top_k)", lambda: top_k(cand, C), 1,
+             cand.nbytes + 12 * B * C, 1.0 * cand.numel(), PEAK_CORE)):
+        table[name] = {"ms": cuda_ms(fn, 5), "launches_per_batch": launches,
+                       **bound(nbytes, nops, rate)}
+    split = {"top_c_ms": table["per-block top-C (select.top_k)"]["ms"] * G}
+    for name, int8 in (("bf16", False), ("int8", True)):
+        split[f"{name}_products_ms"] = cuda_ms(lambda: products(int8), 3)
+        split[f"{name}_batch_ms"] = cuda_ms(lambda: run(0, int8), 3)
+        split[f"{name}_rest_ms"] = (split[f"{name}_batch_ms"] - split[f"{name}_products_ms"]
+                                    - split["top_c_ms"])
+    del s_blk, i_blk
+    log(f"[phase8] one streaming batch (B={B}, {G} blocks): " + json.dumps(
+        {k: round(v, 3) for k, v in split.items()}))
+    for name, r in table.items():
+        log(f"[phase8] {name}: {r['ms']:.3f} ms a launch, {r['launches_per_batch']} a batch; "
+            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}: {r['bound_bytes'] / 1e9:.3f} GB, "
+            f"{r['bound_ops']:.3g} operations)")
+    out.update(split_ms=split, block_ops=table)
+    return out
+
+
+def flat_docs(n: int, seed: int):
+    """n one-sentence documents without titles (one chunk each, the flat
+    layout the streaming tier needs) and 64 queries, phase 3's vocabulary."""
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i}" for i in range(1024)]
+    lens = rng.integers(8, 16, n)
+    z = rng.zipf(1.3, size=int(lens.sum())) % len(vocab)
+    docs, p = [], 0
+    for i, L in enumerate(lens):
+        docs.append((200_000 + i, " ".join(vocab[j] for j in z[p:p + L]) + ".", ""))
+        p += L
+    queries = [" ".join(vocab[j] for j in rng.zipf(1.3, size=int(rng.integers(2, 6)))
+                        % len(vocab)) for _ in range(64)]
+    return docs, queries
+
+
+def phase8_engine(dev, n_docs: int = 65_536) -> dict:
+    """The engine on a flat corpus above a lowered streaming threshold, bf16
+    and int8: search_batch must pick the streaming tier itself, unfiltered,
+    with a shared filter and with per-query filters; then remove_document,
+    touch_hot and record_feedback, each intent and search_expanded. Every
+    search is held against the same engine on the CPU (16 queries)."""
+    from yams_tpu_torch.convert import load_state, state_from_jax
+    from yams_tpu_torch.search.config import SearchEngineConfig, VectorIndexConfig
+    from yams_tpu_torch.search.engine import SearchEngine
+
+    docs, queries = flat_docs(n_docs, SEED + 9)
+
+    def make(device, dtype):
+        cfg = SearchEngineConfig(streaming_threshold=n_docs // 2,
+                                 streaming_block_rows=n_docs // 4)
+        return SearchEngine(cfg, vector=VectorIndexConfig(dtype=dtype), device=device)
+
+    t = time.perf_counter()
+    card = {"bfloat16": make(dev, "bfloat16")}
+    card["bfloat16"].add_documents(docs)
+    add_s = time.perf_counter() - t
+    check(card["bfloat16"].vector_index.identity_layout, "one chunk a doc: the identity layout")
+    state = state_from_jax(card["bfloat16"])
+    card["int8"] = make(dev, "int8")
+    load_state(card["int8"], state)
+    cpu = {}
+    for dtype in card:
+        cpu[dtype] = make("cpu", dtype)
+        load_state(cpu[dtype], state)
+    log(f"[phase8] engine: {n_docs} flat docs added in {add_s:.2f} s; "
+        f"rows {card['bfloat16'].vector_index.capacity}, slots "
+        f"{card['bfloat16'].num_slots_padded}; streaming_threshold {n_docs // 2}, "
+        f"streaming_block_rows {n_docs // 4}")
+    shared = {d[0] for d in docs[::3]}
+    few = {d[0] for d in docs[5:40:7]}
+    per_query = [(shared, None, few)[i % 3] for i in range(len(queries))]
+    overlaps: dict[str, float] = {}
+    out: dict = {"docs": n_docs, "add_s": add_s}
+
+    def held(name, got, want):
+        """Top-10 overlap of the card's results with the CPU's."""
+        overlaps[name] = float(np.mean([
+            len({x.doc_id for x in a} & {x.doc_id for x in b}) / max(len(a), len(b), 1)
+            for a, b in zip(got, want)]))
+
+    for dtype in card:
+        eng, ref = card[dtype], cpu[dtype]
+        searches = 0
+        for fname, kw, kw16 in (
+                ("unfiltered", {}, {}),
+                ("shared filter", {"filter_doc_ids": shared}, {"filter_doc_ids": shared}),
+                ("per-query filters", {"per_query_filters": per_query},
+                 {"per_query_filters": per_query[:16]})):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = eng.search_batch(queries, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            searches += len(queries)
+            check(eng.last_trace.get("scan_block_rows") == n_docs // 4,
+                  f"{dtype} {fname}: search_batch took the streaming tier")
+            check(all(r for r in res[:16]), f"{dtype} {fname}: results")
+            if fname == "shared filter":
+                check(all(x.doc_id in shared for r in res for x in r), "shared filter honored")
+            if fname == "per-query filters":
+                check(all(x.doc_id in f for r, f in zip(res, per_query) if f is not None
+                          for x in r), "per-query filters honored")
+            held(f"{dtype} streaming {fname}", res[:16], ref.search_batch(queries[:16], **kw16))
+            out[f"{dtype} streaming {fname} ms"] = ms
+        base = eng.search_batch(queries)
+        searches += len(queries)
+        removed = {r[0].doc_id for r in base[:16]} | {d[0] for d in docs[::1024]}
+        hot_docs = [r[0].doc_id for r in base[16:32] if r]
+        liked = [r[1].doc_id for r in base[32:48] if len(r) > 1]
+        for e in (eng, ref):
+            for d in removed:
+                check(e.remove_document(d), "remove_document found the doc")
+            for d in hot_docs:
+                e.touch_hot(d, 2.0)
+            for d in liked:
+                e.record_feedback(d)
+        check(not eng.vector_index.identity_layout, "tombstones end the identity layout")
+        res = eng.search_batch(queries)
+        searches += len(queries)
+        check("scan_block_rows" not in eng.last_trace, "after removals: the materialized tier")
+        seen = {x.doc_id for r in res for x in r}
+        held(f"{dtype} after removals and feedback", res[:16], ref.search_batch(queries[:16]))
+        for intent in ("navigational", "lookup", "conceptual", "question"):
+            res = eng.search_batch(queries[:16], intent=intent)
+            searches += 16
+            seen |= {x.doc_id for r in res for x in r}
+            held(f"{dtype} intent {intent}", res, ref.search_batch(queries[:16], intent=intent))
+        got, want = [], []
+        for j in range(4):
+            exp = queries[16 + 2 * j:18 + 2 * j]
+            got.append(eng.search_expanded(queries[j], exp))
+            want.append(ref.search_expanded(queries[j], exp))
+            searches += 1 + len(exp)
+        seen |= {x.doc_id for r in got for x in r}
+        held(f"{dtype} search_expanded", got, want)
+        check(not seen & removed, f"{dtype}: no removed doc returned")
+        stats = eng.stats()
+        check(stats["searches"] == searches,
+              f"{dtype}: stats() counts {stats['searches']} searches, {searches} run")
+        out[f"{dtype} searches"] = searches
+    log("[phase8] engine top-10 overlap with the CPU on 16 queries: " + json.dumps(overlaps))
+    for name, v in overlaps.items():
+        check(v == 1.0, f"{name}: top-10 overlap 1.0 with the CPU")
+    out["overlap_vs_cpu"] = overlaps
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; nothing was run", file=sys.stderr)
@@ -1326,10 +1661,18 @@ def main() -> int:
     for name in ("grouped_max_cuda", "windowed_scan_cuda"):
         check(exp_launches[name] >= 1, f"{name} launched on the experiments' path")
 
+    zero()
+    streaming = phase("phase8", phase8_streaming, dev)
+    torch.cuda.empty_cache()
+    engine8 = phase("phase8 engine", phase8_engine, dev)
+    stream_launches = read()
+    log(f"[streaming and int8 path] kernel launches {stream_launches} (its products, "
+        "top-C and aggregations are torch operations: no hand kernel yet)")
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("yams_tpu", "jax", "jaxlib", "flax"))
     check(not loaded, f"no module of yams_tpu, jax, jaxlib or flax loaded (found {loaded})")
-    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'torch': torch.__version__})}")
+    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'torch': torch.__version__})}")
 
     sources = {
         "gear_hash_cuda": ("yams_tpu_torch/csrc/gear_hash.cu", "yams_tpu/ops/cdc.py:65",

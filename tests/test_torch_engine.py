@@ -13,6 +13,11 @@
 - PQ tier: the reference's TestPQTier scenarios (tests/test_engine_scale.py)
   on a yams_tpu engine and on a port engine that got its state, codebook
   included, through convert: the same top-k ids.
+- The int8 tier with every chunk aggregation; the streaming tier, forced on
+  a flat corpus by lowered thresholds, unfiltered and filtered;
+  remove_document (which ends the identity layout, and so streaming); the
+  hotzone and feedback; each intent; search_expanded; stats: each on a
+  yams_tpu engine and a port engine fed the same documents.
 - No reference: the slice runs in a fresh interpreter without importing jax
   or any module of yams_tpu.
 """
@@ -82,14 +87,14 @@ def test_projection_and_encode_bit_equal():
     assert np.array_equal(got.view(np.uint32), enc.encode(texts).view(np.uint32))
 
 
-def _compare(ref_results, port_results, min_equal=0.95):
+def _compare(ref_results, port_results, min_equal=0.95, atol=1e-4):
     same = 0
     for r, p in zip(ref_results, port_results):
         ri, pi = [x.doc_id for x in r], [x.doc_id for x in p]
         if ri == pi:
             same += 1
             np.testing.assert_allclose([x.score for x in p], [x.score for x in r],
-                                       atol=1e-4, rtol=0)
+                                       atol=atol, rtol=0)
     assert same >= min_equal * len(ref_results), (same, len(ref_results))
 
 
@@ -393,3 +398,194 @@ def test_ensure_pq_builds_the_configured_engine():
     assert port.search("subject p doc", k=5)
     with pytest.raises(NotImplementedError):
         SearchEngine(vector=VectorIndexConfig(engine="hnsw"), device=CPU)
+
+
+# -- the int8 tier, the streaming tier and the engine surface ----------------------
+def _pair(docs, dtype="bfloat16", capacity=2048, streaming=False, **cfg):
+    """A yams_tpu engine and a port engine, each fed `docs` directly. With
+    `streaming`, the thresholds are lowered (tests/test_engine_scale.py) so
+    that a flat corpus takes the streaming tier."""
+    if streaming:
+        cfg.update(streaming_threshold=1, streaming_block_rows=128)
+    kw = dict(embedding=EmbeddingConfig(dim=64, sketch_dim=512),
+              vector=VectorIndexConfig(dim=64, capacity=capacity, block_rows=128,
+                                       dtype=dtype),
+              lexical=LexicalIndexConfig(postings_window=64))
+    ref = RefEngine(RefConfig(batch_pad=4, approx_threshold=1, **cfg), **kw)
+    port = SearchEngine(SearchEngineConfig(batch_pad=4, approx_threshold=1, **cfg),
+                        **kw, device=CPU)
+    for eng in (ref, port):
+        eng.add_documents(docs)
+    return ref, port
+
+
+def _flat_docs(n=1500):
+    """One short chunk per doc, no title: the identity layout."""
+    return [(i, f"short doc {i} topic {'abc'[i % 3]}", "") for i in range(n)]
+
+
+FLAT_QUERIES = ["topic a short", "doc topic b", "short doc 17", "topic c doc 1200"]
+
+# Fused scores of the int8 tier. A sketch query often has a coordinate at
+# exactly half its largest (q_j = q_max / 2, a 63.5 before rounding), and
+# the last bit of the query's f32 norm (a sum in another order than XLA's)
+# then decides whether it rounds to 63 or 64. One step moves a vector score
+# by qscale * row_scale * |e8| <= q_max * e_max / 127 < 7.9e-3 for unit
+# vectors; the fused score moves less.
+INT8_ATOL = 1e-2
+
+
+@pytest.fixture(scope="module", params=["bfloat16", "int8"])
+def flat_engines(request):
+    ref, port = _pair(_flat_docs(), dtype=request.param, streaming=True)
+    assert port.vector_index.identity_layout
+    assert port.vector_index.device_dtype == request.param
+    return ref, port
+
+
+@pytest.fixture
+def streaming_calls(monkeypatch):
+    """Counts the port's streaming vector leg, run through hybrid_query."""
+    from yams_tpu_torch.search import fusion
+
+    calls = []
+    real = fusion._streaming_top_c
+
+    def counted(*args, **kw):
+        calls.append(args[1])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(fusion, "_streaming_top_c", counted)
+    return calls
+
+
+@pytest.mark.parametrize("filters", ["none", "shared", "per_query"])
+def test_streaming_tier_matches_reference(flat_engines, streaming_calls, filters):
+    """A flat corpus above the (lowered) streaming threshold: the port's
+    search_batch takes the streaming tier itself (its doc mask padded to
+    the row count) and returns the reference's top-k."""
+    ref, port = flat_engines
+    atol = INT8_ATOL if port.vector_index.device_dtype == "int8" else 1e-4
+    kw = {}
+    if filters == "shared":
+        kw["filter_doc_ids"] = set(range(0, 1500, 4))
+    elif filters == "per_query":
+        kw["per_query_filters"] = [set(range(0, 1500, 4)), None, {17, 18, 19}, None]
+    got = port.search_batch(FLAT_QUERIES, k=5, **kw)
+    assert streaming_calls == [port.vector_index.capacity]
+    assert port.last_trace["scan_block_rows"] == 128
+    _compare(ref.search_batch(FLAT_QUERIES, k=5, **kw), got, min_equal=1.0, atol=atol)
+    if filters == "per_query":
+        assert {r.doc_id for r in got[2]} <= {17, 18, 19}
+
+
+def test_streaming_tier_equals_materialized_tier():
+    """The same flat corpus with the streaming threshold left at its default:
+    the materialized tier returns the streaming tier's results."""
+    docs = _flat_docs()
+    _, dense = _pair(docs)
+    _, stream = _pair(docs, streaming=True)
+    _compare(dense.search_batch(FLAT_QUERIES, k=5), stream.search_batch(FLAT_QUERIES, k=5),
+             min_equal=1.0)
+
+
+@pytest.mark.parametrize("chunk_agg", ["max", "sum", "topk_avg", "weighted_topk_avg"])
+def test_int8_tier_matches_reference(chunk_agg):
+    """VectorIndexConfig(dtype="int8") on a chunked corpus, every chunk
+    aggregation: the reference's top-k on 95% of 20 queries, as above (a
+    near-tie in the packed BM25 leg may swap two lexical ranks), scores to
+    INT8_ATOL."""
+    docs, queries = _corpus(120, 20, seed=3)
+    ref, port = _pair(docs, dtype="int8", capacity=512, chunk_agg=chunk_agg)
+    assert port.vector_index.device_dtype == "int8"
+    assert port.vector_index.device_arrays()[0].dtype == torch.int8
+    _compare(ref.search_batch(queries, k=10), port.search_batch(queries, k=10),
+             atol=INT8_ATOL)
+
+
+def test_remove_document_turns_streaming_off(streaming_calls):
+    """Removing docs leaves tombstones, so the layout is no longer the
+    identity and search_batch leaves the streaming tier; no removed doc is
+    returned, and the results are the reference's."""
+    ref, port = _pair(_flat_docs(), streaming=True)
+    port.search_batch(FLAT_QUERIES[:1], k=5)
+    assert len(streaming_calls) == 1
+    gone = [0, 3, 6, 17, 1200, 1203]
+    for eng in (ref, port):
+        assert all(eng.remove_document(d) for d in gone)
+        assert not eng.remove_document(10**6)
+    assert not port.vector_index.identity_layout
+    got = port.search_batch(FLAT_QUERIES, k=10)
+    assert len(streaming_calls) == 1 and "scan_block_rows" not in port.last_trace
+    assert not {r.doc_id for q in got for r in q} & set(gone)
+    _compare(ref.search_batch(FLAT_QUERIES, k=10), got, min_equal=1.0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_hotzone_and_feedback_match_reference(dtype):
+    """touch_hot and record_feedback boost docs by h / (1 + h) on both
+    engines; the boost vector is rebuilt only when the hot state or the
+    slot layout changes, and clear_hot drops it."""
+    docs, queries = _corpus(200, 10, seed=4)
+    ref, port = _pair(docs, dtype=dtype, capacity=512, hotzone_weight=0.5)
+    atol = INT8_ATOL if dtype == "int8" else 1e-4
+    hot_docs = [docs[5][0], docs[77][0], docs[150][0]]
+    for eng in (ref, port):
+        eng.touch_hot(hot_docs[0], 2.0)
+        eng.touch_hot(hot_docs[1])
+        eng.record_feedback(hot_docs[2])
+        eng.record_feedback(hot_docs[0], relevant=False)
+    Nd = port.num_slots_padded
+    hot = port._hot_device(Nd)
+    assert np.array_equal(hot.numpy(), np.asarray(ref._hot_device(Nd)))
+    assert hot[port._slot_by_doc[hot_docs[0]]] == pytest.approx(2.0 / 3.0)
+    assert port._hot_device(Nd) is hot               # cached
+    boosted = port.search_batch(queries, k=10)
+    _compare(ref.search_batch(queries, k=10), boosted, atol=atol)
+    for eng in (ref, port):
+        eng.clear_hot()
+    assert not port._hot_device(Nd).any()
+    plain = port.search_batch(queries, k=10)
+    _compare(ref.search_batch(queries, k=10), plain, atol=atol)
+    assert any(a != b for a, b in zip(_ids(boosted), _ids(plain)))
+
+
+@pytest.mark.parametrize("intent", ["navigational", "lookup", "conceptual", "question",
+                                    "unknown"])
+def test_intent_weights_match_reference(engines, intent):
+    """Intent-adaptive leg weights (on by default) scale the text and vector
+    weights per intent; unknown intents leave them as they are."""
+    ref, docs, queries = engines
+    port = SearchEngine(device=CPU)
+    load_state(port, state_from_jax(ref))
+    got = port.search_batch(queries[:10], intent=intent)
+    assert port.last_trace["intent"] == intent
+    _compare(ref.search_batch(queries[:10], intent=intent), got)
+
+
+def test_search_expanded_matches_reference(engines):
+    ref, docs, queries = engines
+    port = SearchEngine(device=CPU)
+    load_state(port, state_from_jax(ref))
+    for q, exp in ((queries[0], [queries[1], "", queries[2]]), (queries[3], []),
+                   (queries[4], queries[5:15])):
+        want = ref.search_expanded(q, exp, k=8, intent="conceptual")
+        got = port.search_expanded(q, exp, k=8, intent="conceptual")
+        _compare([want], [got], min_equal=1.0)
+
+
+def test_stats_match_reference(engines):
+    """stats() has the reference's keys; searches count queries, documents
+    count adds, and the indexes report as the reference's."""
+    ref, docs, queries = engines
+    port = SearchEngine(device=CPU)
+    assert port.stats()["searches"] == 0 and "avg_latency_ms" not in port.stats()
+    port.add_documents(docs)
+    port.search_batch(queries[:5])
+    port.search("thread scheduler")
+    port.search_expanded(queries[0], queries[1:3])
+    got, want = port.stats(), ref.stats()
+    assert set(got) >= set(want) - {"avg_latency_ms"}
+    assert got["searches"] == 9 and got["avg_latency_ms"] > 0
+    assert got["documents"] == want["documents"] == len(docs)
+    assert got["vector"] == want["vector"] and got["lexical"] == want["lexical"]

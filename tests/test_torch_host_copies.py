@@ -11,6 +11,9 @@ state). Here each copy and its original get the same seeded inputs:
 - LexicalIndex.build_arrays gives the same arrays, and the query-side term
   vectors the same ids and weights, after the same adds and removals;
 - VectorIndex host state is the same after the same mutations;
+- query understanding (search/query.py): intents, their leg-weight
+  multipliers, qualifiers, fuzzy correction, expansions and routing plans
+  are the same for the same queries, and the copy's code is the original's;
 - a repository written by the port's ContentStore is read back by the
   reference's, and the other way round, with whole-content dedup across.
 """
@@ -26,6 +29,7 @@ from yams_tpu.embed import simeon as ref_simeon
 from yams_tpu.index.lexical_index import LexicalIndex as RefLexical
 from yams_tpu.index.vector_index import VectorIndex as RefVector
 from yams_tpu.ingest import chunker as ref_chunker
+from yams_tpu.search import query as ref_query
 from yams_tpu.search.config import SearchEngineConfig as RefSearchConfig
 from yams_tpu.storage.content_store import ContentStore as RefStore
 from yams_tpu_torch import native
@@ -35,6 +39,7 @@ from yams_tpu_torch.embed import simeon as port_simeon
 from yams_tpu_torch.index.lexical_index import LexicalIndex
 from yams_tpu_torch.index.vector_index import VectorIndex
 from yams_tpu_torch.ingest import chunker as port_chunker
+from yams_tpu_torch.search import query as port_query
 from yams_tpu_torch.search.config import SearchEngineConfig
 from yams_tpu_torch.storage.content_store import ContentStore
 
@@ -278,3 +283,52 @@ def test_python_routes_without_the_native_libraries(tmp_path):
     want = port_simeon.sketch_texts(["thread scheduler", "routing and chunking"],
                                     port_config.EmbeddingConfig())
     assert np.array_equal(np.load(tmp_path / "sketch.npy"), want)
+
+
+QUERIES = ["how does the scheduler preempt threads", "yams_tpu/search/engine.py",
+           "MyClass", "memory", "chunking hashes quickly", "what is routing",
+           "tag:ops path:src/*.py collection:docs type:keyword scheduler memory",
+           'tag:"two words" routed compression snapshots', "", "x-y_z ab",
+           "schedulr memroy chunkng", "ünïcödé rôuting naïve query"]
+
+
+def test_query_understanding_matches_reference():
+    vocab = {w: i + 1 for i, w in enumerate(WORDS)}
+    ref_fix, port_fix = ref_query.FuzzyCorrector(vocab), port_query.FuzzyCorrector(vocab)
+    for q in QUERIES:
+        intent = port_query.classify_intent(q)
+        assert intent == ref_query.classify_intent(q), q
+        assert port_query.route_mode(intent) == ref_query.route_mode(intent)
+        assert port_query.intent_weight_multipliers(intent) == \
+            ref_query.intent_weight_multipliers(intent)
+        assert dataclasses.astuple(port_query.parse_qualifiers(q)) == \
+            dataclasses.astuple(ref_query.parse_qualifiers(q)), q
+        assert port_fix.correct_query(q) == ref_fix.correct_query(q), q
+        assert port_query.subphrase_expansions(q) == ref_query.subphrase_expansions(q)
+        assert dataclasses.astuple(port_query.build_routing_plan(q, vocab, port_fix)) == \
+            dataclasses.astuple(ref_query.build_routing_plan(q, vocab, ref_fix)), q
+    assert port_query.intent_weight_multipliers("other") == (1.0, 1.0)
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+def test_prf_expansion_matches_reference(with_stats):
+    texts = _texts(12, seed=5)
+    kw = {}
+    if with_stats:
+        kw = dict(global_df={w: 3 + i for i, w in enumerate(WORDS)}, n_docs=500)
+    for q in QUERIES[:6]:
+        assert port_query.prf_expansion(q, texts, **kw) == \
+            ref_query.prf_expansion(q, texts, **kw), q
+
+
+def test_query_module_is_the_reference_code():
+    """Past the module docstring the copy is the original, line for line."""
+    import ast
+    import inspect
+
+    def body(mod):
+        tree = ast.parse(inspect.getsource(mod))
+        tree.body = tree.body[1:]                 # the docstring
+        return ast.dump(tree)
+
+    assert body(port_query) == body(ref_query)

@@ -5,7 +5,9 @@
   ModuleNotFoundError for them and their submodules), every module of
   yams_tpu_torch (the package walked), `chip_smoke` and the two experiment
   modules import, and a tiny add -> search runs on the CPU: device
-  chunk + hash, a ContentStore round trip, and a SearchEngine search.
+  chunk + hash, a ContentStore round trip, and SearchEngine searches
+  (with an intent, so search/query.py runs; with feedback; on the int8
+  tier).
 - Statically, no file under yams_tpu_torch/ (nor chip_smoke.py) names
   yams_tpu in an import statement or in an importlib / __import__ call.
 - Every entry point runs on the card unless the caller asks for the CPU:
@@ -76,6 +78,14 @@ def test_port_imports_and_runs_with_the_reference_refused(tmp_path):
                            (2, "chunk hashing and dedup", "cas")])
         hits = eng.search_batch(["scheduler", "dedup chunk"])
         assert hits[0][0].doc_id == 1 and hits[1][0].doc_id == 2
+        # intent weights (search/query.py), the hotzone and the int8 tier
+        eng.record_feedback(2)
+        hits = eng.search_batch(["how are threads preempted"], intent="question")
+        assert eng.last_trace["intent"] == "question" and hits[0]
+        from yams_tpu_torch.core.config import VectorIndexConfig
+        q8 = SearchEngine(vector=VectorIndexConfig(dtype="int8"), device=cpu)
+        q8.add_documents([(1, "thread scheduler preempts", "sched")])
+        assert q8.search("scheduler")[0].doc_id == 1
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in {REFUSED!r})
         print(len(names), loaded)
     """)

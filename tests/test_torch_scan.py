@@ -488,3 +488,95 @@ def test_fused_scan_split_needs_a_card():
 
     with pytest.raises(ValueError, match="CUDA"):
         fused_scan_split.run(device="cpu")
+
+
+# -- the int8 tier and merge_topk ------------------------------------------------
+def test_quantize_int8_bit_equal():
+    """The port's host copy of quantize_int8: the same int8 codes and f32
+    scales bit for bit, including an all-zero row (scale 1e-12 / 127) and
+    values on rounding half-way points."""
+    rng = np.random.default_rng(21)
+    mat = rng.standard_normal((300, D)).astype(np.float32)
+    mat[5] = 0.0
+    mat[6] = np.linspace(-1.0, 1.0, D, dtype=np.float32)
+    mat[7, :4] = [127.0, 63.5, -0.5, 1.5]
+    got_q, got_s = port_scan.quantize_int8(mat)
+    want_q, want_s = ref_scan.quantize_int8(mat)
+    assert got_q.dtype == np.int8 and got_s.dtype == np.float32
+    assert np.array_equal(got_q, want_q)
+    assert np.array_equal(got_s.view(np.uint32), want_s.view(np.uint32))
+
+
+def _int8_inputs(case: str, k: int, seed: int = 0):
+    q, E, valid = _inputs(case, k, seed)
+    q8, scale = ref_scan.quantize_int8(E)
+    return q, q8, scale, valid
+
+
+@pytest.mark.parametrize("case", ["random", "duplicates", "sparse"])
+def test_int8_scores_bit_equal(case):
+    """Values bit-equal: the int32 sums are exact and the dequantization
+    runs (s * qscale) * row_scale in the reference's order; the query is
+    quantized on the device with round-half-to-even, as jnp.round."""
+    q, q8, scale, valid = _int8_inputs(case, 10, seed=22)
+    want = np.asarray(ref_scan.int8_scores(jnp.asarray(q), jnp.asarray(q8),
+                                           jnp.asarray(scale), jnp.asarray(valid)))
+    got = port_scan.int8_scores(torch.from_numpy(q), torch.from_numpy(q8),
+                                torch.from_numpy(scale), torch.from_numpy(valid)).numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("k", K_CASES)
+def test_int8_topk_scan_matches_reference(case, k):
+    """ids equal, values bit-equal, and the (-1e30, -1) carry slots where
+    fewer than k rows are live kept as the reference keeps them."""
+    q, q8, scale, valid = _int8_inputs(case, k, seed=23)
+    wv, wi = ref_scan.int8_topk_scan(jnp.asarray(q), jnp.asarray(q8), jnp.asarray(scale),
+                                     jnp.asarray(valid), k=k, block_rows=BR)
+    gv, gi = port_scan.int8_topk_scan(torch.from_numpy(q), torch.from_numpy(q8),
+                                      torch.from_numpy(scale), torch.from_numpy(valid),
+                                      k, block_rows=BR)
+    assert gi.dtype == torch.int32
+    assert np.array_equal(gi.numpy(), np.asarray(wi))
+    assert np.array_equal(gv.numpy().view(np.uint32), np.asarray(wv).view(np.uint32))
+    if case == "sparse":
+        assert (gi.numpy()[:, k - 1:] == -1).all()
+
+
+def test_int8_topk_scan_chunks_merge_like_the_block_scan(monkeypatch):
+    """A chunk of the port's scan holds many 512-row blocks; with a score
+    budget of one block per chunk the result is the same."""
+    q, q8, scale, valid = _int8_inputs("duplicates", 10, seed=24)
+    args = (torch.from_numpy(q), torch.from_numpy(q8), torch.from_numpy(scale),
+            torch.from_numpy(valid), 10)
+    whole = port_scan.int8_topk_scan(*args, block_rows=BR)
+    monkeypatch.setattr(port_scan, "_SCORE_BUDGET", B * BR)
+    blocks = port_scan.int8_topk_scan(*args, block_rows=BR)
+    assert all(torch.equal(a, b) for a, b in zip(whole, blocks))
+
+
+def test_int8_mm_pads_the_query_side_only_on_a_card():
+    """On the CPU the product is torch._int_mm as it is, and exact."""
+    rng = np.random.default_rng(25)
+    a = torch.from_numpy(rng.integers(-127, 128, (3, 40)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (24, 40)).astype(np.int8))
+    got = port_scan.int8_mm(a, b)
+    assert got.dtype == torch.int32 and got.shape == (3, 24)
+    assert torch.equal(got, a.int() @ b.int().t())
+
+
+@pytest.mark.parametrize("k", [1, 10])
+def test_merge_topk_matches_reference(k):
+    """Per-shard candidate lists with ties across and inside shards: the
+    merge keeps the earlier list's entry, as lax.top_k over the concat."""
+    rng = np.random.default_rng(26)
+    vals = [np.round(rng.random((B, 10)), 1).astype(np.float32) for _ in range(3)]
+    vals = [np.sort(v, axis=1)[:, ::-1].copy() for v in vals]
+    idx = [rng.integers(0, 1000, (B, 10)).astype(np.int32) for _ in range(3)]
+    wv, wi = ref_scan.merge_topk([jnp.asarray(v) for v in vals],
+                                 [jnp.asarray(i) for i in idx], k)
+    gv, gi = port_scan.merge_topk([torch.from_numpy(v) for v in vals],
+                                  [torch.from_numpy(i) for i in idx], k)
+    assert np.array_equal(gi.numpy(), np.asarray(wi))
+    assert np.array_equal(gv.numpy(), np.asarray(wv))

@@ -151,3 +151,40 @@ def test_tile_dupe_rows_stay_in_one_tile_and_apart(N):
         assert len({r // 128 for r in rows}) == 1 and rows[-1] < N
         assert seen.isdisjoint(rows)
         seen.update(rows)
+
+
+# -- phase 8's comparison of two programs' fused top-k --------------------------
+def _fused():
+    vals = torch.tensor([[0.9, 0.8, 0.700005, 0.7, 0.5], [0.6, 0.5, 0.4, 0.3, 0.2]])
+    ids = torch.tensor([[1, 2, 3, 4, 5], [9, 8, 7, 6, 5]], dtype=torch.int32)
+    return vals, ids
+
+
+def test_fused_agree_passes_equal_programs():
+    vals, ids = _fused()
+    assert smoke.fused_agree("same", vals, ids, vals.clone(), ids.clone()) == (0.0, 0)
+
+
+def test_fused_agree_names_a_near_tie_swap():
+    """Docs 3 and 4, 5e-6 apart, change places in the other program: each
+    rank's value agrees within 1e-5 and each doc's score within 1e-4, so
+    both differing ids are counted as near-ties."""
+    vals, ids = _fused()
+    other_ids = ids.clone()
+    other_ids[0, [2, 3]] = torch.tensor([4, 3], dtype=torch.int32)
+    other_vals = vals.clone()
+    other_vals[0, [2, 3]] = torch.tensor([0.700004, 0.700001])
+    err, differ = smoke.fused_agree("swap", vals, ids, other_vals, other_ids)
+    assert differ == 2 and err <= 1e-5
+
+
+def test_fused_agree_refuses_a_far_doc():
+    """A top doc replaced by one the first list lacks (0.9 against the other
+    list's last score 0.5) is refused, as are values 1e-3 apart."""
+    vals, ids = _fused()
+    other = ids.clone()
+    other[0, 0] = 42                         # the top doc replaced outright
+    with pytest.raises(RuntimeError, match="no near-tie"):
+        smoke.fused_agree("far", vals, ids, vals, other)
+    with pytest.raises(RuntimeError, match="fused values"):
+        smoke.fused_agree("values", vals, ids, vals + 1e-3, ids)

@@ -7,7 +7,10 @@ reference's dirty blocks, no more and no less. Searches go through both:
 exact KNN with and without the block kernel K3, and the PQ tiers with the
 same codebook (carried by convert.pq_state / load_pq_state), host and
 device rerank, the K4 route forced (YAMS_PQ_PALLAS=1: the plain twin on the
-CPU) and off, the small-capacity clamp, and the filtered route.
+CPU) and off, the small-capacity clamp, and the filtered route. The int8
+tier runs the same sequence: its codes and scales bit-equal the
+reference's, its scan gives the same ids and bit-equal values, and its
+device rerank reads a bf16 mirror.
 """
 
 import pathlib
@@ -33,9 +36,10 @@ def _unit(n, d=DIM, seed=0):
     return x / np.linalg.norm(x, axis=1, keepdims=True)
 
 
-def _pair(capacity=512, block_rows=128):
-    return (RefIndex(dim=DIM, capacity=capacity, block_rows=block_rows),
-            VectorIndex(dim=DIM, capacity=capacity, block_rows=block_rows, device=CPU))
+def _pair(capacity=512, block_rows=128, dtype="bfloat16"):
+    return (RefIndex(dim=DIM, capacity=capacity, block_rows=block_rows, device_dtype=dtype),
+            VectorIndex(dim=DIM, capacity=capacity, block_rows=block_rows,
+                        device_dtype=dtype, device=CPU))
 
 
 def _mutations(ref, port):
@@ -233,13 +237,88 @@ def test_port_build_pq_searches():
 
 @pytest.mark.parametrize("call", ["int8", "sharded", "load"])
 def test_unported_tiers_refuse(call, tmp_path):
+    """Sharded views and persistence refuse. The int8 tier refused until the
+    port had it: it now uploads the reference's int8 codes, and an unknown
+    device dtype raises."""
+    if call == "int8":
+        ref, port = _pair(dtype="int8")
+        for idx in (ref, port):
+            idx.add(_unit(50), list(range(50)))
+        assert np.array_equal(port.device_arrays()[0].numpy(),
+                              np.asarray(ref.device_arrays()[0]))
+        with pytest.raises(ValueError, match="device_dtype"):
+            VectorIndex(dim=DIM, device_dtype="float16", device=CPU)
+        return
     with pytest.raises(NotImplementedError):
-        if call == "int8":
-            VectorIndex(dim=DIM, device_dtype="int8", device=CPU)
-        elif call == "sharded":
+        if call == "sharded":
             _pair()[1].sharded_device_arrays(mesh=None)
         else:
             VectorIndex.load(tmp_path)
+
+
+# -- the int8 device tier ----------------------------------------------------------
+def _assert_arrays_equal(ref, port, what):
+    r_arrays = [np.asarray(a) for a in ref.device_arrays()]
+    p_arrays = [a.numpy() for a in port.device_arrays()]
+    assert port.upload_bytes_total == ref.upload_bytes_total, what
+    assert p_arrays[0].dtype == np.int8, what
+    for p, r in zip(p_arrays, r_arrays):
+        assert p.dtype == r.dtype and np.array_equal(p.view(np.uint8), r.view(np.uint8)), what
+
+
+def test_int8_device_arrays_splice_matches_reference():
+    """After a full upload and after every block splice: the int8 codes,
+    validity, slots and per-row scales bit-equal the reference's, and the
+    upload byte counts (scales included) are equal."""
+    ref, port = _pair(dtype="int8")
+    for step in _mutations(ref, port):
+        _assert_arrays_equal(ref, port, step)
+        assert not port._dirty_blocks and not port._dirty_full
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_int8_search_matches_reference_after_mutations(use_pallas):
+    """An int8 index takes the int8 scan whatever use_pallas says: ids
+    equal, values bit-equal."""
+    ref, port = _pair(dtype="int8")
+    queries = _unit(6, seed=14)
+    for step in _mutations(ref, port):
+        rv, ri = ref.search(queries, k=10, use_pallas=use_pallas)
+        pv, pi = port.search(queries, k=10, use_pallas=use_pallas)
+        np.testing.assert_array_equal(pi, ri, err_msg=step)
+        assert np.array_equal(pv.view(np.uint32), rv.view(np.uint32)), step
+
+
+def test_int8_search_pq_device_rerank_keeps_a_bf16_mirror():
+    """search_pq(rerank="device") on an int8 index reranks against a bf16
+    mirror uploaded once (not the int8 codes) and spliced after mutations,
+    as the reference's does: the same rows and values, the same bytes."""
+    ref, port = _pair(capacity=1024, block_rows=128, dtype="int8")
+    vecs = _unit(700, seed=15)
+    for idx in (ref, port):
+        idx.add(vecs, list(range(700)))
+    ref.build_pq(m=16, ksub=16, pack4=True, rerank_factor=8)
+    load_pq_state(port, pq_state(ref))
+    queries = vecs[[12, 345, 699]]
+    for step in ("first", "again", "after remove"):
+        if step == "after remove":
+            for idx in (ref, port):
+                idx.remove_doc(345)
+                idx.add(_unit(3, seed=16), [900, 901, 902])
+        rv, ri = ref.search_pq(queries, k=5, rerank="device")
+        pv, pi = port.search_pq(queries, k=5, rerank="device")
+        np.testing.assert_array_equal(pi, ri, err_msg=step)
+        np.testing.assert_allclose(pv, rv, atol=1e-5, rtol=0, err_msg=step)
+        assert port.upload_bytes_total == ref.upload_bytes_total, step
+        assert port._pq_rerank_device.dtype == torch.bfloat16
+    assert pi[0, 0] == 12 and 345 not in pi[1]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_stats_match_reference(dtype):
+    ref, port = _pair(dtype=dtype)
+    for _ in _mutations(ref, port):
+        assert port.stats() == ref.stats()
 
 
 def test_pq_path_runs_without_jax():

@@ -8,16 +8,20 @@ layout check, `_gather_blocks`, `slots_of_rows`, `stats`). Everything that
 touched jax is ported, on the index's device (the card unless the caller
 asks for the CPU):
 
-  - device_arrays: the dense bf16 view; after mutations only the dirty
-    blocks are uploaded and spliced into copies (a reader may still hold the
-    old tensors), counted in `upload_bytes_total` as the reference counts;
-  - search: exact KNN, the plain scan or the block kernel K3;
+  - device_arrays: the dense view, bf16 or (device_dtype "int8") int8
+    codes with per-row dequant scales quantized on the host; after
+    mutations only the dirty blocks are quantized, uploaded and spliced
+    into copies (a reader may still hold the old tensors), counted in
+    `upload_bytes_total` as the reference counts;
+  - search: exact KNN, the plain scan or the block kernel K3; an int8
+    index always takes the int8 scan, as the reference's does;
   - add: encodes new rows with the port's pq_encode once PQ is built;
   - build_pq / _pq_arrays / search_pq: the PQ tiers. The unfiltered grouped
     PQ4 scan goes to kernel K4 (`_use_pallas_adc`), everything else to the
-    plain pq_adc_topk.
+    plain pq_adc_topk. The device rerank of an int8 index reads a bf16
+    mirror uploaded once and spliced with the PQ state.
 
-The int8 device tier, sharded views and persistence are not ported.
+Sharded views and persistence are not ported.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from ..core.errors import InvalidArgumentError
 from ..device import resolve_device
 from ..ops.pq import exact_rerank, pq4_pack, pq_adc_topk, pq_encode, pq_train
 from ..ops.pq_pallas import pq4_adc_topk_pallas
-from ..ops.scan import exact_topk_pallas, exact_topk_scan
+from ..ops.scan import exact_topk_pallas, exact_topk_scan, int8_topk_scan, quantize_int8
 
 
 def _round_up(x: int, m: int) -> int:
@@ -50,9 +54,8 @@ class VectorIndex:
         *,
         device: str | torch.device = "cuda",
     ):
-        if device_dtype != "bfloat16":
-            raise NotImplementedError(
-                f"device_dtype={device_dtype!r}: only the bf16 tier is ported")
+        if device_dtype not in ("bfloat16", "int8"):
+            raise ValueError(f"device_dtype={device_dtype!r}: bfloat16 or int8")
         self.device = resolve_device(device)
         self.dim = dim
         self.block_rows = block_rows
@@ -103,6 +106,7 @@ class VectorIndex:
             ])
             self._pq_device = None        # device shapes changed: full
             self._pq_valid_device = None  # re-upload on next _pq_arrays
+            self._pq_rerank_device = None
 
     def _upload(self, a: np.ndarray, dtype: torch.dtype | None = None) -> torch.Tensor:
         """Host array -> a fresh tensor on the device (never a view of `a`)."""
@@ -116,7 +120,13 @@ class VectorIndex:
         the bytes uploaded (the reference's batched blocks, padded to a power
         of two by repeating the last; re-writing those rows is idempotent)."""
         stacked, starts = self._gather_blocks(src, blocks)
-        part = self._upload(stacked.reshape(-1, *src.shape[1:]), dtype)
+        return self._splice_rows(dst, stacked.reshape(-1, *src.shape[1:]), starts, dtype)
+
+    def _splice_rows(self, dst: torch.Tensor, rows_host: np.ndarray, starts: np.ndarray,
+                     dtype: torch.dtype | None = None) -> tuple[torch.Tensor, int]:
+        """A copy of `dst` with the stacked blocks starting at `starts`
+        replaced by `rows_host`, and the bytes uploaded."""
+        part = self._upload(rows_host, dtype)
         rows = (torch.from_numpy(starts.astype(np.int64))[:, None]
                 + torch.arange(self.block_rows)).reshape(-1).to(self.device)
         return dst.clone().index_copy_(0, rows, part), part.nbytes
@@ -200,15 +210,20 @@ class VectorIndex:
             return self._identity
 
     def device_arrays(self):
-        """(E bf16 (cap, D), valid f32 (cap,), row2slot i32 (cap,),
-        row_scale f32 (cap,)) on the index's device."""
+        """(E (cap, D), valid f32 (cap,), row2slot i32 (cap,), row_scale f32
+        (cap,)) on the index's device. E is bf16 with unit scales, or int8
+        codes with per-row dequant scales when device_dtype is "int8"."""
         with self._lock:
             if self._device is None or self._dirty_full:
                 self._device = None   # drop the stale copy before uploading
-                arrays = (self._upload(self._vecs, torch.bfloat16),
-                          self._upload(self._valid), self._upload(self._slots),
-                          torch.ones(self.capacity, dtype=torch.float32,
-                                     device=self.device))
+                if self.device_dtype == "int8":
+                    q8, scale = quantize_int8(self._vecs)
+                    e, scale = self._upload(q8), self._upload(scale)
+                else:
+                    e = self._upload(self._vecs, torch.bfloat16)
+                    scale = torch.ones(self.capacity, dtype=torch.float32,
+                                       device=self.device)
+                arrays = (e, self._upload(self._valid), self._upload(self._slots), scale)
                 self._device = arrays
                 self.upload_bytes_total += sum(a.nbytes for a in arrays)
                 self._identity = None  # recomputed lazily
@@ -218,7 +233,15 @@ class VectorIndex:
                 # publish the new tuple only after every splice succeeded
                 e, valid, slots, scale = self._device
                 bs = sorted(self._dirty_blocks)
-                e, n_e = self._splice(e, self._vecs, bs, torch.bfloat16)
+                if self.device_dtype == "int8":
+                    # quantize the dirty blocks alone; their scales splice too
+                    stacked, starts = self._gather_blocks(self._vecs, bs)
+                    q8, sc = quantize_int8(stacked.reshape(-1, self.dim))
+                    e, n_e = self._splice_rows(e, q8, starts)
+                    scale, n_sc = self._splice_rows(scale, sc, starts)
+                    n_e += n_sc
+                else:
+                    e, n_e = self._splice(e, self._vecs, bs, torch.bfloat16)
                 valid, n_v = self._splice(valid, self._valid, bs)
                 slots, n_s = self._splice(slots, self._slots, bs)
                 self.upload_bytes_total += n_e + n_v + n_s
@@ -251,9 +274,11 @@ class VectorIndex:
 
     def search(self, queries: np.ndarray, k: int = 10, use_pallas: bool = False):
         """Exact KNN over valid rows -> (values (B,k), row indices (B,k))."""
-        E, valid, _, _ = self.device_arrays()
+        E, valid, _, scale = self.device_arrays()
         q = self._queries(queries)
-        if use_pallas:
+        if self.device_dtype == "int8":
+            vals, idx = int8_topk_scan(q, E, scale, valid, k, block_rows=self.block_rows)
+        elif use_pallas:
             vals, idx = exact_topk_pallas(q, E, valid, k, block_rows=self.block_rows)
         else:
             vals, idx = exact_topk_scan(q, E, valid, k, block_rows=self.block_rows)
@@ -316,6 +341,10 @@ class VectorIndex:
                 vdev, n_v = self._splice(self._pq_valid_device, self._valid, bs)
                 sdev, n_s = self._splice(self._pq_slots_device, self._slots, bs)
                 self.upload_bytes_total += n_c + n_v + n_s
+                if getattr(self, "_pq_rerank_device", None) is not None:
+                    self._pq_rerank_device, n_r = self._splice(
+                        self._pq_rerank_device, self._vecs, bs, torch.bfloat16)
+                    self.upload_bytes_total += n_r
                 self._pq_device = (codes, cent)
                 self._pq_valid_device = vdev
                 self._pq_slots_device = sdev
@@ -390,7 +419,16 @@ class VectorIndex:
             order = np.argsort(-s, axis=1)[:, :k_out]
             return (np.take_along_axis(s, order, axis=1),
                     np.take_along_axis(cand, order, axis=1))
-        E = self.device_arrays()[0]
+        if self.device_dtype == "int8":
+            # the rerank wants more precision than the int8 scan tier: a
+            # bf16 mirror stays resident (uploaded once, spliced after)
+            with self._lock:
+                if getattr(self, "_pq_rerank_device", None) is None:
+                    self._pq_rerank_device = self._upload(self._vecs, torch.bfloat16)
+                    self.upload_bytes_total += self._pq_rerank_device.nbytes
+                E = self._pq_rerank_device
+        else:
+            E = self.device_arrays()[0]
         vals, idx = exact_rerank(q, E, ai, av, -1e29, k=k_out)
         return vals.cpu().numpy(), idx.cpu().numpy()
 

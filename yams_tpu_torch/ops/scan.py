@@ -19,13 +19,18 @@ Port of yams_tpu/ops/scan.py (`dense_scores`, `exact_topk_scan`,
     contract, fused with the product). On a CUDA tensor the group step is
     `grouped_max_cuda` (csrc/fused_scan.cu); on a CPU tensor its plain twin
     `grouped_max_reference`. Its only callers are the experiment
-    yams_tpu_torch/scripts/profile_grouped.py and the tests.
-
-The int8 tier (`quantize_int8`, `int8_topk_scan`) is not ported.
+    yams_tpu_torch/scripts/profile_grouped.py and the tests;
+  - the int8 tier: `quantize_int8` (host NumPy, the corpus side),
+    `quantize_rows` (the query side, on the device), `int8_mm` (int8 x int8
+    with int32 sums: torch._int_mm, the reference's lax.dot_general with
+    i32 accumulation), `int8_scores` and `int8_topk_scan`; `merge_topk`.
+    The int32 sums are exact in any order, so the f32 scores equal the
+    reference's bit for bit given the same queries.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -69,27 +74,120 @@ def _chunk_rows(B: int, block_rows: int) -> int:
     return block_rows * max(1, _SCORE_BUDGET // (B * block_rows))
 
 
-def exact_topk_scan(queries: torch.Tensor, corpus: torch.Tensor,
-                    valid: torch.Tensor, k: int, block_rows: int = 4096):
-    """Streaming exact top-k -> (values (B, k) f32 desc, indices (B, k) i32).
-
-    Starts from k (-1e30, -1) entries, as the reference's carry does, so a
-    corpus with fewer than k live rows fills the tail with (-1e30, -1)."""
-    B = queries.shape[0]
-    N = corpus.shape[0]
+def _running_topk(scores, B: int, N: int, k: int, block_rows: int, dev):
+    """The reference's blocked scan with a running top-k: the carry starts
+    at k (-1e30, -1) entries and comes first in each merge, so a tie keeps
+    the earlier row and a corpus with fewer than k live rows fills the tail
+    with (-1e30, -1). `scores(lo, hi)` gives the (B, hi - lo) biased scores
+    of rows lo..hi; a chunk is a whole number of blocks, which merges as
+    the reference's block-by-block scan does."""
     if N % block_rows:
         raise ValueError(f"pad the corpus to a block multiple ({N} % {block_rows})")
-    dev = queries.device
     vals = torch.full((B, k), NEG, dtype=torch.float32, device=dev)
     idx = torch.full((B, k), -1, dtype=torch.int64, device=dev)
     step = _chunk_rows(B, block_rows)
     for lo in range(0, N, step):
         hi = min(N, lo + step)
-        s = dense_scores(queries, corpus[lo:hi], valid[lo:hi])
         cols = torch.arange(lo, hi, device=dev).expand(B, -1)
-        vals, pos = top_k(torch.cat([vals, s], dim=1), k)
+        vals, pos = top_k(torch.cat([vals, scores(lo, hi)], dim=1), k)
         idx = torch.cat([idx, cols], dim=1).gather(1, pos)
     return vals, idx.to(torch.int32)
+
+
+def exact_topk_scan(queries: torch.Tensor, corpus: torch.Tensor,
+                    valid: torch.Tensor, k: int, block_rows: int = 4096):
+    """Streaming exact top-k -> (values (B, k) f32 desc, indices (B, k) i32)."""
+    return _running_topk(
+        lambda lo, hi: dense_scores(queries, corpus[lo:hi], valid[lo:hi]),
+        queries.shape[0], corpus.shape[0], k, block_rows, queries.device)
+
+
+def merge_topk(vals_list: list[torch.Tensor], idx_list: list[torch.Tensor], k: int):
+    """Merge per-shard (B, k) top-k candidate sets into a global top-k (ties
+    to the earlier list)."""
+    out_v, pos = top_k(torch.cat(vals_list, dim=1), k)
+    return out_v, torch.cat(idx_list, dim=1).gather(1, pos)
+
+
+# ---------------------------------------------------------------------------
+# int8 tier: symmetric per-row quantization, int8 x int8 -> int32 products
+# ---------------------------------------------------------------------------
+
+def quantize_int8(mat: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-row int8 quantization on the host: (N, D) ->
+    (int8 (N, D), scale f32 (N,)), the reference's own arithmetic."""
+    absmax = np.maximum(np.abs(mat).max(axis=1), 1e-12)
+    scale = (absmax / 127.0).astype(np.float32)
+    q = np.clip(np.round(mat / scale[:, None]), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The query side of the int8 product, on x's device: (B, D) f32 ->
+    (int8 (B, D), scale f32 (B,)). torch.round rounds half to even, as
+    jnp.round does. The divisor 127 is a tensor on the device: on a card
+    torch turns division by a Python number into a multiply by its
+    reciprocal, which rounds otherwise than the reference's division."""
+    amax = x.abs().amax(dim=1).clamp_min(1e-12)
+    qscale = amax / amax.new_tensor(127.0)
+    q8 = torch.round(x / qscale[:, None]).clamp_(-127, 127).to(torch.int8)
+    return q8, qscale
+
+
+_INT_MM_MIN_ROWS = 32   # torch._int_mm on CUDA wants more than 16 rows in A
+
+
+def int8_mm(q8: torch.Tensor, e8: torch.Tensor) -> torch.Tensor:
+    """(B, D) int8 x (N, D) int8 -> (B, N) int32 exact sums, torch._int_mm.
+
+    On a card, cuBLASLt's int8 product takes D and N in multiples of 8 and
+    more than 16 rows of A: the query side is padded with zero rows to a
+    multiple of 8, at least 32, and the padding sliced off."""
+    B, D = q8.shape
+    if q8.device.type != "cuda":
+        return torch._int_mm(q8, e8.t())
+    if D % 8 or e8.shape[0] % 8:
+        raise ValueError(f"int8_mm on a card takes D and N in multiples of 8, "
+                         f"got D={D}, N={e8.shape[0]}")
+    rows = max(_INT_MM_MIN_ROWS, -(-B // 8) * 8)
+    if rows != B:
+        q8 = torch.nn.functional.pad(q8, (0, 0, 0, rows - B))
+    return torch._int_mm(q8, e8.t())[:B]
+
+
+def int8_product(q8: torch.Tensor, qscale: torch.Tensor, e8: torch.Tensor,
+                 row_scale: torch.Tensor) -> torch.Tensor:
+    """Dequantized (B, N) f32 scores: (f32(s_i32) * qscale) * row_scale, in
+    the reference's order; the int32 -> f32 cast rides the first multiply,
+    the second runs in place."""
+    s = torch.mul(int8_mm(q8, e8), qscale[:, None])
+    s *= row_scale[None, :]
+    return s
+
+
+def int8_scores(queries: torch.Tensor, corpus_q: torch.Tensor,
+                corpus_scale: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Dense int8 scores (B, N) f32, invalid rows -> -1e30."""
+    q8, qscale = quantize_rows(queries)
+    s = int8_product(q8, qscale, corpus_q, corpus_scale)
+    s += ((valid - 1.0) * 1e30)[None, :]
+    return s
+
+
+def int8_topk_scan(queries: torch.Tensor, corpus_q: torch.Tensor,
+                   corpus_scale: torch.Tensor, valid: torch.Tensor, k: int,
+                   block_rows: int = 4096):
+    """Blocked int8 scan -> (values (B, k) f32 desc, indices (B, k) i32),
+    the reference's running top-k over int8 scores."""
+    q8, qscale = quantize_rows(queries)
+
+    def scores(lo, hi):
+        s = int8_product(q8, qscale, corpus_q[lo:hi], corpus_scale[lo:hi])
+        s += ((valid[lo:hi] - 1.0) * 1e30)[None, :]
+        return s
+
+    return _running_topk(scores, queries.shape[0], corpus_q.shape[0], k,
+                         block_rows, queries.device)
 
 
 # ---------------------------------------------------------------------------

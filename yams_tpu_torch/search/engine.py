@@ -1,14 +1,19 @@
 """SearchEngine on torch: the dense hybrid tier of yams_tpu's engine.
 
-Port of yams_tpu/search/engine.py for the path a first search takes:
-`add_document(s)` (host tokenization, Simeon embeddings, index updates),
-`search` / `search_batch` on the dense tier (search_batch's default branch,
-engine.py:592-1020), the PQ capacity tier (`ensure_pq` and search_batch's
-`use_pq` branch, engine.py:498-535, 849-897) and the result glue
-(:1137-1216). The host state lives in the port's VectorIndex / LexicalIndex,
-copies of the reference's host code with torch device views, so both
-engines hold identical state for identical adds. It runs on the card unless
-the caller asks for the CPU.
+Port of yams_tpu/search/engine.py for the paths a search takes:
+`add_document(s)` and `remove_document` (host tokenization, Simeon
+embeddings, index updates), `search` / `search_batch` / `search_expanded`
+on the dense tier (search_batch's default branch, engine.py:592-1020: the
+bf16 or int8 corpus, the materialized or, on a flat corpus above
+`streaming_threshold` rows, the streaming vector leg, every chunk
+aggregation, intent-adaptive leg weights), the PQ capacity tier (`ensure_pq`
+and search_batch's `use_pq` branch, engine.py:498-535, 849-897), the
+hotzone (`touch_hot`, `clear_hot`, `record_feedback`: boosts h / (1 + h)
+on the device, rebuilt only when they or the slot layout change), `stats`
+and the result glue (:1137-1216). The host state lives in the port's
+VectorIndex / LexicalIndex, copies of the reference's host code with torch
+device views, so both engines hold identical state for identical adds. It
+runs on the card unless the caller asks for the CPU.
 
 The PQ tier's vector leg is `VectorIndex.search_pq` with the doc mask
 always pushed into the scan (all ones over the used slots when unfiltered),
@@ -16,10 +21,9 @@ as in the reference, so it runs the plain pq_adc_topk and never the K4
 kernel, whose route is the unfiltered scan only.
 
 Not ported, and refused loudly (NotImplementedError) rather than skipped:
-topology routing, the KG and graph legs, the search tuner, sharded serving,
-the narrow gather tier, late interaction (ColBERT) and fragment geometry,
-intent-adaptive weighting and semantic rescue. The hotzone (feedback) state
-is not ported either: its boost vector is zero.
+topology routing, the KG and graph legs, the search tuner (so feedback
+feeds the hotzone alone), sharded serving, the narrow gather tier, late
+interaction (ColBERT) and fragment geometry, and semantic rescue.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from ..index.vector_index import VectorIndex
 from .config import SearchEngineConfig
 from .fusion import (NEG, W_TEXT, W_VEC, hybrid_fuse_precomputed, hybrid_query,
                      pack_weights)
+from .query import intent_weight_multipliers
 
 
 @dataclasses.dataclass(slots=True)
@@ -104,16 +109,17 @@ class SearchEngine:
         self.config = config or SearchEngineConfig()
         self.provider = SimeonProvider(embedding, device=self.device)
         vcfg = vector or VectorIndexConfig(dim=self.provider.dim)
-        if str(vcfg.engine) not in ("dense", "pq", "pq4") or vcfg.dtype != "bfloat16":
+        if str(vcfg.engine) not in ("dense", "pq", "pq4"):
             raise NotImplementedError(
-                f"vector engine {vcfg.engine!r}/{vcfg.dtype!r}: only the bf16 "
-                "dense, pq and pq4 engines are ported")
+                f"vector engine {vcfg.engine!r}: only the dense, pq and pq4 "
+                "engines are ported")
         self.vector_config = vcfg
         self.vector_index = VectorIndex(
             dim=self.provider.dim,
             capacity=vcfg.capacity,
             block_rows=vcfg.block_rows,
             space_id=self.provider.space_id,
+            device_dtype="int8" if vcfg.dtype == "int8" else "bfloat16",
             device=self.device,
         )
         self.lexical_index = LexicalIndex(lexical)
@@ -123,7 +129,17 @@ class SearchEngine:
         self._slot_by_doc: dict[int, int] = {}
         self._doc_by_slot: list[int] = []
         self._titles: dict[int, str] = {}
+        self._hot: dict[int, float] = {}
+        self._hot_gen = 0
+        self._hot_dev: tuple | None = None  # ((gen, Nd, n_slots), tensor)
         self._lock = threading.RLock()
+        # the reference's counters; the topology ones stay 0 (not ported)
+        self._stats = {
+            "searches": 0, "total_ms": 0.0, "documents": 0,
+            "topology_routes": 0, "topology_shadow_agree": 0.0,
+            "topology_abstained": 0, "topology_budget_clamped": 0,
+            "topology_promotions": 0,
+        }
 
     # -- identity -----------------------------------------------------------------
     def _slot_for(self, doc_id: int) -> int:
@@ -168,7 +184,54 @@ class SearchEngine:
             vec_slots.extend([slot] * len(texts))
         if all_texts:
             self.vector_index.add(self.provider.encode(all_texts), vec_slots)
+        self._stats["documents"] = len(self._slot_by_doc)
         return counts
+
+    def remove_document(self, doc_id: int) -> bool:
+        """Drop a document from both indexes; its slot stays reserved."""
+        with self._lock:
+            slot = self._slot_by_doc.get(doc_id)
+        if slot is None:
+            return False
+        self.vector_index.remove_doc(slot)
+        self.lexical_index.remove_document(slot)
+        self._titles.pop(doc_id, None)
+        return True
+
+    # -- hotzone (feedback) -----------------------------------------------------
+    def touch_hot(self, doc_id: int, boost: float = 1.0) -> None:
+        with self._lock:
+            self._hot[doc_id] = self._hot.get(doc_id, 0.0) + boost
+            self._hot_gen += 1
+
+    def clear_hot(self) -> None:
+        """Reset hotzone state (evaluation harnesses isolate runs with this)."""
+        with self._lock:
+            self._hot.clear()
+            self._hot_gen += 1
+
+    def _hot_device(self, Nd: int) -> torch.Tensor:
+        """The (Nd,) boost vector h / (1 + h) on the device, rebuilt only
+        when the hot state or the slot layout changed."""
+        with self._lock:
+            key = (self._hot_gen, Nd, len(self._doc_by_slot))
+            cached = self._hot_dev
+            if cached is not None and cached[0] == key:
+                return cached[1]
+            hot = np.zeros(Nd, np.float32)
+            for d, h in self._hot.items():
+                s = self._slot_by_doc.get(d)
+                if s is not None:
+                    hot[s] = h / (1.0 + h)
+            dev = torch.from_numpy(hot).to(self.device)
+            self._hot_dev = (key, dev)
+            return dev
+
+    def record_feedback(self, doc_id: int, relevant: bool = True) -> None:
+        """Click/relevance feedback. The reference also rewards its search
+        tuner, which the port refuses, so only the hotzone is fed."""
+        if relevant:
+            self.touch_hot(doc_id, 1.0)
 
     # -- PQ engine lifecycle ----------------------------------------------------
     def ensure_pq(self) -> bool:
@@ -208,16 +271,33 @@ class SearchEngine:
                intent: str | None = None) -> list[SearchResult]:
         return self.search_batch([query], k, mode, filter_doc_ids, intent)[0]
 
-    def _refuse_unported(self, cfg, mode, intent) -> None:
+    def search_expanded(self, query: str, expansions: list[str], k: int = 10,
+                        mode: str = "hybrid", filter_doc_ids: set[int] | None = None,
+                        intent: str | None = None) -> list[SearchResult]:
+        """Multi-vector query: the query and up to 7 expansion variants run
+        as rows of one batch, then merge per doc: the max over variants,
+        expansions discounted by expansion_score_penalty."""
+        variants = [query] + [e for e in expansions if e][:7]
+        per_variant = self.search_batch(variants, k=k, mode=mode,
+                                        filter_doc_ids=filter_doc_ids, intent=intent)
+        pen = self.config.expansion_score_penalty
+        best: dict[int, SearchResult] = {}
+        for vi, results in enumerate(per_variant):
+            scale = 1.0 if vi == 0 else pen
+            for r in results:
+                scaled = dataclasses.replace(r, score=r.score * scale)
+                cur = best.get(r.doc_id)
+                if cur is None or scaled.score > cur.score:
+                    best[r.doc_id] = scaled
+        return sorted(best.values(), key=lambda r: -r.score)[:k]
+
+    def _refuse_unported(self, cfg) -> None:
         if cfg.tuner_enabled:
             raise NotImplementedError("search tuner is not ported")
         if cfg.topology_policy not in ("off", "shadow"):
             # "shadow" without a topology build is "off" in the reference
             raise NotImplementedError(
                 f"topology policy {cfg.topology_policy!r} is not ported")
-        if (intent is not None and cfg.intent_adaptive
-                and mode not in ("keyword", "vector")):
-            raise NotImplementedError("intent-adaptive weighting is not ported")
         if cfg.semantic_rescue_slots > 0:
             raise NotImplementedError("semantic rescue slots are not ported")
 
@@ -272,7 +352,7 @@ class SearchEngine:
         if not self._doc_by_slot:
             return [[] for _ in queries]
         cfg = self.config
-        self._refuse_unported(cfg, mode, intent)
+        self._refuse_unported(cfg)
         dev = self.device
         Nd = self.num_slots_padded
         B_real = len(queries)
@@ -303,6 +383,12 @@ class SearchEngine:
             w[W_VEC] = 0.0
         elif mode == "vector":
             w[W_TEXT] = 0.0
+        elif intent is not None and cfg.intent_adaptive:
+            # intent-adaptive leg weighting rides the weight vector
+            tm, vm = intent_weight_multipliers(intent)
+            w[W_TEXT] *= tm
+            w[W_VEC] *= vm
+            trace["intent"] = intent
 
         # PQ capacity tier: the dense matrix never reaches the device; the
         # vector leg runs as ADC scan + host rerank outside the fused query
@@ -349,8 +435,7 @@ class SearchEngine:
         else:
             doc_mask = _mask_of(filter_doc_ids)
 
-        # hotzone boosts come from the feedback surface, which is not ported
-        hot = torch.zeros(Nd, dtype=torch.float32, device=dev)
+        hot = self._hot_device(Nd)
         t_dev = time.monotonic()
         lex_prefilter = (cfg.bm25_prefilter
                          if Nd > cfg.approx_threshold and cfg.bm25_prefilter > 0
@@ -386,7 +471,8 @@ class SearchEngine:
             E, row_valid, row2slot, row_scale = self.vector_index.device_arrays()
             rows = E.shape[0]
             flat = self.vector_index.identity_layout and rows >= Nd
-            scale_opts: dict = {}
+            scale_opts: dict = {
+                "int8_corpus": self.vector_index.device_dtype == "int8"}
             if lex_prefilter:
                 scale_opts["bm25_prefilter"] = lex_prefilter
             if flat:
@@ -394,6 +480,12 @@ class SearchEngine:
                 if (rows > cfg.streaming_threshold
                         and rows % cfg.streaming_block_rows == 0):
                     scale_opts["scan_block_rows"] = cfg.streaming_block_rows
+                    trace["scan_block_rows"] = cfg.streaming_block_rows
+                    # streaming indexes the mask by row, not slot: pad
+                    pad = rows - doc_mask.shape[-1]
+                    if pad > 0:
+                        doc_mask = np.pad(
+                            doc_mask, [(0, 0)] * (doc_mask.ndim - 1) + [(0, pad)])
             vals, slots, bm_at, vec_at = hybrid_query(
                 to_dev(sketches.astype(np.float32)), to_dev(tids), to_dev(tmask),
                 proj, E, row_valid, row2slot, row_scale, *lexical,
@@ -429,6 +521,17 @@ class SearchEngine:
                     doc_id=doc_id, score=v, text_score=bi[j],
                     vector_score=ci[j], title=titles.get(doc_id, "")))
             out.append(results[:k])
+        with self._lock:  # searches may run concurrently
+            self._stats["searches"] += len(queries)
+            self._stats["total_ms"] += (time.monotonic() - t0) * 1e3
         trace["total_ms"] = (time.monotonic() - t0) * 1e3
         self.last_trace = trace
         return out
+
+    def stats(self) -> dict:
+        s = dict(self._stats)
+        s["vector"] = self.vector_index.stats()
+        s["lexical"] = self.lexical_index.stats()
+        if s["searches"]:
+            s["avg_latency_ms"] = s["total_ms"] / s["searches"]
+        return s

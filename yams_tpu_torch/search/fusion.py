@@ -1,25 +1,42 @@
 """The hybrid query: embed ∥ BM25 ∥ KNN -> fuse -> top-k, on torch tensors.
 
-Port of yams_tpu/search/fusion.py for the engine's dense tier. Stages:
+Port of yams_tpu/search/fusion.py. Stages:
 
   1. query embed: sketch @ proj (bf16 operands, f32 result) -> L2 normalize;
-  2. vector leg: q · Eᵀ with f32 scores from bf16 operands, chunk -> doc
-     segment max (or rows_are_docs), filter pushdown, top-C;
+  2. vector leg, one of:
+     - materialized: the (B, rows) scores, bf16 (`dot_f32`) or int8
+       (`int8_corpus`: the query quantized on the device, int8 x int8 with
+       int32 sums), then chunk -> doc aggregation (`rows_are_docs`, or
+       `chunk_agg` max | sum | topk_avg | weighted_topk_avg), filter
+       pushdown, top-C;
+     - streaming (`scan_block_rows` with `rows_are_docs`): per block of
+       rows the scores, the validity and doc-mask biases and a top-C, ids
+       offset by the block's first row; the candidates merge with a carry
+       that starts at (-1e30, sink) and comes first. No (B, rows) buffer.
   3. lexical leg: BM25 top-C candidates (ops.bm25);
   4. candidate fusion over the 2C candidates: weighted evidence + RRF,
      adaptive leg weights, vector-only penalty, hotzone boost;
   5. exact top-k over the merged candidates.
 
 Differences from the reference, all deliberate:
+- the query's L2 norm sums its squares in f64 (`_row_norm`), so it is the
+  same on the card and on the CPU;
 - "approx" selection is exact (lax.approx_max_k is exact off the TPU as
   well, so CPU parity is exact);
-- the streaming blocked scan (`scan_block_rows`), the int8 corpus, and the
-  "sum" / "topk_avg" chunk aggregations raise NotImplementedError;
+- the streaming scan merges every block's top-C in one top-C at the end
+  instead of one merge a block: with the carry first and ties to the lower
+  column that is the reference's sequential merge, ids and sink ids
+  included. A per-query mask is sliced by columns per block, never
+  expanded to (B, rows);
 - lax.sort(num_keys=1) in the merge becomes a stable sort by id + gathers;
   lax.top_k and jnp.cumsum become ops.select's top_k / prefix_sum, which
   keep the reference's tie order and summation order;
-- the (B, rows) score matrix is updated in place for the validity bias and
-  the doc mask, so one f32 (B, rows) buffer is live instead of three.
+- the (B, rows) score matrix is updated in place for the biases, the
+  chunk aggregations and the doc mask, so at most two (B, rows)-sized f32
+  buffers are live (scores and doc scores);
+- the doc mask is read at the candidates by (row of mask_idx, id) pairs,
+  so per-query filter rows are expanded to (B, num_slots) only where the
+  materialized path adds them to the doc scores.
 """
 
 from __future__ import annotations
@@ -28,7 +45,7 @@ import numpy as np
 import torch
 
 from ..ops.bm25 import bm25_topk_candidates, bm25_topk_candidates_packed
-from ..ops.scan import dot_f32
+from ..ops.scan import dot_f32, int8_product, quantize_rows
 from ..ops.select import prefix_sum, top_k
 
 NEG = -1e30
@@ -62,10 +79,10 @@ def hybrid_query(
     term_ids: torch.Tensor,    # (B, T) i32
     term_mask: torch.Tensor,   # (B, T) f32
     proj: torch.Tensor,        # (S, D) bf16
-    E: torch.Tensor,           # (rows, D) bf16
+    E: torch.Tensor,           # (rows, D) bf16, or int8 with int8_corpus
     row_valid: torch.Tensor,   # (rows,) f32
     row2slot: torch.Tensor,    # (rows,) i32, -1 = tombstone
-    row_scale: torch.Tensor,   # (rows,) f32 (ones for bf16)
+    row_scale: torch.Tensor,   # (rows,) f32: int8 dequant scales (ones for bf16)
     postings_doc: torch.Tensor,
     postings_impact: torch.Tensor,
     term_offsets: torch.Tensor,
@@ -90,51 +107,145 @@ def hybrid_query(
     """Returns (fused (B,k) f32, slots (B,k) i32, bm25_at (B,k), vec_at
     (B,k)), the reference's contract. `approx` selects nothing here: the
     top-C is exact, so a recall@10 of approx against exact is 1 by
-    construction. `row_scale` is ones for the bf16 corpus and unused."""
-    del row_scale, approx
-    if scan_block_rows > 0:
-        raise NotImplementedError("streaming blocked scan (scan_block_rows)")
-    if int8_corpus:
-        raise NotImplementedError("int8 corpus tier")
-    if not rows_are_docs and chunk_agg != "max":
-        raise NotImplementedError(f"chunk_agg={chunk_agg!r}")
+    construction. On the streaming path the doc mask is indexed by row, so
+    it must have `rows` columns (the engine pads it)."""
+    del approx
     if weights.shape[-1] != NUM_WEIGHTS:
         raise ValueError(
             f"weights must have {NUM_WEIGHTS} slots, got {tuple(weights.shape)}")
-    if mask_idx is not None:
-        doc_mask = doc_mask[mask_idx.long()]
-    dm = doc_mask.float()
-    dm = dm if dm.dim() == 2 else dm[None, :]
+    if chunk_agg not in ("max", "sum", "topk_avg", "weighted_topk_avg"):
+        raise ValueError(f"chunk_agg={chunk_agg!r}")
     C = rrf_cand
     sink = num_slots
 
     # 1. embed queries
     q = dot_f32(sketch, proj.t())
-    q = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-9)
+    q = q / _row_norm(q).clamp_min(1e-9)
+    q8 = qscale = None
+    if int8_corpus:
+        q8, qscale = quantize_rows(q)
 
-    # 2. vector leg: chunk scores -> doc scores -> top-C candidates
-    srow = dot_f32(q, E)
-    srow += ((row_valid - 1.0) * 1e30)[None, :]
-    if rows_are_docs:
-        sdoc = srow[:, :num_slots]
+    def scores(lo, hi):
+        """(B, hi - lo) f32 scores of rows lo..hi with the validity bias."""
+        if int8_corpus:
+            s = int8_product(q8, qscale, E[lo:hi], row_scale[lo:hi])
+        else:
+            s = dot_f32(q, E[lo:hi])
+        s += ((row_valid[lo:hi] - 1.0) * 1e30)[None, :]
+        return s
+
+    # 2. vector leg -> top-C candidates (doc slots)
+    if scan_block_rows > 0 and rows_are_docs:
+        vv, vi = _streaming_top_c(scores, E.shape[0], q.shape[0], doc_mask,
+                                  mask_idx, C, sink, scan_block_rows)
     else:
-        seg = torch.where(row2slot < 0, sink, row2slot).long()
-        sdoc = torch.full((srow.shape[0], num_slots + 1), -torch.inf,
-                          dtype=srow.dtype, device=srow.device)
-        sdoc.scatter_reduce_(1, seg[None, :].expand_as(srow), srow,
-                             reduce="amax", include_self=True)
+        srow = scores(0, E.shape[0])
+        if rows_are_docs:
+            sdoc = srow[:, :num_slots]
+        else:
+            sdoc = _aggregate_chunks(srow, row2slot, num_slots, chunk_agg)
         del srow
-        sdoc = sdoc[:, :num_slots]
-    # filter pushdown before selection so filtered queries still fill C
-    sdoc += (dm - 1.0) * 1e30
-    vv, vi = top_k(sdoc, C)
-    del sdoc
+        # filter pushdown before selection so filtered queries still fill C
+        bias = (doc_mask if mask_idx is None else doc_mask[mask_idx.long()]
+                ).to(torch.float32, copy=True)
+        sdoc += bias.sub_(1.0).mul_(1e30)
+        del bias
+        vv, vi = top_k(sdoc, C)
+        del sdoc
     return _fuse_candidates(
         term_ids, term_mask, postings_doc, postings_impact, term_offsets,
-        term_lengths, dm, hot, weights, vv, vi.to(torch.int32),
+        term_lengths, doc_mask, mask_idx, hot, weights, vv, vi.to(torch.int32),
         k=k, C=C, window=window, num_slots=num_slots,
         bm25_prefilter=bm25_prefilter, packed_lexical=packed_lexical,
     )
+
+
+def _row_norm(q: torch.Tensor) -> torch.Tensor:
+    """(B, 1) f32 L2 norms whose last bit does not depend on the summation
+    order: the squares are summed in f64 (exact to far below an f32 ulp)
+    and rounded once. A sketch query often has a coordinate at exactly half
+    its largest, which the int8 tier quantizes to 63.5 and rounds by the
+    last bit of q; an f32 sum in the card's order and another in the CPU's
+    would round it to 63 on one and 64 on the other."""
+    return q.double().square().sum(dim=-1, keepdim=True).float().sqrt()
+
+
+def _streaming_top_c(scores, rows: int, B: int, doc_mask, mask_idx, C: int,
+                     sink: int, block: int):
+    """The streaming blocked scan's vector leg: for each block of `block`
+    rows the biased scores and their top-C, ids offset by the block's first
+    row; then one top-C over [carry (-1e30, sink), block 0's, block 1's,
+    ...], which with ties to the lower column is the reference's merge of
+    each block into the carry, carry first. So where fewer than C rows are
+    live the carry's sink ids stay (a masked row scores -1e30 too)."""
+    if rows % block:
+        raise ValueError(f"rows={rows} % scan_block_rows={block} != 0")
+    if doc_mask.shape[-1] != rows:
+        raise ValueError(f"the streaming scan indexes the doc mask by row: "
+                         f"{doc_mask.shape[-1]} columns for {rows} rows")
+    dev = doc_mask.device
+    cand_v = [torch.full((B, C), NEG, dtype=torch.float32, device=dev)]
+    cand_i = [torch.full((B, C), sink, dtype=torch.int64, device=dev)]
+    rows_of = mask_idx.long() if mask_idx is not None else None
+    for lo in range(0, rows, block):
+        hi = lo + block
+        s = scores(lo, hi)
+        m = doc_mask[..., lo:hi]
+        if rows_of is not None:
+            m = m[rows_of]
+        s += (m.float() - 1.0) * 1e30
+        bv, bi = top_k(s, C)
+        del s
+        cand_v.append(bv)
+        cand_i.append(bi + lo)
+    vv, pos = top_k(torch.cat(cand_v, dim=1), C)
+    return vv, torch.cat(cand_i, dim=1).gather(1, pos)
+
+
+_AGG_ROWS = 1 << 16   # score columns a chunk of the knock-out pass takes
+
+
+def _aggregate_chunks(srow: torch.Tensor, row2slot: torch.Tensor, num_slots: int,
+                      chunk_agg: str) -> torch.Tensor:
+    """Chunk -> doc scores (B, num_slots) from the (B, rows) chunk scores,
+    the reference's segment reductions (tombstones go to the sink segment,
+    empty docs read -inf, or -1e30 for "sum"). `srow` is overwritten.
+
+    - max: segment max;
+    - sum: segment sum of max(s, 0); docs without a positive sum -> -1e30;
+    - topk_avg / weighted_topk_avg: the max m1 and a second segment max m2
+      with every chunk that reaches its doc's max knocked out (two chunks
+      tied at the max both go); a doc with no other chunk takes m2 = m1;
+      then (m1 + m2) / 2, or (m1 + m2 / 2) / 1.5."""
+    sink = num_slots
+    seg = torch.where(row2slot < 0, sink, row2slot).long()
+    B = srow.shape[0]
+
+    def segment(reduce: str, init: float) -> torch.Tensor:
+        out = torch.full((B, num_slots + 1), init, dtype=srow.dtype, device=srow.device)
+        return out.scatter_reduce_(1, seg[None, :].expand_as(srow), srow,
+                                   reduce=reduce, include_self=True)
+
+    if chunk_agg == "sum":
+        srow.clamp_min_(0.0)
+        sdoc = segment("sum", 0.0)
+        sdoc.masked_fill_(sdoc <= 0, NEG)
+    elif chunk_agg == "max":
+        sdoc = segment("amax", -torch.inf)
+    else:
+        m1 = segment("amax", -torch.inf)
+        for lo in range(0, srow.shape[1], _AGG_ROWS):
+            part = srow[:, lo:lo + _AGG_ROWS]
+            part.masked_fill_(part >= m1[:, seg[lo:lo + _AGG_ROWS]], NEG)
+        m2 = segment("amax", -torch.inf)
+        torch.where(m2 <= NEG / 2, m1, m2, out=m2)       # single-chunk docs
+        # in place, each op rounding as the reference's expression does (a
+        # tensor divisor: a Python one is a reciprocal multiply on a card)
+        if chunk_agg == "topk_avg":
+            sdoc = m1.add_(m2).mul_(0.5)
+        else:
+            sdoc = m1.add_(m2.mul_(0.5)).div_(m1.new_tensor(1.5))
+    return sdoc[:, :num_slots]
 
 
 def hybrid_fuse_precomputed(
@@ -148,23 +259,27 @@ def hybrid_fuse_precomputed(
 ):
     """Fusion stages 3-5 with an externally computed vector candidate list;
     candidates outside the doc mask are dropped here."""
-    if mask_idx is not None:
-        doc_mask = doc_mask[mask_idx.long()]
-    dm = doc_mask.float()
-    dm = dm if dm.dim() == 2 else dm[None, :]
     sink = num_slots
-    safe_v = vec_slots.long().clamp_max(sink - 1)
-    if dm.shape[0] == 1:
-        dm_at_v = dm[0][safe_v]
-    else:
-        dm_at_v = dm.gather(1, safe_v)
+    dm_at_v = _mask_at(doc_mask, mask_idx, vec_slots.long().clamp_max(sink - 1))
     vv = torch.where((dm_at_v > 0) & (vec_slots < sink), vec_vals, NEG)
     return _fuse_candidates(
         term_ids, term_mask, postings_doc, postings_impact, term_offsets,
-        term_lengths, dm, hot, weights, vv, vec_slots,
+        term_lengths, doc_mask, mask_idx, hot, weights, vv, vec_slots,
         k=k, C=rrf_cand, window=window, num_slots=num_slots,
         bm25_prefilter=bm25_prefilter, packed_lexical=packed_lexical,
     )
+
+
+def _mask_at(doc_mask: torch.Tensor, mask_idx: torch.Tensor | None,
+             ids: torch.Tensor) -> torch.Tensor:
+    """The doc mask at (query, id) pairs, (B, n) f32: a shared mask (1-D or
+    one row) is indexed by id, per-query rows by (row of mask_idx, id), so
+    the rows are never expanded to (B, num_slots)."""
+    if doc_mask.dim() == 1 or (doc_mask.shape[0] == 1 and mask_idx is None):
+        return doc_mask.reshape(-1)[ids].float()
+    if mask_idx is None:
+        return doc_mask.gather(1, ids).float()
+    return doc_mask[mask_idx.long()[:, None], ids].float()
 
 
 def _segment_sum(x: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
@@ -176,7 +291,7 @@ def _segment_sum(x: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
 
 def _fuse_candidates(
     term_ids, term_mask, postings_doc, postings_impact, term_offsets,
-    term_lengths, dm, hot, weights, vv, vi_slots,
+    term_lengths, doc_mask, mask_idx, hot, weights, vv, vi_slots,
     *, k, C, window, num_slots, bm25_prefilter, packed_lexical=False,
 ):
     """Stages 3-5 (see yams_tpu/search/fusion.py:_fuse_candidates)."""
@@ -200,11 +315,7 @@ def _fuse_candidates(
     ranks = torch.arange(C, dtype=torch.float32, device=vv.device)[None, :]
     rrf = 1.0 / (w[W_RRF_K] + ranks + 1.0)
 
-    safe_ids = bm_ids.long().clamp_max(sink - 1)
-    if dm.shape[0] == 1:
-        dm_at_bm = dm[0][safe_ids]
-    else:
-        dm_at_bm = dm.gather(1, safe_ids)
+    dm_at_bm = _mask_at(doc_mask, mask_idx, bm_ids.long().clamp_max(sink - 1))
     bm_ok = (bm_scores > 0) & (bm_ids < sink) & (dm_at_bm > 0) & (w[W_TEXT] > 0)
     bm_live = torch.where(bm_ok, bm_scores, 0.0)
     bm_qmax = bm_live.amax(dim=1, keepdim=True)
