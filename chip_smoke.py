@@ -76,7 +76,26 @@ seconds):
      remove_document, touch_hot and record_feedback, each intent and
      search_expanded, every search with top-10 overlap 1.0 against the same
      engine on the CPU (16 queries), no removed doc returned, and stats()
-     counting the searches.
+     counting the searches;
+  9. the engine as the service layer opens and serves it: a KG over phase
+     3's documents in a temporary SQLite file, built with the graph
+     service's ingest calls (16,384 entity nodes labelled with 1-3 words of
+     the documents' text, each document linked to 1-5 of the labels it
+     contains, drawn by zipf, aliases, co-occurrence edges) and every node
+     label embedded into the entity side index; phase 3's card engine and
+     its CPU twin each open their own store over the file. 64 queries (half
+     naming an entity label) timed with and without the KG leg, the entity
+     leg's device search apart from the host KG work; on 16 queries the
+     card's top-10 ids equal the CPU's with scores within 1e-4 (ties
+     named) with the KG leg and graph rerank, with semantic_rescue_slots=2
+     and with the tuner through 32 record_feedback calls (the same arm
+     each time); at least half the entity-naming queries reach a result
+     with kg_score > 0. Then both indexes saved and reopened in a fresh
+     card engine (slot map restored from the metadata table) giving the
+     same 64 results; phase 6's PQ4 index (m 32, windows of 64) through K3
+     (search, use_pallas) and K4 (unfiltered search_pq) before the save
+     and after the reload, equal; an int8 index reloaded as int8 with
+     equal codes.
 
 The kernel launch counters are zeroed just before each path and read just
 after: the add path (phases 2-3) must launch gear_hash_cuda and
@@ -85,7 +104,8 @@ the engine's PQ tier (phase 6) must launch pq4_adc_cuda zero times (it
 always pushes a doc mask into the scan, and K4 serves the unfiltered scan
 only), and the experiments (phase 7) grouped_max_cuda and
 windowed_scan_cuda; phase 8's path runs torch operations only, and its
-counts are printed. At the end no module of yams_tpu, jax, jaxlib or flax
+counts are printed; phase 9 must launch exact_topk_cuda and pq4_adc_cuda
+(on the PQ4 index before the save and after the reload). At the end no module of yams_tpu, jax, jaxlib or flax
 may be loaded. The second-last line is the kernels' JSON record (each with
 its launches, error, time, twin's time and bound), the last line the device
 record.
@@ -93,8 +113,10 @@ record.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -977,7 +999,7 @@ def phase3_search(dev, n_docs: int = 70_000) -> dict:
             "prefilter_disabled": "prefilter_disabled_tail_ratio" in trace,
             "prefilter_first_search_ms": pf_s[0] * 1e3,
             "prefilter_search_ms": pf_s[1] * 1e3,
-            "prefilter_overlap_vs_cpu": overlap_pf}, eng, queries
+            "prefilter_overlap_vs_cpu": overlap_pf}, eng, cpu, docs, queries
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -1248,7 +1270,7 @@ def phase6_engine_pq(dev, eng, queries) -> dict:
         f"{overlap:.4f}")
     check(overlap >= 0.98, "PQ tier top-10 overlap >= 0.98 vs CPU")
     return {"build_s": build_s, "first_search_s": first_s, "steady_search_ms": steady_s * 1e3,
-            "overlap_vs_cpu": overlap}
+            "overlap_vs_cpu": overlap}, vi
 
 
 # -- phase 7 ------------------------------------------------------------------
@@ -1587,6 +1609,375 @@ def phase8_engine(dev, n_docs: int = 65_536) -> dict:
     return out
 
 
+# -- phase 9 ------------------------------------------------------------------
+KG_STAGES = ("_entity_vector_batch", "_kg_scores", "_graph_rerank", "_community_support")
+
+
+def staged(eng, fn):
+    """fn() with the engine's KG stages timed where search_batch calls them
+    (_community_support runs inside _graph_rerank). -> (fn's result,
+    {stage: seconds}, the window length of each _community_support call)."""
+    spent, windows = dict.fromkeys(KG_STAGES, 0.0), []
+
+    def timed(name):
+        orig = getattr(eng, name)
+
+        def call(*args, **kwargs):
+            if name == "_community_support":
+                windows.append(len(args[0]))
+            t = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t
+        return call
+
+    for name in KG_STAGES:
+        setattr(eng, name, timed(name))
+    try:
+        return fn(), spent, windows
+    finally:
+        for name in KG_STAGES:
+            delattr(eng, name)
+
+
+def results_agree(what: str, got, want, atol: float = 1e-4) -> dict:
+    """Two engines' result lists, query by query: the same ids in the same
+    order with scores (and KG scores) within `atol`, except where two
+    results tie: an id in another place must have its score, in the other
+    list, within `atol` of the score it has here (or, where the other list
+    lacks it, of that list's last score). Every tie is printed.
+    -> {"equal": queries with equal ids, "ties": [...], "max_err"}."""
+    equal, ties, err = 0, [], 0.0
+    for q, (g, w) in enumerate(zip(got, want, strict=True)):
+        check(len(g) == len(w), f"{what}: query {q}: {len(g)} results against {len(w)}")
+        w_score = {r.doc_id: r.score for r in w}
+        for j, (a, b) in enumerate(zip(g, w)):
+            if a.doc_id == b.doc_id:
+                err = max(err, abs(a.score - b.score), abs(a.kg_score - b.kg_score))
+                continue
+            other = w_score.get(a.doc_id, w[-1].score)
+            check(abs(a.score - other) <= atol,
+                  f"{what}: query {q} rank {j}: doc {a.doc_id} ({a.score:.7f}) against "
+                  f"{b.doc_id} ({b.score:.7f}) is no tie")
+            ties.append((q, j, a.doc_id, b.doc_id, round(a.score, 7), round(b.score, 7)))
+        equal += [r.doc_id for r in g] == [r.doc_id for r in w]
+    check(err <= atol, f"{what}: scores within {atol} (max error {err:.3g})")
+    if ties:
+        log(f"[phase9] {what}: ties (query, rank, card doc, cpu doc, scores): {ties}")
+    return {"equal": equal, "ties": len(ties), "max_err": err}
+
+
+def timed_search(dev, eng, queries, reps: int = 3):
+    """(first seconds, median steady seconds, results) of search_batch."""
+    times, res = [], None
+    for _ in range(reps + 1):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        res = eng.search_batch(queries)
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t)
+    return times[0], float(np.median(times[1:])), res
+
+
+def phase9_kg(dev, card: str, eng, cpu, docs, queries, phase3_steady_ms: float,
+              pq_vi) -> dict:
+    """The engine as the service layer opens and serves it: a KG over phase
+    3's documents in SQLite, the KG leg, graph rerank, semantic rescue and the
+    tuner held against the CPU twin, then both indexes saved and reopened in
+    a fresh engine, phase 6's PQ4 index through K3 and K4 before the save
+    and after the reload, each held against its plain route, and an int8
+    index reloaded as int8."""
+    import os
+    import tempfile
+
+    from yams_tpu_torch.convert import load_pq_state, pq_state
+    from yams_tpu_torch.index.lexical_index import LexicalIndex
+    from yams_tpu_torch.index.vector_index import VectorIndex
+    from yams_tpu_torch.metadata import Database, KnowledgeGraphStore
+    from yams_tpu_torch.ops import pq_pallas
+    from yams_tpu_torch.ops.pq import pq_lut
+    from yams_tpu_torch.scripts.kg_fixture import build_kg, kg_graph, one_transaction
+    from yams_tpu_torch.search.config import SearchEngineConfig
+    from yams_tpu_torch.search.engine import SearchEngine
+    from yams_tpu_torch.search.tuner import SearchTuner
+    from yams_tpu_torch.services.app import restore_slot_map
+
+    def insert_docs(db, doc_ids):
+        with db.lock, db.conn:
+            db.conn.executemany(
+                "INSERT INTO documents (id, file_path, file_name, sha256_hash, created_time,"
+                " modified_time, indexed_time, content_extracted) VALUES (?,?,?,?,0,0,0,1)",
+                [(d, f"/corpus/{d}.txt", f"{d}.txt", f"{d:064x}") for d in doc_ids])
+
+    out: dict = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_kg_")
+    root = pathlib.Path(tmp.name)
+    try:
+        # -- the KG, built with the graph service's calls on one SQLite file
+        labels, links = kg_graph(docs, seed=SEED + 9)
+        db = Database(root / "metadata.db")
+        insert_docs(db, [d for d, _, _ in docs])
+        with db.lock, db.conn:
+            db.conn.executemany(
+                "INSERT INTO metadata (document_id, key, value) VALUES (?, '__slot__', ?)",
+                [(d, str(s)) for d, s in eng._slot_by_doc.items()])
+        # the service commits each call: that cost, with db.py's options, on
+        # the first 1,024 documents' links in a file of their own
+        sample = links[:1024]
+        used = sorted({e for _, ents in sample for e, _ in ents})
+        at = {e: i for i, e in enumerate(used)}
+        sdb = Database(root / "sample.db")
+        insert_docs(sdb, [d for d, _ in sample])
+        t = time.perf_counter()
+        _, sample_calls = build_kg(KnowledgeGraphStore(sdb), [labels[e] for e in used],
+                                   [(d, [(at[e], c) for e, c in ents]) for d, ents in sample])
+        sample_s = time.perf_counter() - t
+        sdb.close()
+        # the whole graph with the same calls, joined into one transaction
+        t = time.perf_counter()
+        with one_transaction(db) as bulk:
+            nodes, calls = build_kg(bulk, labels, links)
+        kg_s = time.perf_counter() - t
+        kg = KnowledgeGraphStore(db)
+        t = time.perf_counter()
+        for e in (eng, cpu):
+            e.config = SearchEngineConfig()
+            e.add_entity_vectors(nodes, labels)
+        ent_s = time.perf_counter() - t
+        n_links = sum(len(x) for _, x in links)
+        call_us = sample_s / sample_calls * 1e6
+        log(f"[phase9] KG: {kg.node_count()} nodes, {n_links} doc links, {kg.edge_count()} edges: "
+            f"{calls} graph service calls joined in one transaction in {kg_s:.2f} s; a "
+            f"transaction a call, as the service commits them: {sample_calls} calls for the "
+            f"first 1,024 documents in {sample_s:.2f} s ({call_us:.1f} us a call); entity side "
+            f"index {eng.entity_index.active_rows} rows (capacity {eng.entity_index.capacity}) "
+            f"on both engines in {ent_s:.2f} s")
+        check(eng.entity_index.active_rows == len(labels) >= 16_384, "entity rows")
+        check(np.array_equal(eng.entity_index._vecs, cpu.entity_index._vecs),
+              "card and CPU entity rows equal")
+        out.update(nodes=len(nodes), doc_links=n_links, edges=kg.edge_count(), kg_calls=calls,
+                   kg_build_s=kg_s, sample_calls=sample_calls, sample_s=sample_s,
+                   service_call_us=call_us, entity_add_s=ent_s)
+
+        # 64 queries, half naming an entity label
+        rng = np.random.default_rng(SEED + 10)
+        linked = sorted({e for _, ents in links for e, _ in ents})
+        named = [labels[linked[i]] for i in rng.choice(len(linked), 32, replace=False)]
+        qs = [named[i // 2] if i % 2 else queries[i] for i in range(64)]
+
+        # -- timing: without the KG, then with it (each engine opens its own store)
+        _, nokg_s, _ = timed_search(dev, eng, qs)
+        eng.kg = KnowledgeGraphStore(Database(root / "metadata.db"))
+        cpu.kg = KnowledgeGraphStore(Database(root / "metadata.db"))
+        first_s, steady_s, res = timed_search(dev, eng, qs)
+        kg_named = sum(any(r.kg_score > 0 for r in res[i]) for i in range(1, 64, 2))
+        log(f"[phase9] {card}: search_batch(64) with the KG leg: first {first_s * 1e3:.1f} ms, steady "
+            f"{steady_s * 1e3:.1f} ms; without it {nokg_s * 1e3:.1f} ms here, "
+            f"{phase3_steady_ms:.1f} ms in phase 3; {kg_named} of 32 entity-naming queries "
+            f"have a result with kg_score > 0")
+        check(kg_named >= 16, "half the entity-naming queries reach the KG leg")
+        check(all(len(r) == 10 for r in res), "10 results per query")
+        out.update(first_search_ms=first_s * 1e3, steady_search_ms=steady_s * 1e3,
+                   steady_no_kg_ms=nokg_s * 1e3, phase3_steady_ms=phase3_steady_ms,
+                   kg_named_hits=kg_named)
+
+        # where a steady batch's KG time goes: each stage timed inside the
+        # batch, on the windows the batch itself reranks (3 batches, mean)
+        def batch():
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            eng.search_batch(qs)
+            torch.cuda.synchronize(dev)
+            return time.perf_counter() - t
+
+        runs = [staged(eng, batch) for _ in range(3)]
+        batch_ms = float(np.mean([r[0] for r in runs])) * 1e3
+        stage_ms = {n: float(np.mean([r[1][n] for r in runs])) * 1e3 for n in KG_STAGES}
+        windows = runs[-1][2]
+        rest_ms = batch_ms - sum(stage_ms[n] for n in KG_STAGES[:3])
+        qv = eng.provider.encode(qs)
+        ent_ms = cuda_ms(lambda: eng.entity_index.search(qv, k=4), 10)
+        log(f"[phase9] {card}: a steady search_batch(64) with its KG stages timed inside it: "
+            f"{batch_ms:.1f} ms = _entity_vector_batch {stage_ms['_entity_vector_batch']:.1f} "
+            f"(its device search alone, 64 x {eng.entity_index.capacity} rows, k 4: "
+            f"{ent_ms:.3f} ms) + _kg_scores {stage_ms['_kg_scores']:.1f} + _graph_rerank "
+            f"{stage_ms['_graph_rerank']:.1f} (of it _community_support "
+            f"{stage_ms['_community_support']:.1f}, {len(windows)} windows of "
+            f"{np.mean(windows) if windows else 0:.1f} results) + the rest {rest_ms:.1f} ms "
+            f"(the batch without the KG: {nokg_s * 1e3:.1f} ms)")
+        check(len(windows) == 64, "the batch reranks 64 windows")
+        out.update(staged_batch_ms=batch_ms, stage_ms=stage_ms, rest_ms=rest_ms,
+                   rerank_windows=len(windows), mean_window=float(np.mean(windows)),
+                   entity_search_ms=ent_ms)
+
+        # the entity leg's hits against the CPU's, and how near 0.4 they come
+        ev = eng._entity_vector_batch(qs, qvecs=qv)
+        cpu_ev = cpu._entity_vector_batch(qs, qvecs=qv)
+        near = [(q, n, s) for q, h in enumerate(ev) for n, s in h if abs(s - 0.4) < 1e-4]
+        vals, _ = eng.entity_index.search(qv, k=4)
+        edge = float(np.abs(vals[vals > -1e29] - 0.4).min())
+        log(f"[phase9] entity leg: {sum(map(len, ev))} hits >= 0.4 for 64 queries; near the "
+            f"threshold (within 1e-4): {near}; closest similarity to 0.4: {edge:.3g} off")
+        check([[n for n, _ in h] for h in ev] == [[n for n, _ in h] for h in cpu_ev],
+              "entity hits equal the CPU's")
+        out.update(entity_hits=sum(map(len, ev)), threshold_margin=edge)
+
+        # -- gates: the card against the CPU twin on 16 queries
+        q16 = qs[:16]
+        out["default"] = results_agree("default (KG leg + graph rerank)",
+                                       eng.search_batch(q16), cpu.search_batch(q16))
+        for e in (eng, cpu):
+            e.config = SearchEngineConfig(semantic_rescue_slots=2)
+        out["rescue"] = results_agree("semantic_rescue_slots=2",
+                                      eng.search_batch(q16), cpu.search_batch(q16))
+        for e in (eng, cpu):
+            e.config = SearchEngineConfig(tuner_enabled=True)
+            e.tuner = SearchTuner()
+        arms, tuner = [], {"equal": 0, "ties": 0, "max_err": 0.0}
+        for step in range(8):
+            got, want = eng.search_batch(q16), cpu.search_batch(q16)
+            check(eng.last_trace["tuner_arm"] == cpu.last_trace["tuner_arm"], "same tuner arm")
+            arms.append(eng.last_trace["tuner_arm"])
+            r = results_agree(f"tuner arm {arms[-1]}", got, want)
+            tuner = {"equal": tuner["equal"] + r["equal"], "ties": tuner["ties"] + r["ties"],
+                     "max_err": max(tuner["max_err"], r["max_err"])}
+            for i in range(4):       # 32 feedback calls in all, the same on both
+                doc, relevant = got[i][step % len(got[i])].doc_id, (step + i) % 3 != 0
+                eng.record_feedback(doc, relevant)
+                cpu.record_feedback(doc, relevant)
+        check(eng.tuner._stats == cpu.tuner._stats, "tuner statistics equal")
+        out["tuner"] = {**tuner, "arms": arms}
+        for e in (eng, cpu):
+            e.tuner = None
+            e.clear_hot()
+            e.config = SearchEngineConfig()
+        log(f"[phase9] card == CPU on 16 queries: {json.dumps({k: out[k] for k in ('default', 'rescue', 'tuner')})}")
+
+        # -- persistence: save both indexes, reopen them in a fresh card engine
+        before = eng.search_batch(qs)
+        vdir = root / "vectors"
+        t = time.perf_counter()
+        eng.vector_index.save(vdir)
+        eng.lexical_index.save(vdir)
+        save_s = time.perf_counter() - t
+        disk = {f.name: f.stat().st_size for f in sorted(vdir.iterdir())}
+        t = time.perf_counter()
+        fresh = SearchEngine(kg_store=KnowledgeGraphStore(Database(root / "metadata.db")),
+                             device=dev)
+        fresh.vector_index = VectorIndex.load(
+            vdir, device_dtype=fresh.vector_index.device_dtype, device=dev)
+        fresh.lexical_index = LexicalIndex.load(vdir, fresh.lexical_index.config)
+        restore_slot_map(db, fresh)
+        fresh.add_entity_vectors(nodes, labels)     # the side index is not persisted
+        load_s = time.perf_counter() - t
+        after = fresh.search_batch(qs)
+        out["reopen"] = results_agree("reopened engine", after, before)
+        log(f"[phase9] {card}: saved the vector and lexical indexes in {save_s:.2f} s ({disk}); "
+            f"reopened in {load_s:.2f} s; 64 searches after == before: {out['reopen']}")
+        out.update(save_s=save_s, load_s=load_s, disk_bytes=disk)
+        del fresh, before, after
+
+        # -- phase 6's PQ4 index with windows of 64, so the unfiltered scan takes K4
+        pq_idx = VectorIndex(dim=pq_vi.dim, capacity=pq_vi.capacity,
+                             block_rows=pq_vi.block_rows, space_id=pq_vi.space_id, device=dev)
+        live = np.nonzero(pq_vi._valid[:pq_vi._count] > 0)[0]
+        check(len(live) == pq_vi._count, "phase 6's rows all live (codes align by row)")
+        pq_idx.add(pq_vi._vecs[live], pq_vi._slots[live])
+        load_pq_state(pq_idx, {**pq_state(pq_vi), "pq_group": np.asarray(64)})
+        check(pq_idx._pq_packed4 and pq_idx._pq_codebook.m == 32, "phase 6's PQ4 index, m 32")
+        t = time.perf_counter()
+        k3_before = pq_idx.search(qv, k=10, use_pallas=True)
+        k4_before = pq_idx.search_pq(qv, k=10, rerank="host")
+        pdir = root / "pq4"
+        pq_idx.save(pdir)
+        reloaded = VectorIndex.load(pdir, device=dev)
+        check(reloaded.has_pq and reloaded._pq_group == 64, "pq.npz reloaded")
+        k3_after = reloaded.search(qv, k=10, use_pallas=True)
+        k4_after = reloaded.search_pq(qv, k=10, rerank="host")
+        pq_s = time.perf_counter() - t
+        for name, (bv, bi), (av, ai) in (("K3", k3_before, k3_after), ("K4", k4_before, k4_after)):
+            check(np.array_equal(ai, bi) and np.array_equal(av, bv),
+                  f"{name} on the reloaded index == before the save")
+        del reloaded
+
+        # each kernel's route against its plain route on these inputs (D 384,
+        # a ragged 140,000-row index, m 32, group 64, B 64)
+        qd = torch.from_numpy(qv).to(dev)
+        E, valid, _, _ = pq_idx.device_arrays()
+        qb = qd.to(torch.bfloat16)
+        k3_plain = pq_idx.search(qv, k=10, use_pallas=False)
+        k3_err, k3_diff = check_topk(
+            "phase 9 K3 route vs the plain scan",
+            *(torch.from_numpy(a).to(dev) for a in (*k3_before, *k3_plain)),
+            lambda pos, ids: (qb[pos[:, 0]].double() * E[ids.long()].double()).sum(dim=1),
+            lambda pos, ids: valid[ids.long()] > 0, 1e-4)
+        # the ADC candidates that search_pq reranks: K4's (a comparison's
+        # launch, taken off the path's count) against the plain ADC scan's
+        c = min(10 * pq_idx._pq_rerank_factor, pq_idx.capacity)
+        n0 = pq_pallas.pq4_adc_cuda.launches
+        kv, ki = pq_idx._adc_candidates(qd, c)
+        check(pq_pallas.pq4_adc_cuda.launches == n0 + 1, "the ADC candidates come from K4")
+        pq_pallas.pq4_adc_cuda.launches = n0
+        mode = os.environ.get("YAMS_PQ_PALLAS")
+        os.environ["YAMS_PQ_PALLAS"] = "0"
+        try:
+            tv, ti = pq_idx._adc_candidates(qd, c)
+            k4_plain = pq_idx.search_pq(qv, k=10, rerank="host")
+        finally:
+            if mode is None:
+                os.environ.pop("YAMS_PQ_PALLAS")
+            else:
+                os.environ["YAMS_PQ_PALLAS"] = mode
+        codes, cents, pvalid, _ = pq_idx._pq_arrays()
+        lut = pq_lut(qd, cents).to(torch.bfloat16)
+        adc_err, adc_diff = check_topk(
+            "phase 9 K4 ADC candidates vs the plain ADC scan", kv, ki, tv, ti,
+            k4_true_score(lut, codes, pvalid), lambda pos, ids: pvalid[ids.long()] > 0, 1e-4)
+        # the reranked results, on the queries whose candidate sets are equal
+        # (the others differ by the near-ties checked above); the host rerank
+        # orders exact ties in no fixed way
+        same = np.asarray([set(a) == set(b) for a, b in zip(ki.tolist(), ti.tolist())])
+        qh = torch.from_numpy(qv[same]).double()
+        hv = torch.from_numpy(pq_idx._vecs)
+        hvalid = torch.from_numpy(pq_idx._valid)
+        k4_err, k4_diff = check_topk(
+            "phase 9 search_pq K4 route vs the plain route",
+            *(torch.from_numpy(a[same]) for a in (*k4_before, *k4_plain)),
+            lambda pos, ids: (qh[pos[:, 0]] * hv[ids.long()].double()).sum(dim=1),
+            lambda pos, ids: hvalid[ids.long()] > 0, 1e-4, ordered=False)
+        log(f"[phase9] PQ4 index ({len(live)} rows, m 32, group 64, capacity {pq_idx.capacity}): "
+            f"K3 and K4 ids and values equal before the save and after the reload "
+            f"({pq_s:.2f} s; pq.npz {(pdir / 'pq.npz').stat().st_size} B); K3 route vs the "
+            f"plain scan: max err {k3_err:.3g}, {k3_diff} ids differ; K4's {c} ADC "
+            f"candidates vs the plain ADC scan: max err {adc_err:.3g}, {adc_diff} ids differ; "
+            f"search_pq K4 route vs the plain route on the {int(same.sum())} of 64 queries "
+            f"with equal candidate sets: max err {k4_err:.3g}, {k4_diff} ids differ")
+        out.update(pq4_roundtrip_s=pq_s, k3_vs_plain=dict(max_err=k3_err, ids_differ=k3_diff),
+                   k4_adc_vs_plain=dict(max_err=adc_err, ids_differ=adc_diff),
+                   k4_search_vs_plain=dict(max_err=k4_err, ids_differ=k4_diff,
+                                           queries=int(same.sum())))
+        del pq_idx, E, valid, codes, cents, pvalid, lut
+
+        # -- an int8 index reloaded as int8
+        n8 = 16_384
+        idx8 = VectorIndex(dim=eng.vector_index.dim, capacity=n8, device_dtype="int8", device=dev)
+        idx8.add(eng.vector_index._vecs[:n8], eng.vector_index._slots[:n8])
+        want8 = [a.cpu() for a in idx8.device_arrays()]
+        idx8.save(root / "int8")
+        back8 = VectorIndex.load(root / "int8", device_dtype="int8", device=dev)
+        got8 = [a.cpu() for a in back8.device_arrays()]
+        check(back8.device_dtype == "int8" and got8[0].dtype == torch.int8, "int8 kept")
+        check(all(torch.equal(a[:n8], b[:n8]) for a, b in zip(want8, got8)),
+              "int8 codes and scales equal after the reload")
+        log(f"[phase9] int8 index of {n8} rows saved and reloaded: device_dtype int8, codes and "
+            "scales equal")
+        eng.kg = cpu.kg = None
+        return out
+    finally:
+        tmp.cleanup()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; nothing was run", file=sys.stderr)
@@ -1631,7 +2022,7 @@ def main() -> int:
     # each path runs with the counters zeroed just before it and read just after
     zero()
     add = phase("phase2", phase2_add, dev, data)
-    search, eng, queries = phase("phase3", phase3_search, dev)
+    search, eng, cpu, docs, queries = phase("phase3", phase3_search, dev)
     add_launches = read()
     log(f"[add path] kernel launches {add_launches}")
     for name in ("gear_hash_cuda", "sha256_cuda"):
@@ -1648,7 +2039,7 @@ def main() -> int:
         check(store_launches[name] >= 1, f"{name} launched on the vector store's path")
 
     zero()
-    engine_pq = phase("phase6", phase6_engine_pq, dev, eng, queries)
+    engine_pq, pq_index = phase("phase6", phase6_engine_pq, dev, eng, queries)
     engine_launches = read()
     log(f"[engine PQ path] kernel launches {engine_launches}")
     check(engine_launches["pq4_adc_cuda"] == 0,
@@ -1669,10 +2060,18 @@ def main() -> int:
     log(f"[streaming and int8 path] kernel launches {stream_launches} (its products, "
         "top-C and aggregations are torch operations: no hand kernel yet)")
 
+    zero()
+    kg = phase("phase9", phase9_kg, dev, card, eng, cpu, docs, queries,
+               search["steady_search_ms"], pq_index)
+    kg_launches = read()
+    log(f"[KG and persistence path] kernel launches {kg_launches}")
+    for name in ("exact_topk_cuda", "pq4_adc_cuda"):
+        check(kg_launches[name] >= 1, f"{name} launched on a reloaded index")
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("yams_tpu", "jax", "jaxlib", "flax"))
     check(not loaded, f"no module of yams_tpu, jax, jaxlib or flax loaded (found {loaded})")
-    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'torch': torch.__version__})}")
+    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'torch': torch.__version__})}")
 
     sources = {
         "gear_hash_cuda": ("yams_tpu_torch/csrc/gear_hash.cu", "yams_tpu/ops/cdc.py:65",
@@ -1699,6 +2098,8 @@ def main() -> int:
                         "bound_bytes": k["bound_bytes"], "bound_ops": k["bound_ops"],
                         **{key: k[key] for key in ("dot_f32_ms", "tflops", "dot_f32_tflops",
                                                    "large_k", "rising_ms") if key in k}})
+        if name in ("exact_topk_cuda", "pq4_adc_cuda"):
+            records[-1]["launches_phase9"] = kg_launches[name]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -128,11 +128,37 @@ def test_engine_matches_reference_after_direct_adds(engines):
     {"semantic_rescue_slots": 2},
 ])
 def test_unported_engine_paths_refuse(engines, change):
+    """Topology routing refuses. The tuner and semantic rescue refused until
+    the port had them: each now matches the reference on the same adds (the
+    tuner after the same feedback, with the same arm chosen). Both run the
+    CSR lexical leg: the packed leg's BM25 sums drift a few ulps from the
+    reference's, which reorders near-tied docs, and the RRF term of the
+    arms that weight it more (vector_heavy, rrf_heavy) turns one rank into
+    ~6e-4 of fused score."""
     _, docs, queries = engines
-    port = SearchEngine(SearchEngineConfig(**change), device=CPU)
+    from yams_tpu_torch.core.config import LexicalIndexConfig as PortLexical
+    port = SearchEngine(SearchEngineConfig(**change), lexical=PortLexical(packed_max_entries=0),
+                        device=CPU)
     port.add_documents(docs[:20])
-    with pytest.raises(NotImplementedError):
-        port.search_batch(queries[:2])
+    if "topology_policy" in change:
+        with pytest.raises(NotImplementedError):
+            port.search_batch(queries[:2])
+        return
+    from yams_tpu.search.tuner import SearchTuner as RefTuner
+    from yams_tpu_torch.search.tuner import SearchTuner
+    ref = RefEngine(RefConfig(**change), lexical=LexicalIndexConfig(packed_max_entries=0))
+    ref.add_documents(docs[:20])
+    if "tuner_enabled" in change:
+        ref.tuner, port.tuner = RefTuner(), SearchTuner()
+        for i in range(10):
+            want, got = ref.search_batch(queries[:4]), port.search_batch(queries[:4])
+            assert port.last_trace["tuner_arm"] == ref.last_trace["tuner_arm"]
+            _compare(want, got, min_equal=1.0)
+            ref.record_feedback(docs[i][0], relevant=i % 2 == 0)
+            port.record_feedback(docs[i][0], relevant=i % 2 == 0)
+        assert port.tuner._stats == ref.tuner._stats
+    for k in (3, 10):
+        _compare(ref.search_batch(queries, k=k), port.search_batch(queries, k=k))
 
 
 def test_content_store_device_tier_matches_reference_host_path(tmp_path, monkeypatch):

@@ -13,7 +13,8 @@ state). Here each copy and its original get the same seeded inputs:
 - VectorIndex host state is the same after the same mutations;
 - query understanding (search/query.py): intents, their leg-weight
   multipliers, qualifiers, fuzzy correction, expansions and routing plans
-  are the same for the same queries, and the copy's code is the original's;
+  are the same for the same queries, and the copy's code is the original's,
+  as it is for the SQLite store, the knowledge graph and the search tuner;
 - a repository written by the port's ContentStore is read back by the
   reference's, and the other way round, with whole-content dedup across.
 """
@@ -332,3 +333,20 @@ def test_query_module_is_the_reference_code():
         return ast.dump(tree)
 
     assert body(port_query) == body(ref_query)
+
+
+@pytest.mark.parametrize("name", ["metadata.db", "metadata.kg", "search.tuner"])
+def test_copied_module_is_the_reference_code(name):
+    """The SQLite store, the knowledge graph and the search tuner: past the
+    module docstring each copy is the original, line for line."""
+    import ast
+    import importlib
+    import inspect
+
+    def body(mod):
+        tree = ast.parse(inspect.getsource(mod))
+        tree.body = tree.body[1:]                 # the docstring
+        return ast.dump(tree)
+
+    assert body(importlib.import_module(f"yams_tpu_torch.{name}")) == \
+        body(importlib.import_module(f"yams_tpu.{name}"))

@@ -7,7 +7,8 @@
   modules import, and a tiny add -> search runs on the CPU: device
   chunk + hash, a ContentStore round trip, and SearchEngine searches
   (with an intent, so search/query.py runs; with feedback; on the int8
-  tier).
+  tier), and the KG leg over the port's own SQLite store with the tuner,
+  then the indexes saved and reopened.
 - Statically, no file under yams_tpu_torch/ (nor chip_smoke.py) names
   yams_tpu in an import statement or in an importlib / __import__ call.
 - Every entry point runs on the card unless the caller asks for the CPU:
@@ -86,6 +87,32 @@ def test_port_imports_and_runs_with_the_reference_refused(tmp_path):
         q8 = SearchEngine(vector=VectorIndexConfig(dtype="int8"), device=cpu)
         q8.add_documents([(1, "thread scheduler preempts", "sched")])
         assert q8.search("scheduler")[0].doc_id == 1
+        # the KG leg over the port's own SQLite store, the tuner, and the
+        # indexes saved and reopened
+        from yams_tpu_torch.index.lexical_index import LexicalIndex
+        from yams_tpu_torch.index.vector_index import VectorIndex
+        from yams_tpu_torch.metadata import Database, KnowledgeGraphStore
+        from yams_tpu_torch.search.tuner import SearchTuner
+        db = Database({str(tmp_path / "m.db")!r})
+        db.execute("INSERT INTO documents (id, file_path, file_name, sha256_hash,"
+                   " created_time, modified_time, indexed_time) VALUES (1,'/a','a','0',0,0,0)")
+        kg = KnowledgeGraphStore(db)
+        kgeng = SearchEngine(kg_store=kg, device=cpu)
+        kgeng.tuner = SearchTuner()
+        kgeng.add_documents([(1, "thread scheduler preempts", "sched"),
+                             (2, "chunk hashing and dedup", "cas")])
+        node = kg.upsert_node("entity:preemption", label="preemption")
+        kg.add_alias(node, "preemption")
+        kg.link_document(1, node, "preemption", 0.9)
+        kgeng.add_entity_vectors([node], ["preemption"])
+        hit = kgeng.search("preemption")[0]
+        assert hit.doc_id == 1 and hit.kg_score > 0
+        kgeng.record_feedback(1)
+        kgeng.vector_index.save({str(tmp_path / "idx")!r})
+        kgeng.lexical_index.save({str(tmp_path / "idx")!r})
+        kgeng.vector_index = VectorIndex.load({str(tmp_path / "idx")!r}, device=cpu)
+        kgeng.lexical_index = LexicalIndex.load({str(tmp_path / "idx")!r})
+        assert kgeng.search("preemption")[0].doc_id == 1
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in {REFUSED!r})
         print(len(names), loaded)
     """)

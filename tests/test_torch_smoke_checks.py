@@ -188,3 +188,61 @@ def test_fused_agree_refuses_a_far_doc():
         smoke.fused_agree("far", vals, ids, vals, other)
     with pytest.raises(RuntimeError, match="fused values"):
         smoke.fused_agree("values", vals, ids, vals + 1e-3, ids)
+
+
+def _results(pairs):
+    from yams_tpu_torch.search.engine import SearchResult
+    return [SearchResult(doc_id=d, score=s) for d, s in pairs]
+
+
+def test_results_agree_passes_equal_lists_and_names_a_tie():
+    """Phase 9's comparison of two engines' results: equal lists pass; two
+    docs 5e-6 apart in other places are a tie, counted and accepted."""
+    want = [_results([(1, 0.9), (2, 0.7), (3, 0.700005), (4, 0.5)])]
+    assert smoke.results_agree("same", want, want) == {"equal": 1, "ties": 0, "max_err": 0.0}
+    swapped = [_results([(1, 0.9), (3, 0.700004), (2, 0.700001), (4, 0.5)])]
+    got = smoke.results_agree("swap", swapped, want)
+    assert got["equal"] == 0 and got["ties"] == 2 and got["max_err"] <= 1e-5
+
+
+def test_results_agree_refuses_a_far_doc_and_a_far_score():
+    want = [_results([(1, 0.9), (2, 0.7), (4, 0.5)])]
+    with pytest.raises(RuntimeError, match="no tie"):
+        smoke.results_agree("far", [_results([(9, 0.9), (2, 0.7), (4, 0.5)])], want)
+    with pytest.raises(RuntimeError, match="scores within"):
+        smoke.results_agree("score", [_results([(1, 0.9), (2, 0.7002), (4, 0.5)])], want)
+    with pytest.raises(RuntimeError, match="results against"):
+        smoke.results_agree("short", [_results([(1, 0.9)])], want)
+
+
+def test_kg_graph_links_documents_to_labels_in_their_text():
+    docs, _ = smoke.make_docs(300, 3)
+    from yams_tpu_torch.scripts.kg_fixture import kg_graph
+    labels, links = kg_graph(docs, n_nodes=500, seed=1)
+    assert len(labels) == len(set(labels)) == 500
+    assert all(1 <= len(label.split()) <= 3 for label in labels)
+    text = {d: f" {title} {body.rstrip('.')} " for d, body, title in docs}
+    assert [d for d, _ in links] == [d for d, _, _ in docs]
+    for d, ents in links:
+        assert len(ents) <= 5
+        for e, conf in ents:
+            assert f" {labels[e]} " in text[d] and 0.4 <= conf <= 1.0
+    assert sum(len(ents) for _, ents in links) >= len(docs)
+
+
+def test_restore_slot_map_fills_gaps(tmp_path):
+    from yams_tpu_torch.metadata import Database
+    from yams_tpu_torch.services.app import restore_slot_map
+    db = Database(tmp_path / "m.db")
+    db.execute("INSERT INTO documents (id, file_path, file_name, sha256_hash, created_time,"
+               " modified_time, indexed_time) VALUES (7, '/a', 'a', 'x', 0, 0, 0),"
+               " (9, '/b', 'b', 'y', 0, 0, 0)")
+    db.execute("INSERT INTO metadata (document_id, key, value) VALUES (7, '__slot__', '2'),"
+               " (9, '__slot__', '0')")
+
+    class Engine:
+        pass
+
+    eng = Engine()
+    restore_slot_map(db, eng)
+    assert eng._doc_by_slot == [9, -1, 7] and eng._slot_by_doc == {9: 0, 7: 2}

@@ -237,9 +237,10 @@ def test_port_build_pq_searches():
 
 @pytest.mark.parametrize("call", ["int8", "sharded", "load"])
 def test_unported_tiers_refuse(call, tmp_path):
-    """Sharded views and persistence refuse. The int8 tier refused until the
-    port had it: it now uploads the reference's int8 codes, and an unknown
-    device dtype raises."""
+    """Sharded views refuse. The int8 tier and persistence refused until the
+    port had them: the int8 tier uploads the reference's int8 codes (an
+    unknown device dtype raises), and a reference index saved with PQ
+    reloads in the port with equal rows and searches."""
     if call == "int8":
         ref, port = _pair(dtype="int8")
         for idx in (ref, port):
@@ -249,11 +250,24 @@ def test_unported_tiers_refuse(call, tmp_path):
         with pytest.raises(ValueError, match="device_dtype"):
             VectorIndex(dim=DIM, device_dtype="float16", device=CPU)
         return
+    if call == "load":
+        ref, _ = _pair()
+        vecs = _unit(300, seed=4)
+        ref.add(vecs, list(range(300)))
+        ref.remove_doc(11)
+        ref.build_pq(m=16, ksub=16, pack4=True, rerank_factor=4, group=8)
+        ref.save(tmp_path)
+        port = VectorIndex.load(tmp_path, device=CPU)
+        assert np.array_equal(port._vecs[:300], ref._vecs[:300])
+        assert port._free == ref._free and port._rows_by_slot == ref._rows_by_slot
+        for got, want in ((port.search(vecs[:9], k=5), ref.search(vecs[:9], k=5)),
+                          (port.search_pq(vecs[:9], k=5, rerank="host"),
+                           ref.search_pq(vecs[:9], k=5, rerank="host"))):
+            assert np.array_equal(got[1], np.asarray(want[1]))
+            np.testing.assert_allclose(got[0], np.asarray(want[0]), atol=1e-6, rtol=0)
+        return
     with pytest.raises(NotImplementedError):
-        if call == "sharded":
-            _pair()[1].sharded_device_arrays(mesh=None)
-        else:
-            VectorIndex.load(tmp_path)
+        _pair()[1].sharded_device_arrays(mesh=None)
 
 
 # -- the int8 device tier ----------------------------------------------------------

@@ -4,12 +4,17 @@
 (or of a port engine, which keeps the same host layout) into a flat dict of
 NumPy arrays: vector rows, validity and row -> slot map, free rows, the
 slot <-> doc maps, titles, the lexical vocabulary, per-doc term
-frequencies, doc lengths and width, and, when the index has PQ codebooks,
-the PQ state (centroids, capacity-sized codes, packing, group, rerank
-factor, selection width, rows at the last build). `load_state(port_engine,
-state)` installs it into a port engine, after which both engines compute
-the same searches with the same codebook. Postings, impacts and device
-views are derived state and are rebuilt on the next search.
+frequencies, doc lengths and width, the rows of the entity side index
+(KG node label vectors, slot == node id), the search tuner's per-profile
+arm statistics when the engine has a tuner, and, when the index has PQ
+codebooks, the PQ state (centroids, capacity-sized codes, packing, group,
+rerank factor, selection width, rows at the last build).
+`load_state(port_engine, state)` installs it into a port engine (tuner
+statistics only into an engine given a SearchTuner, as the source engine
+was), after which both engines compute the same searches with the same
+codebook and choose the same tuner arms. Postings, impacts and device views
+are derived state and are rebuilt on the next search. The KG itself lives
+in its SQLite file, which both packages open.
 """
 
 from __future__ import annotations
@@ -24,10 +29,35 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _rows_state(vi, prefix: str) -> dict[str, np.ndarray]:
+    n = vi._count
+    return {f"{prefix}_rows": vi._vecs[:n].copy(),
+            f"{prefix}_valid": vi._valid[:n].copy(),
+            f"{prefix}_slots": vi._slots[:n].copy(),
+            f"{prefix}_free": np.asarray(vi._free, np.int64)}
+
+
+def _install_rows(vi, state: dict[str, np.ndarray], prefix: str) -> None:
+    rows = state[f"{prefix}_rows"].astype(np.float32)
+    valid, slots = state[f"{prefix}_valid"], state[f"{prefix}_slots"]
+    n = len(rows)
+    if n > vi.capacity:
+        vi._grow(n)
+    vi._vecs[:n] = rows
+    vi._valid[:n] = valid
+    vi._slots[:n] = slots
+    vi._count = n
+    vi._free = [int(r) for r in state[f"{prefix}_free"]]
+    vi._rows_by_slot = {}
+    for r in np.nonzero(valid > 0)[0]:
+        vi._rows_by_slot.setdefault(int(slots[r]), []).append(int(r))
+    vi._mark_dirty(np.arange(n, dtype=np.int64))
+    vi._dirty_full = True
+
+
 def state_from_jax(engine) -> dict[str, np.ndarray]:
     vi = engine.vector_index
     lex = engine.lexical_index
-    n = vi._count
     slots_in_docs = sorted(lex._docs)
     doc_tids, doc_tfs, doc_ptr = [], [], [0]
     for s in slots_in_docs:
@@ -38,10 +68,8 @@ def state_from_jax(engine) -> dict[str, np.ndarray]:
     vocab = sorted(lex._vocab.items(), key=lambda kv: kv[1])
     doc_ids = np.asarray(engine._doc_by_slot, np.int64)
     state = {
-        "vec_rows": vi._vecs[:n].copy(),
-        "vec_valid": vi._valid[:n].copy(),
-        "vec_slots": vi._slots[:n].copy(),
-        "vec_free": np.asarray(vi._free, np.int64),
+        **_rows_state(vi, "vec"),
+        **_rows_state(engine.entity_index, "ent"),
         "doc_by_slot": doc_ids,
         "titles": np.asarray([engine._titles.get(int(d), "") for d in doc_ids],
                              dtype=object),
@@ -56,7 +84,37 @@ def state_from_jax(engine) -> dict[str, np.ndarray]:
     }
     if vi.has_pq:
         state.update(pq_state(vi))
+    if engine.tuner is not None:
+        state.update(tuner_state(engine.tuner))
     return state
+
+
+def tuner_state(tuner) -> dict[str, np.ndarray]:
+    """A SearchTuner's arm names, and per corpus profile its (pulls, total
+    reward) per arm and the last arm it chose (-1: none yet)."""
+    profiles = sorted(tuner._stats)
+    n_arms = max([len(tuner.arms)] + [len(tuner._stats[p]) for p in profiles])
+    stats = np.zeros((len(profiles), n_arms, 2), np.float64)
+    for i, p in enumerate(profiles):
+        stats[i, :len(tuner._stats[p])] = tuner._stats[p]
+    return {
+        "tuner_arms": np.asarray([a.name for a in tuner.arms], dtype=object),
+        "tuner_profiles": np.asarray(profiles, dtype=object),
+        "tuner_stats": stats,
+        "tuner_last_arm": np.asarray([tuner._last_arm.get(p, -1) for p in profiles],
+                                     np.int64),
+    }
+
+
+def load_tuner_state(tuner, state: dict[str, np.ndarray]) -> None:
+    """Install `tuner_state` output into a port SearchTuner with the same arms."""
+    names = [str(a) for a in state["tuner_arms"]]
+    if [a.name for a in tuner.arms] != names:
+        raise ValueError(f"tuner arms differ: {names}")
+    tuner._stats = {str(p): [list(map(float, row)) for row in stats]
+                    for p, stats in zip(state["tuner_profiles"], state["tuner_stats"])}
+    tuner._last_arm = {str(p): int(a) for p, a in
+                       zip(state["tuner_profiles"], state["tuner_last_arm"]) if a >= 0}
 
 
 def pq_state(vi) -> dict[str, np.ndarray]:
@@ -76,23 +134,17 @@ def load_state(engine, state: dict[str, np.ndarray]) -> None:
     """Install `state` into an EMPTY port engine."""
     if engine._doc_by_slot:
         raise ValueError("load_state needs an empty engine")
+    if "tuner_stats" in state and engine.tuner is None:
+        raise ValueError("the state carries tuner statistics: give the engine a "
+                         "SearchTuner first (engine.tuner), as the source engine has")
     vi = engine.vector_index
-    rows = state["vec_rows"].astype(np.float32)
-    n = len(rows)
-    if n > vi.capacity:
-        vi._grow(n)
-    vi._vecs[:n] = rows
-    vi._valid[:n] = state["vec_valid"]
-    vi._slots[:n] = state["vec_slots"]
-    vi._count = n
-    vi._free = [int(r) for r in state["vec_free"]]
-    vi._rows_by_slot = {}
-    for r in np.nonzero(state["vec_valid"] > 0)[0]:
-        vi._rows_by_slot.setdefault(int(state["vec_slots"][r]), []).append(int(r))
-    vi._mark_dirty(np.arange(n, dtype=np.int64))
-    vi._dirty_full = True
+    _install_rows(vi, state, "vec")
     if "pq_centroids" in state:
         load_pq_state(vi, state)
+    if "ent_rows" in state:
+        _install_rows(engine.entity_index, state, "ent")
+    if "tuner_stats" in state:
+        load_tuner_state(engine.tuner, state)
 
     engine._doc_by_slot = [int(d) for d in state["doc_by_slot"]]
     engine._slot_by_doc = {d: s for s, d in enumerate(engine._doc_by_slot)}

@@ -11,14 +11,20 @@ vectors and the per-query arm router. What the port adds:
     mutation;
   - `prefilter_tail_ratio` reads the current CSR build instead of
     rebuilding it on every call (the statistic reads only offsets, lengths
-    and impacts, which do not depend on the doc-space width).
+    and impacts, which do not depend on the doc-space width);
+  - `load` unpickles plain containers and numbers only (`_PlainUnpickler`):
+    `save` writes nothing else, so either package reads the other's
+    lexical.pkl, and a file that names any class is refused.
 
-Persistence, the dense BM25 oracle `search`, concept mining and the df view
-(the KG and PRF legs) are not copied: nothing in the port reaches them.
+`save`, `load` and `df_view` are the reference's. The dense BM25 oracle
+`search` and concept mining are not copied: nothing in the port reaches them.
 """
 
 from __future__ import annotations
 
+import json
+import pathlib
+import pickle
 import threading
 
 import numpy as np
@@ -27,6 +33,13 @@ import torch
 from ..core.config import LexicalIndexConfig
 from ..embed.simeon import light_stem, tokenize
 from ..ops.bm25 import Bm25Arrays, pack_postings_2d
+
+
+class _PlainUnpickler(pickle.Unpickler):
+    """Builds dicts, lists, strings and numbers; refuses every global."""
+
+    def find_class(self, module, name):
+        raise pickle.UnpicklingError(f"lexical.pkl names {module}.{name}")
 
 
 class LexicalIndex:
@@ -441,6 +454,54 @@ class LexicalIndex:
             if dfs and all(df <= max(4, n_docs // 20) for df in dfs):
                 return "lead_field"
         return "bm25"
+
+    # -- persistence -----------------------------------------------------------------
+    def save(self, directory: str | pathlib.Path) -> None:
+        d = pathlib.Path(directory)
+        d.mkdir(parents=True, exist_ok=True)
+        with self._lock, open(d / "lexical.pkl", "wb") as f:
+            pickle.dump(
+                {"vocab": self._vocab, "docs": self._docs, "doc_len": self._doc_len,
+                 "num_slots": self._num_slots},
+                f,
+            )
+        (d / "lexical.json").write_text(
+            json.dumps({"docs": len(self._docs), "vocab": len(self._vocab)})
+        )
+
+    @classmethod
+    def load(
+        cls, directory: str | pathlib.Path, config: LexicalIndexConfig | None = None
+    ) -> "LexicalIndex":
+        idx = cls(config)
+        with open(pathlib.Path(directory) / "lexical.pkl", "rb") as f:
+            state = _PlainUnpickler(f).load()
+        idx._vocab = state["vocab"]
+        for term, tid in idx._vocab.items():
+            idx._stem_index.setdefault(light_stem(term), []).append(tid)
+        idx._docs = state["docs"]
+        idx._doc_len = state["doc_len"]
+        idx._num_slots = state["num_slots"]
+        # rebuild the inverted map; every term starts dirty
+        for slot, tf in idx._docs.items():
+            for tid, f in tf.items():
+                idx._postings.setdefault(tid, {})[slot] = f
+        idx._dirty_terms.update(idx._postings.keys())
+        idx._dirty = True
+        return idx
+
+    def df_view(self):
+        """dict-like term -> document frequency (for PMI-ranked PRF)."""
+        idx = self
+
+        class _Df:
+            def get(self, term, default=0):
+                tid = idx._vocab.get(term)
+                if tid is None:
+                    return default
+                return len(idx._postings.get(tid, {})) or default
+
+        return _Df()
 
     def stats(self) -> dict:
         return {"docs": len(self._docs), "vocab": len(self._vocab)}

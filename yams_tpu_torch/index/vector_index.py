@@ -19,22 +19,31 @@ asks for the CPU):
   - build_pq / _pq_arrays / search_pq: the PQ tiers. The unfiltered grouped
     PQ4 scan goes to kernel K4 (`_use_pallas_adc`), everything else to the
     plain pq_adc_topk. The device rerank of an int8 index reads a bf16
-    mirror uploaded once and spliced with the PQ state.
+    mirror uploaded once and spliced with the PQ state;
+  - save / load: the reference's files (vectors.npz, vectors.json and the
+    pq.npz sidecar, format v3, with its v1 -> v2 -> v3 migrations), read
+    and written with NumPy alone, so either package loads the other's.
+    `load` takes the device dtype and the device: the reference's loader
+    passes no dtype, so an int8 index it reopens comes back bf16.
 
-Sharded views and persistence are not ported.
+Sharded views are not ported.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import pathlib
 import threading
+import time
 
 import numpy as np
 import torch
 
-from ..core.errors import InvalidArgumentError
+from ..core.errors import CorruptionError, InvalidArgumentError, UnsupportedError
 from ..device import resolve_device
-from ..ops.pq import exact_rerank, pq4_pack, pq_adc_topk, pq_encode, pq_train
+from ..ops.pq import (PQCodebook, exact_rerank, pq4_pack, pq_adc_topk, pq_encode,
+                      pq_train)
 from ..ops.pq_pallas import pq4_adc_topk_pallas
 from ..ops.scan import exact_topk_pallas, exact_topk_scan, int8_topk_scan, quantize_int8
 
@@ -252,10 +261,6 @@ class VectorIndex:
     def sharded_device_arrays(self, mesh, axis: str = "d"):
         raise NotImplementedError("sharded device views are not ported")
 
-    @classmethod
-    def load(cls, directory):
-        raise NotImplementedError("VectorIndex persistence is not ported")
-
     def _gather_blocks(self, src: np.ndarray, blocks: list[int]):
         """Stack dirty blocks for one batched splice. Padded to a power of
         two by repeating the last block (re-splicing the same rows is
@@ -373,6 +378,25 @@ class VectorIndex:
         (the exact rerank still sees every window's best)."""
         return min(c, self.capacity // group)
 
+    def _adc_candidates(self, q: torch.Tensor, c: int, dm: torch.Tensor | None = None):
+        """The ADC scan's top-c candidates of device queries q -> (values,
+        rows), each (B, c'): K4 on the unfiltered grouped PQ4 tier (one
+        candidate a window, so c' may be below c), else the plain scan with
+        the doc mask dm."""
+        codes, centroids, valid, slots = self._pq_arrays()
+        group = self._pq_group
+        if self._use_pallas_adc(self._pq_packed4, group, centroids, dm):
+            # the kernel's block is independent of the index block: capacity
+            # is a power-of-two multiple of it, so min(2048, capacity) divides it
+            return pq4_adc_topk_pallas(
+                q, codes, centroids, valid, self._pallas_adc_candidates(c, group),
+                group=group, block_rows=min(2048, self.capacity),
+                sel_width=int(getattr(self, "_pq_sel_width", 0)))
+        return pq_adc_topk(
+            q, codes, centroids, valid, k=c, block_rows=self.block_rows,
+            packed4=self._pq_packed4, group=group,
+            slots=slots if dm is not None else None, doc_mask=dm)
+
     def search_pq(self, queries: np.ndarray, k: int = 10, rerank: str = "auto",
                   doc_mask: np.ndarray | None = None):
         """ADC scan + exact rerank x rerank_factor -> (values, row indices).
@@ -385,29 +409,14 @@ class VectorIndex:
         if not self.has_pq:
             raise RuntimeError("call build_pq() first")
         q = self._queries(queries)
-        codes, centroids, valid, slots = self._pq_arrays()
         if rerank == "auto":
             rerank = "device" if self._device is not None else "host"
-        c = min(k * self._pq_rerank_factor, self.capacity)
         dm = None
         if doc_mask is not None:
             dm = np.asarray(doc_mask, np.float32)
             dm = torch.from_numpy(dm[None, :] if dm.ndim == 1 else dm).to(self.device)
-        group = self._pq_group
-        if self._use_pallas_adc(self._pq_packed4, group, centroids, dm):
-            # the kernel's block is independent of the index block: capacity
-            # is a power-of-two multiple of it, so min(2048, capacity) divides it
-            c = self._pallas_adc_candidates(c, group)
-            av, ai = pq4_adc_topk_pallas(
-                q, codes, centroids, valid, c, group=group,
-                block_rows=min(2048, self.capacity),
-                sel_width=int(getattr(self, "_pq_sel_width", 0)))
-        else:
-            av, ai = pq_adc_topk(
-                q, codes, centroids, valid, k=c, block_rows=self.block_rows,
-                packed4=self._pq_packed4, group=group,
-                slots=slots if dm is not None else None, doc_mask=dm)
-        k_out = min(k, c)
+        av, ai = self._adc_candidates(q, min(k * self._pq_rerank_factor, self.capacity), dm)
+        k_out = min(k, av.shape[1])
         if rerank == "host":
             cand = ai.cpu().numpy()                          # (B, C)
             qh = q.cpu().numpy()
@@ -431,6 +440,131 @@ class VectorIndex:
             E = self.device_arrays()[0]
         vals, idx = exact_rerank(q, E, ai, av, -1e29, k=k_out)
         return vals.cpu().numpy(), idx.cpu().numpy()
+
+    # -- persistence -----------------------------------------------------------------
+    # The reference's versioned on-disk schema: v1 = no version stamp; v2
+    # adds format_version + disk_dtype (float16 disk storage; load widens
+    # back to float32); v3 adds the optional pq.npz sidecar (codebooks +
+    # codes, so a restart never retrains or re-encodes).
+    FORMAT_VERSION = 3
+
+    def save(self, directory: str | pathlib.Path,
+             disk_dtype: str = "float32") -> None:
+        d = pathlib.Path(directory)
+        d.mkdir(parents=True, exist_ok=True)
+        with self._lock:
+            np.savez_compressed(
+                d / "vectors.npz",
+                vecs=self._vecs[: self._count].astype(disk_dtype),
+                valid=self._valid[: self._count],
+                slots=self._slots[: self._count],
+            )
+            if self.has_pq:
+                cb = self._pq_codebook
+                np.savez_compressed(
+                    d / "pq.npz",
+                    codes=self._pq_codes[: self._count],
+                    centroids=cb.centroids.cpu().numpy().astype(np.float32),
+                    params=np.array(
+                        [cb.m, cb.ksub, cb.dsub,
+                         int(getattr(self, "_pq_packed4", False)),
+                         self._pq_rerank_factor,
+                         getattr(self, "_pq_built_rows", self._count),
+                         getattr(self, "_pq_group", 1)],
+                        np.int64),
+                )
+            elif (d / "pq.npz").exists():
+                (d / "pq.npz").unlink()  # stale sidecar from a prior build
+            (d / "vectors.json").write_text(json.dumps({
+                "format_version": self.FORMAT_VERSION,
+                "disk_dtype": disk_dtype,
+                "dim": self.dim,
+                "count": self._count,
+                "space_id": self.space_id,
+                "block_rows": self.block_rows,
+                "has_pq": self.has_pq,
+                "saved_at": time.time(),
+            }))
+
+    @staticmethod
+    def _migrate_v1_to_v2(meta: dict, data: dict) -> tuple[dict, dict]:
+        """v1 had no version stamp and always float32 vecs; validate shapes
+        (v1 wrote no dtype contract) and stamp the v2 fields."""
+        vecs = data["vecs"]
+        if vecs.ndim != 2 or vecs.shape[1] != meta["dim"]:
+            raise CorruptionError(
+                f"v1 index shape {vecs.shape} inconsistent with dim "
+                f"{meta['dim']}")
+        data["vecs"] = vecs.astype(np.float32)
+        meta["format_version"] = 2
+        meta["disk_dtype"] = "float32"
+        return meta, data
+
+    @staticmethod
+    def _migrate_v2_to_v3(meta: dict, data: dict) -> tuple[dict, dict]:
+        """v3 only adds the optional pq.npz sidecar; a v2 tree is a valid v3
+        tree with no persisted PQ state."""
+        meta["format_version"] = 3
+        meta["has_pq"] = False
+        return meta, data
+
+    _MIGRATIONS = {1: "_migrate_v1_to_v2", 2: "_migrate_v2_to_v3"}
+
+    @classmethod
+    def load(cls, directory: str | pathlib.Path, *, device_dtype: str = "bfloat16",
+             device: str | torch.device = "cuda") -> "VectorIndex":
+        """Reopen a saved index as `device_dtype` on `device`; the PQ
+        centroids go to the device as a torch tensor."""
+        d = pathlib.Path(directory)
+        meta = json.loads((d / "vectors.json").read_text())
+        with np.load(d / "vectors.npz") as raw:
+            data = {k: raw[k] for k in raw.files}
+        version = int(meta.get("format_version", 1))
+        if version > cls.FORMAT_VERSION:
+            raise UnsupportedError(
+                f"vector index format v{version} is newer than this build "
+                f"(max v{cls.FORMAT_VERSION})")
+        while version < cls.FORMAT_VERSION:
+            meta, data = getattr(cls, cls._MIGRATIONS[version])(meta, data)
+            version = int(meta["format_version"])
+        idx = cls(
+            dim=meta["dim"],
+            capacity=max(meta["count"], 1),
+            block_rows=meta["block_rows"],
+            space_id=meta.get("space_id", ""),
+            device_dtype=device_dtype,
+            device=device,
+        )
+        n = meta["count"]
+        if n:
+            idx._vecs[:n] = data["vecs"]      # widened to float32 on assignment
+            idx._valid[:n] = data["valid"]
+            idx._slots[:n] = data["slots"]
+            idx._count = n
+            for r in range(n):
+                s = int(idx._slots[r])
+                if idx._valid[r]:
+                    idx._rows_by_slot.setdefault(s, []).append(r)
+                else:
+                    idx._free.append(r)
+        if meta.get("has_pq") and (d / "pq.npz").exists():
+            with np.load(d / "pq.npz") as pq:
+                params = [int(x) for x in pq["params"]]
+                centroids = np.asarray(pq["centroids"], np.float32)
+                saved_codes = pq["codes"]
+            m, ksub, dsub, packed4, rerank = params[:5]
+            idx._pq_codebook = PQCodebook(
+                centroids=torch.from_numpy(centroids).to(idx.device), m=m,
+                ksub=ksub, dsub=dsub)
+            codes = np.zeros((idx.capacity, saved_codes.shape[1]), np.uint8)
+            codes[:n] = saved_codes
+            idx._pq_codes = codes
+            idx._pq_packed4 = bool(packed4)
+            idx._pq_rerank_factor = rerank
+            idx._pq_built_rows = params[5] if len(params) > 5 else n
+            idx._pq_group = params[6] if len(params) > 6 else 1
+            idx._pq_device = None
+        return idx
 
     def stats(self) -> dict:
         return {

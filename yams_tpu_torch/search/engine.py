@@ -9,11 +9,14 @@ bf16 or int8 corpus, the materialized or, on a flat corpus above
 aggregation, intent-adaptive leg weights), the PQ capacity tier (`ensure_pq`
 and search_batch's `use_pq` branch, engine.py:498-535, 849-897), the
 hotzone (`touch_hot`, `clear_hot`, `record_feedback`: boosts h / (1 + h)
-on the device, rebuilt only when they or the slot layout change), `stats`
-and the result glue (:1137-1216). The host state lives in the port's
-VectorIndex / LexicalIndex, copies of the reference's host code with torch
-device views, so both engines hold identical state for identical adds. It
-runs on the card unless the caller asks for the CPU.
+on the device, rebuilt only when they or the slot layout change), `stats`,
+the knowledge-graph leg over a `kg_store` (alias matches and the entity
+side index, `add_entity_vectors`, searched once a batch on the device), the
+graph rerank, the `cross_reranker` hook, semantic rescue, the search tuner's
+arms and rewards, and the result glue (:1131-1216). The host state lives in
+the port's VectorIndex / LexicalIndex, copies of the reference's host code
+with torch device views, so both engines hold identical state for identical
+adds. It runs on the card unless the caller asks for the CPU.
 
 The PQ tier's vector leg is `VectorIndex.search_pq` with the doc mask
 always pushed into the scan (all ones over the used slots when unfiltered),
@@ -21,14 +24,17 @@ as in the reference, so it runs the plain pq_adc_topk and never the K4
 kernel, whose route is the unfiltered scan only.
 
 Not ported, and refused loudly (NotImplementedError) rather than skipped:
-topology routing, the KG and graph legs, the search tuner (so feedback
-feeds the hotzone alone), sharded serving, the narrow gather tier, late
-interaction (ColBERT) and fragment geometry, and semantic rescue.
+topology routing (the policies other than "off" and "shadow"), sharded
+serving, the narrow gather tier, late interaction (ColBERT) and fragment
+geometry. The reference's `provider` argument (non-Simeon embedders) has no
+counterpart yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import heapq
+import math
 import threading
 import time
 
@@ -39,12 +45,14 @@ from ..core.config import EmbeddingConfig, LexicalIndexConfig, VectorIndexConfig
 from ..device import resolve_device
 from ..embed.chunker import chunk_document
 from ..embed.provider import SimeonProvider
+from ..embed.simeon import tokenize
 from ..index.lexical_index import LexicalIndex
 from ..index.vector_index import VectorIndex
 from .config import SearchEngineConfig
 from .fusion import (NEG, W_TEXT, W_VEC, hybrid_fuse_precomputed, hybrid_query,
                      pack_weights)
 from .query import intent_weight_multipliers
+from .tuner import corpus_profile
 
 
 @dataclasses.dataclass(slots=True)
@@ -102,6 +110,7 @@ class SearchEngine:
         embedding: EmbeddingConfig | None = None,
         vector: VectorIndexConfig | None = None,
         lexical: LexicalIndexConfig | None = None,
+        kg_store=None,
         *,
         device: str | torch.device = "cuda",
     ):
@@ -123,6 +132,13 @@ class SearchEngine:
             device=self.device,
         )
         self.lexical_index = LexicalIndex(lexical)
+        self.kg = kg_store
+        # KG node labels embedded into a small side index; slot == node id
+        self.entity_index = VectorIndex(
+            dim=self.provider.dim, capacity=1024, block_rows=256,
+            space_id=self.provider.space_id + "/entities", device=self.device)
+        self.tuner = None           # SearchTuner, opt-in (the caller sets it)
+        self.cross_reranker = None  # optional callable(query, [SearchResult]) -> list
         self.last_trace: dict | None = None
         self._proj_host: np.ndarray | None = None
         # doc identity: external doc_id <-> dense slot
@@ -228,10 +244,14 @@ class SearchEngine:
             return dev
 
     def record_feedback(self, doc_id: int, relevant: bool = True) -> None:
-        """Click/relevance feedback. The reference also rewards its search
-        tuner, which the port refuses, so only the hotzone is fed."""
+        """Click/relevance feedback: rewards the bandit + hotzone."""
         if relevant:
             self.touch_hot(doc_id, 1.0)
+        if self.tuner is not None:
+            self.tuner.record_reward(
+                1.0 if relevant else 0.0,
+                profile=corpus_profile(len(self._slot_by_doc)),
+            )
 
     # -- PQ engine lifecycle ----------------------------------------------------
     def ensure_pq(self) -> bool:
@@ -292,30 +312,21 @@ class SearchEngine:
         return sorted(best.values(), key=lambda r: -r.score)[:k]
 
     def _refuse_unported(self, cfg) -> None:
-        if cfg.tuner_enabled:
-            raise NotImplementedError("search tuner is not ported")
         if cfg.topology_policy not in ("off", "shadow"):
             # "shadow" without a topology build is "off" in the reference
             raise NotImplementedError(
                 f"topology policy {cfg.topology_policy!r} is not ported")
-        if cfg.semantic_rescue_slots > 0:
-            raise NotImplementedError("semantic rescue slots are not ported")
 
-    def _pq_candidates(self, sketches, proj, B_real, B, rrf_c, Nd, doc_mask,
-                       mask_idx, mode):
+    def _pq_candidates(self, qv, B_real, B, rrf_c, Nd, doc_mask, mask_idx, mode):
         """The PQ tier's vector leg: ADC scan with the doc mask pushed in,
         host rerank, chunk -> doc aggregation -> ((B, rrf_c) values,
-        (B, rrf_c) slots, sink Nd where empty)."""
+        (B, rrf_c) slots, sink Nd where empty). `qv` is the batch's memo of
+        host query vectors."""
         vv = np.full((B, rrf_c), NEG, np.float32)
         vs = np.full((B, rrf_c), Nd, np.int32)
         if mode == "keyword":
             return vv, vs
-        # query vectors on the host: sketch @ proj, L2-normalized
-        ph = self._proj_host
-        if ph is None or ph.shape[0] != sketches.shape[1]:
-            ph = self._proj_host = proj.float().cpu().numpy()
-        qv = sketches[:B_real].astype(np.float32) @ ph
-        qv /= np.maximum(np.linalg.norm(qv, axis=1, keepdims=True), 1e-9)
+        qv = qv()
         if mask_idx is not None:
             dmq = doc_mask[mask_idx[:B_real]]
         elif doc_mask.ndim == 1:
@@ -352,6 +363,10 @@ class SearchEngine:
         if not self._doc_by_slot:
             return [[] for _ in queries]
         cfg = self.config
+        if self.tuner is not None and mode == "hybrid":
+            _, tuner_arm = self.tuner.select(corpus_profile(len(self._slot_by_doc)))
+            cfg = tuner_arm.apply(cfg)
+            trace["tuner_arm"] = tuner_arm.name
         self._refuse_unported(cfg)
         dev = self.device
         Nd = self.num_slots_padded
@@ -362,6 +377,20 @@ class SearchEngine:
 
         sketches, proj = self.provider.query_device_inputs(queries)
         sketches = np.pad(np.asarray(sketches), ((0, B - B_real), (0, 0)))
+        qvecs_cache: np.ndarray | None = None
+
+        def _query_vecs() -> np.ndarray:
+            # host query vectors for the PQ and entity legs, once a batch:
+            # sketch @ proj (a cached host copy), L2-normalized
+            nonlocal qvecs_cache
+            if qvecs_cache is None:
+                ph = self._proj_host
+                if ph is None or ph.shape[0] != sketches.shape[1]:
+                    ph = self._proj_host = proj.float().cpu().numpy()
+                v = sketches[:B_real].astype(np.float32) @ ph
+                v /= np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-9)
+                qvecs_cache = v
+            return qvecs_cache
         tids = np.zeros((B, self.lexical_index.config.max_query_terms), np.int32)
         tmask = np.zeros_like(tids, dtype=np.float32)
         arm = getattr(cfg, "lexical_arm", "auto") or "auto"
@@ -454,7 +483,7 @@ class SearchEngine:
             return torch.from_numpy(a).to(dev)
 
         if use_pq:
-            vv, vs = self._pq_candidates(sketches, proj, B_real, B, rrf_c, Nd,
+            vv, vs = self._pq_candidates(_query_vecs, B_real, B, rrf_c, Nd,
                                          doc_mask, mask_idx, mode)
             vals, slots, bm_at, vec_at = hybrid_fuse_precomputed(
                 to_dev(tids), to_dev(tmask), *lexical,
@@ -503,12 +532,18 @@ class SearchEngine:
             t[:B_real].cpu().numpy() for t in (vals, slots, bm_at, vec_at))
         trace["stages"]["device_ms"] = (time.monotonic() - t_dev) * 1e3
 
+        # entity-vector leg: ONE device search for the whole batch
+        kg_leg = bool(self.kg) and mode == "hybrid"
+        ev_hits = self._entity_vector_batch(queries, qvecs=_query_vecs) if kg_leg else None
         out: list[list[SearchResult]] = []
         n_slots_used = len(self._doc_by_slot)
+        kg_w = self.config.kg_weight
         doc_by_slot = self._doc_by_slot
         titles = self._titles
-        for vi, si, bi, ci in zip(vals.tolist(), slots.tolist(),
-                                  bm_at.tolist(), vec_at.tolist()):
+        for i, (vi, si, bi, ci) in enumerate(zip(vals.tolist(), slots.tolist(),
+                                                 bm_at.tolist(), vec_at.tolist())):
+            qtext = queries[i]
+            kg_scores = self._kg_scores(qtext, ev_hits[i]) if kg_leg else {}
             results: list[SearchResult] = []
             for j, v in enumerate(vi):
                 if v <= -1e29:
@@ -517,9 +552,21 @@ class SearchEngine:
                 if slot >= n_slots_used:
                     continue
                 doc_id = doc_by_slot[slot]
+                kg_s = kg_scores.get(doc_id, 0.0)
                 results.append(SearchResult(
-                    doc_id=doc_id, score=v, text_score=bi[j],
-                    vector_score=ci[j], title=titles.get(doc_id, "")))
+                    doc_id=doc_id, score=v + kg_w * kg_s if kg_scores else v,
+                    text_score=bi[j], vector_score=ci[j], kg_score=kg_s,
+                    title=titles.get(doc_id, "")))
+            if kg_scores:
+                results.sort(key=lambda r: -r.score)
+            if kg_leg and self.config.graph_rerank_enabled:
+                self._graph_rerank(results)
+            if self.cross_reranker is not None and mode == "hybrid":
+                # optional cross-encoder hook (reference: setCrossReranker)
+                results = self.cross_reranker(qtext, results[: k * 2])
+            if (self.config.semantic_rescue_slots > 0 and mode == "hybrid"
+                    and len(results) > k):
+                self._semantic_rescue(results, k)
             out.append(results[:k])
         with self._lock:  # searches may run concurrently
             self._stats["searches"] += len(queries)
@@ -527,6 +574,217 @@ class SearchEngine:
         trace["total_ms"] = (time.monotonic() - t0) * 1e3
         self.last_trace = trace
         return out
+
+    # -- knowledge-graph leg -------------------------------------------------------
+    def add_entity_vectors(self, node_ids: list[int], labels: list[str]) -> None:
+        """Embed KG node labels into the entity-vector side index (slot ==
+        kg node id). Idempotent: re-indexing a node replaces its row."""
+        if not node_ids:
+            return
+        vecs = self.provider.encode(labels)
+        for nid in node_ids:
+            self.entity_index.remove_doc(nid)
+        self.entity_index.add(vecs, node_ids)
+
+    def _entity_vector_batch(self, queries: list[str], qvecs=None):
+        """Entity-vector similarities for ALL queries in one device search:
+        -> per-query [(node_id, sim), ...]; empty lists when the side index
+        is empty. qvecs: the query embeddings, or a zero-arg callable giving
+        them (search_batch passes its per-batch memo)."""
+        if self.entity_index.active_rows == 0:
+            return [[] for _ in queries]
+        if qvecs is None:
+            qvecs = self.provider.encode(queries)
+        elif callable(qvecs):
+            qvecs = qvecs()
+        vals, rows = self.entity_index.search(qvecs, k=4)
+        out = []
+        for i in range(len(queries)):
+            node_ids = self.entity_index.slots_of_rows(rows[i])
+            out.append([
+                (int(n), float(s)) for s, n in zip(vals[i], node_ids)
+                if s >= 0.4 and n >= 0
+            ])
+        return out
+
+    def _semantic_rescue(self, results: list[SearchResult], k: int) -> None:
+        """Guarantee at least `semantic_rescue_slots` of the final top-k
+        carry vector evidence by promoting the best-vector tail candidates
+        over the weakest non-semantic window occupants. Bounded: at most
+        `slots` swaps, never displacing a semantic occupant."""
+        cfg = self.config
+        window = min(k, len(results))
+        target = min(cfg.semantic_rescue_slots, window)
+        is_sem = lambda r: r.vector_score > cfg.semantic_rescue_min_vector  # noqa: E731
+        present = sum(1 for r in results[:window] if is_sem(r))
+        while present < target:
+            tail = [i for i in range(window, len(results))
+                    if is_sem(results[i])]
+            if not tail:
+                break
+            best_tail = max(tail, key=lambda i: results[i].vector_score)
+            victims = [i for i in range(window - 1, -1, -1)
+                       if not is_sem(results[i])]
+            if not victims:
+                break
+            victim = victims[0]
+            results[victim], results[best_tail] = \
+                results[best_tail], results[victim]
+            present += 1
+        results[:window] = sorted(results[:window], key=lambda r: -r.score)
+
+    def _community_support(self, doc_ids: list[int]) -> list[float]:
+        """Reciprocal-community support over the candidate window.
+        Candidates link via shared KG entities (directed top-N neighbor
+        lists, weight = sum of min confidences); reciprocal pairs form
+        communities; members of a community of size m get support
+        (m-1)/(reference_size-1), clamped to [0,1]."""
+        cfg = self.config
+        n = len(doc_ids)
+        support = [0.0] * n
+        if n < 2:
+            return support
+        if not self.kg.has_doc_entities():
+            return support
+        ents_map = self.kg.entities_for_documents(doc_ids)
+        ents = [
+            {nid: conf for nid, _t, conf in ents_map.get(d, ())}
+            for d in doc_ids
+        ]
+        if not any(ents):
+            return support
+        out_w: list[dict[int, float]] = [{} for _ in range(n)]
+        for a in range(n):
+            if not ents[a]:
+                continue
+            sims = []
+            for b in range(n):
+                if a == b or not ents[b]:
+                    continue
+                shared = ents[a].keys() & ents[b].keys()
+                if not shared:
+                    continue
+                w = sum(min(ents[a][s], ents[b][s]) for s in shared)
+                if w >= cfg.graph_community_min_edge_weight:
+                    sims.append((w, b))
+            for w, b in heapq.nlargest(cfg.graph_max_neighbors, sims):
+                out_w[a][b] = w
+        adj: list[list[int]] = [[] for _ in range(n)]
+        for a in range(n):
+            for b in out_w[a]:
+                if b > a and a in out_w[b]:
+                    adj[a].append(b)
+                    adj[b].append(a)
+        denom = (cfg.graph_community_reference_size - 1.0
+                 if cfg.graph_community_reference_size > 1.0 else n - 1.0)
+        seen = [False] * n
+        for i in range(n):
+            if seen[i] or not adj[i]:
+                continue
+            comp, stack = [], [i]
+            seen[i] = True
+            while stack:
+                cur = stack.pop()
+                comp.append(cur)
+                for nb in adj[cur]:
+                    if not seen[nb]:
+                        seen[nb] = True
+                        stack.append(nb)
+            if len(comp) < 2:
+                continue
+            s = min(1.0, (len(comp) - 1) / max(denom, 1.0))
+            for m in comp:
+                support[m] = max(support[m], s)
+        return support
+
+    def _graph_rerank(self, results: list[SearchResult]) -> None:
+        """Guarded multiplicative KG boost of the fused top window.
+        Composite signal = entity signal blended with reciprocal-community
+        support; corroborated by the lexical anchor, decayed by a 1/sqrt
+        rank prior, capped by graph_rerank_max_boost; falls back to
+        boosting the single top signal when nothing clears the gate."""
+        cfg = self.config
+        window = min(len(results), cfg.graph_rerank_top_n)
+        if window < 2:
+            return
+        cand = results[:window]
+        # no doc<->entity links and no query-matched entities: no boost can
+        # clear the gate, so the pass is a no-op resort
+        if (not self.kg.has_doc_entities()
+                and all(r.kg_score <= 0.0 for r in cand)):
+            return
+        community = self._community_support([r.doc_id for r in cand])
+        base_w = max(0.0, 1.0 - cfg.graph_community_weight)
+        raw, anchors = [], []
+        # lexical-anchor normalizer: fixed divisor when configured, else the
+        # window's own max text score
+        bm_div = cfg.bm25_norm_divisor if cfg.bm25_norm_divisor > 0 else \
+            max((max(r.text_score, 0.0) for r in cand), default=0.0) or 1e-6
+        for i, r in enumerate(cand):
+            entity = min(max(r.kg_score, 0.0), 1.0)
+            raw.append(min(1.0, entity * base_w
+                           + community[i] * cfg.graph_community_weight))
+            anchors.append(min(max(r.text_score, 0.0) / bm_div, 1.0))
+        max_raw = max(raw)
+        max_anchor = max(anchors)
+        boosted = False
+        top_i = max(range(window), key=lambda i: raw[i])
+        for i, r in enumerate(cand):
+            if raw[i] < cfg.graph_rerank_min_signal or raw[i] <= 0.0:
+                continue
+            normalized = raw[i] / max_raw if max_raw > 0 else 0.0
+            effective = min(1.0, raw[i] * 0.6 + normalized * 0.4)
+            anchor_ratio = anchors[i] / max_anchor if max_anchor > 0 else 0.0
+            corroboration = min(1.0, cfg.graph_corroboration_floor
+                                + (1.0 - cfg.graph_corroboration_floor)
+                                * anchor_ratio)
+            guarded = effective * corroboration / math.sqrt(1.0 + i)
+            boost = min(cfg.graph_rerank_max_boost,
+                        cfg.graph_rerank_weight * guarded)
+            if boost <= 0.0:
+                continue
+            r.score *= (1.0 + boost)
+            r.kg_score += boost
+            boosted = True
+        if (not boosted and cfg.graph_fallback_to_top_signal
+                and raw[top_i] > 0.0):
+            fb = min(cfg.graph_rerank_max_boost * 0.5,
+                     cfg.graph_rerank_weight * raw[top_i])
+            if fb > 0:
+                cand[top_i].score *= (1.0 + fb)
+                cand[top_i].kg_score += fb
+        results.sort(key=lambda r: -r.score)
+
+    def _kg_scores(self, query: str, ev_hits=()) -> dict[int, float]:
+        """Host KG leg: exact alias matches + entity-vector similarity, both
+        mapped to linked docs. ev_hits come pre-batched from
+        _entity_vector_batch."""
+        scores: dict[int, float] = {}
+        if not self.kg.has_doc_entities():
+            # nothing can map to a doc: skip the per-token alias lookups
+            return scores
+        toks = tokenize(query)[:8]
+        for tok in toks:
+            for node in self.kg.resolve_alias(tok, limit=4):
+                for doc_id, conf in self.kg.documents_for_node(node, limit=20):
+                    scores[doc_id] = max(scores.get(doc_id, 0.0), conf)
+        # bigram-concept aliases: a query containing a concept's surface
+        # phrase scores its linked docs at concept_weight
+        cw = self.config.concept_weight
+        if cw > 0:
+            for a, b in zip(toks, toks[1:]):
+                for node in self.kg.resolve_alias(f"{a} {b}", limit=2):
+                    for doc_id, conf in self.kg.documents_for_node(
+                            node, limit=20):
+                        scores[doc_id] = max(scores.get(doc_id, 0.0),
+                                             cw * conf)
+        ev_scale = (self.config.entity_vector_weight
+                    / max(self.config.kg_weight, 1e-6))
+        for node, sim in ev_hits:
+            for doc_id, conf in self.kg.documents_for_node(node, limit=20):
+                boost = sim * conf * ev_scale
+                scores[doc_id] = max(scores.get(doc_id, 0.0), boost)
+        return scores
 
     def stats(self) -> dict:
         s = dict(self._stats)
