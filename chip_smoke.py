@@ -95,7 +95,24 @@ seconds):
      same 64 results; phase 6's PQ4 index (m 32, windows of 64) through K3
      (search, use_pallas) and K4 (unfiltered search_pq) before the save
      and after the reload, equal; an int8 index reloaded as int8 with
-     equal codes.
+     equal codes;
+ 10. the service layer through the port's own daemon on the card (a
+     YamsDaemon on a background thread with a real AF_UNIX socket): a
+     seeded tree of 2,048 zipf-word notes (96-1,536 words) in 64
+     directories, a 48 MiB seeded blob and a copy of it, added with one
+     add_path (every file added, none failed, the copy deduped whole,
+     gear_hash_cuda and sha256_cuda launched, the blob read back
+     bit-exact; files/s and MB/s); 256 async adds and `queue wait_idle`
+     (every job processed, none failed; KG nodes > 0); 64 queries (half
+     naming words of the tree), sequential (p50, p99) and from 8 client
+     threads through the SearchBatcher (QPS median of 5 windows, p50, p99,
+     requests a batch), and the split of one steady request; 16 queries
+     (hybrid, keyword, semantic, path_glob, tags) held against a CPU
+     AppContext on a copy of the checkpointed data dir; the CLI
+     (`python -m yams_tpu_torch.cli --json search`) through the socket
+     printing the daemon's hits; a restart giving the same document counts
+     and the same 64 answers, and a restart as int8 serving the int8 tier
+     with top-10 overlap >= 0.85 against bf16.
 
 The kernel launch counters are zeroed just before each path and read just
 after: the add path (phases 2-3) must launch gear_hash_cuda and
@@ -105,7 +122,9 @@ always pushes a doc mask into the scan, and K4 serves the unfiltered scan
 only), and the experiments (phase 7) grouped_max_cuda and
 windowed_scan_cuda; phase 8's path runs torch operations only, and its
 counts are printed; phase 9 must launch exact_topk_cuda and pq4_adc_cuda
-(on the PQ4 index before the save and after the reload). At the end no module of yams_tpu, jax, jaxlib or flax
+(on the PQ4 index before the save and after the reload), and phase 10's
+add gear_hash_cuda and sha256_cuda (on the blob). At the end no module of
+yams_tpu, jax, jaxlib or flax
 may be loaded. The second-last line is the kernels' JSON record (each with
 its launches, error, time, twin's time and bound), the last line the device
 record.
@@ -121,6 +140,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 
 import numpy as np
 import torch
@@ -1664,7 +1684,7 @@ def results_agree(what: str, got, want, atol: float = 1e-4) -> dict:
         equal += [r.doc_id for r in g] == [r.doc_id for r in w]
     check(err <= atol, f"{what}: scores within {atol} (max error {err:.3g})")
     if ties:
-        log(f"[phase9] {what}: ties (query, rank, card doc, cpu doc, scores): {ties}")
+        log(f"[ties] {what} (query, rank, doc here, doc there, scores): {ties}")
     return {"equal": equal, "ties": len(ties), "max_err": err}
 
 
@@ -1701,7 +1721,7 @@ def phase9_kg(dev, card: str, eng, cpu, docs, queries, phase3_steady_ms: float,
     from yams_tpu_torch.search.config import SearchEngineConfig
     from yams_tpu_torch.search.engine import SearchEngine
     from yams_tpu_torch.search.tuner import SearchTuner
-    from yams_tpu_torch.services.app import restore_slot_map
+    from yams_tpu_torch.services.app import AppContext
 
     def insert_docs(db, doc_ids):
         with db.lock, db.conn:
@@ -1868,7 +1888,8 @@ def phase9_kg(dev, card: str, eng, cpu, docs, queries, phase3_steady_ms: float,
         fresh.vector_index = VectorIndex.load(
             vdir, device_dtype=fresh.vector_index.device_dtype, device=dev)
         fresh.lexical_index = LexicalIndex.load(vdir, fresh.lexical_index.config)
-        restore_slot_map(db, fresh)
+        # the slot-map restore AppContext runs when it reopens the indexes
+        AppContext._restore_slot_map(types.SimpleNamespace(db=db, search_engine=fresh))
         fresh.add_entity_vectors(nodes, labels)     # the side index is not persisted
         load_s = time.perf_counter() - t
         after = fresh.search_batch(qs)
@@ -1978,6 +1999,343 @@ def phase9_kg(dev, card: str, eng, cpu, docs, queries, phase3_steady_ms: float,
         tmp.cleanup()
 
 
+# -- phase 10 -----------------------------------------------------------------
+def svc_tree(root: pathlib.Path, n_files: int, n_dirs: int, blob_bytes: int, seed: int):
+    """Phase 10's seeded tree: n_files zipf-word text files of 96-1,536 words
+    in n_dirs directories, a seeded binary blob and a copy of it under
+    another name. -> (vocab, text of each file by path, blob bytes, blob
+    path, copy path)"""
+    rng = np.random.default_rng(seed)
+    vocab = np.array([f"w{i}" for i in range(8192)])
+    lens = rng.integers(96, 1537, n_files)
+    z = rng.zipf(1.2, size=int(lens.sum())) % len(vocab)
+    texts, p = {}, 0
+    for i, n in enumerate(lens):
+        d = root / f"d{i % n_dirs:02d}"
+        d.mkdir(parents=True, exist_ok=True)
+        path = d / f"note{i:05d}.txt"
+        text = " ".join(vocab[z[p:p + n]]) + "\n"
+        path.write_text(text)
+        texts[str(path.resolve())] = text
+        p += n
+    blob = rng.bytes(blob_bytes)
+    (root / "blob.bin").write_bytes(blob)
+    (root / "copy_of_blob.bin").write_bytes(blob)
+    return vocab, texts, blob, (root / "blob.bin").resolve(), (root / "copy_of_blob.bin").resolve()
+
+
+class ThreadDaemon:
+    """The port's YamsDaemon on a background thread with a real AF_UNIX
+    socket (as tests/test_interfaces.py runs the reference's), and a client."""
+
+    def __init__(self, cfg, dev, timeout: float = 600.0):
+        import asyncio
+        import threading
+
+        from yams_tpu_torch.daemon.client import DaemonClient
+        from yams_tpu_torch.daemon.server import YamsDaemon
+
+        self.daemon, self.error = YamsDaemon(cfg, device=dev), None
+        self.loop = asyncio.new_event_loop()
+
+        def run():
+            asyncio.set_event_loop(self.loop)
+            try:
+                self.loop.run_until_complete(self.daemon.run())
+            except BaseException as e:     # noqa: BLE001  (reported by the caller)
+                self.error = e
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        self.client = DaemonClient(cfg.socket_path)
+        deadline = time.monotonic() + timeout
+        while not self.client.ping(timeout=5.0):
+            check(self.thread.is_alive(), f"the daemon started ({self.error!r})")
+            check(time.monotonic() < deadline, "the daemon answered a ping in time")
+            time.sleep(0.1)
+
+    @property
+    def app(self):
+        return self.daemon.app
+
+    def stop(self) -> None:
+        self.client.shutdown()
+        self.client.close()
+        self.thread.join(timeout=120)
+        check(not self.thread.is_alive() and self.error is None,
+              f"the daemon stopped cleanly ({self.error!r})")
+        self.loop.close()
+
+
+def hits_of(resp) -> list:
+    """A daemon search answer (or a SearchResponse) as results_agree's rows."""
+    hits = resp["hits"] if isinstance(resp, dict) else [dataclasses.asdict(h) for h in resp.hits]
+    return [types.SimpleNamespace(doc_id=h["document_id"], score=h["score"],
+                                  kg_score=h["kg_score"]) for h in hits]
+
+
+def percentiles(lat_s: list[float]) -> dict:
+    ms = np.asarray(lat_s) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99))}
+
+
+def phase10_service(dev, card: str, n_files: int = 2048, n_dirs: int = 64,
+                    blob_bytes: int = 48 << 20) -> dict:
+    """The service layer on the card through the port's own daemon: add a
+    seeded tree, async ingest, sequential and concurrent (batched) search,
+    the card's answers against a CPU AppContext on a copy of the data dir,
+    the CLI against the socket, and two restarts (the second as int8)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from yams_tpu_torch.core.config import load_config
+    from yams_tpu_torch.ops import cdc, sha256
+    from yams_tpu_torch.services.app import AppContext
+
+    out: dict = {"card": card}
+    d = None
+    tmp = tempfile.TemporaryDirectory(prefix="ysvc")
+    root = pathlib.Path(tmp.name)
+    try:
+        t = time.perf_counter()
+        vocab, texts, blob, blob_path, copy_path = svc_tree(
+            root / "tree", n_files, n_dirs, blob_bytes, SEED + 10)
+        tree_bytes = sum(len(x) for x in texts.values()) + 2 * len(blob)
+        log(f"[phase10] tree: {n_files} text files in {n_dirs} directories and a "
+            f"{blob_bytes >> 20} MiB blob with its copy, {tree_bytes / 1e6:.1f} MB, "
+            f"written in {time.perf_counter() - t:.2f} s")
+        data_dir = root / "data"
+        cfg = load_config(data_dir=data_dir)
+        t = time.perf_counter()
+        d = ThreadDaemon(cfg, dev)
+        out["daemon_start_s"] = time.perf_counter() - t
+        pong = d.client.call("ping")
+        check(pong.get("backend") == "torch" and pong.get("device") == str(dev),
+              f"the daemon is the port's, on {dev} ({pong})")
+        check(d.app.search_engine.device == dev and d.app.content_store.device == dev,
+              "the daemon's engine and store are on the card")
+
+        # 1. add the tree through the daemon
+        g0, s0 = cdc.gear_hash_cuda.launches, sha256.sha256_cuda.launches
+        t = time.perf_counter()
+        rep = d.client.add_path(str((root / "tree").resolve()))
+        add_s = time.perf_counter() - t
+        check(rep["files_added"] == n_files + 2 and rep["files_failed"] == 0,
+              f"the add took every file ({ {k: rep[k] for k in rep if k != 'errors'} }, "
+              f"{rep['errors'][:3]})")
+        # every text file is unique, so what was deduped is the blob's copy
+        check(rep["bytes_deduped"] == len(blob),
+              f"the copy was deduped whole ({rep['bytes_deduped']} of {len(blob)} bytes)")
+        gear, sha = (cdc.gear_hash_cuda.launches - g0, sha256.sha256_cuda.launches - s0)
+        check(gear >= 1 and sha >= 1,
+              f"the add launched gear_hash_cuda ({gear}) and sha256_cuda ({sha})")
+        back = d.client.cat(str(blob_path))
+        check(back == blob and hashlib.sha256(back).hexdigest() == hashlib.sha256(blob).hexdigest(),
+              "cat of the blob gives back its bytes")
+        out["add"] = {"s": add_s, "files": rep["files_added"], "bytes": tree_bytes,
+                      "files_per_s": rep["files_added"] / add_s,
+                      "mb_per_s": tree_bytes / 1e6 / add_s,
+                      "bytes_deduped": rep["bytes_deduped"],
+                      "gear_hash_launches": gear, "sha256_launches": sha}
+        log(f"[phase10] add_path: {rep['files_added']} files in {add_s:.2f} s, "
+            f"{out['add']['files_per_s']:.1f} files/s, {out['add']['mb_per_s']:.2f} MB/s; "
+            f"copy deduped {rep['bytes_deduped']} bytes; gear_hash_cuda {gear}, "
+            f"sha256_cuda {sha} launches; the blob read back bit-exact")
+
+        # 2. async ingest, then wait_idle (off the state lock)
+        rng = np.random.default_rng(SEED + 11)
+        t = time.perf_counter()
+        for i in range(256):
+            words = vocab[rng.zipf(1.2, size=int(rng.integers(96, 400))) % len(vocab)]
+            d.client.add_bytes((" ".join(words) + "\n").encode(), f"async/a{i:03d}.txt",
+                               tags=["async"], async_ingest=True)
+        enq_s = time.perf_counter() - t
+        t = time.perf_counter()
+        q = d.client.call("queue", op="wait_idle", timeout=120.0)
+        wait_s = time.perf_counter() - t
+        stages = q["stages"]
+        check(q["idle"] and all(st["failed"] == 0 for st in stages.values())
+              and stages["embedding"]["processed"] == 256,
+              f"wait_idle returned with every async job processed ({q})")
+        st = d.client.status()
+        check(st["graph"]["nodes"] > 0, f"the KG has nodes ({st['graph']})")
+        out["async"] = {"enqueue_s": enq_s, "wait_idle_s": wait_s, "stages": stages,
+                        "kg_nodes": st["graph"]["nodes"], "kg_edges": st["graph"]["edges"]}
+        log(f"[phase10] 256 async adds enqueued in {enq_s:.2f} s; wait_idle returned in "
+            f"{wait_s:.2f} s, idle; stages {stages}; KG {st['graph']}")
+
+        # 3. search: sequential, then 8 client threads through the batcher
+        queries = [" ".join(vocab[rng.zipf(1.3, size=int(rng.integers(2, 5))) % len(vocab)])
+                   for _ in range(32)]
+        queries += [f"absent{i} topic{i * 7} unseen" for i in range(32)]
+        t = time.perf_counter()
+        d.client.search(queries[0])
+        out["first_search_s"] = time.perf_counter() - t
+        lat = []
+        for qtext in queries:
+            t = time.perf_counter()
+            d.client.search(qtext)
+            lat.append(time.perf_counter() - t)
+        out["sequential"] = percentiles(lat)
+        log(f"[phase10] first search {out['first_search_s']:.3f} s; 64 sequential searches: "
+            f"p50 {out['sequential']['p50_ms']:.2f} ms, p99 {out['sequential']['p99_ms']:.2f} ms")
+
+        from yams_tpu_torch.daemon.client import DaemonClient
+        clients = [DaemonClient(cfg.socket_path) for _ in range(8)]
+        windows, conc_lat = [], []
+
+        def worker(c, off, sink):
+            for j in range(32):
+                t0 = time.perf_counter()
+                c.search(queries[(off + j) % len(queries)])
+                sink.append(time.perf_counter() - t0)
+
+        b0 = d.client.status()["search_batching"]
+        for w in range(6):
+            sinks = [[] for _ in clients]
+            threads = [threading.Thread(target=worker, args=(c, 8 * i + w, sinks[i]))
+                       for i, c in enumerate(clients)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            wall = time.perf_counter() - t
+            check(not any(th.is_alive() for th in threads), "the client threads finished")
+            if w:                                   # window 0 warms the batch shapes
+                windows.append(256 / wall)
+                conc_lat += [x for s in sinks for x in s]
+        for c in clients:
+            c.close()
+        b1 = d.client.status()["search_batching"]
+        n_batches = b1["batches"] - b0["batches"]
+        out["concurrent"] = {"qps": float(np.median(windows)), "qps_windows": windows,
+                             "avg_batch": (b1["batched_requests"] - b0["batched_requests"])
+                             / max(n_batches, 1), **percentiles(conc_lat)}
+        log(f"[phase10] 8 client threads: QPS median {out['concurrent']['qps']:.1f} over 5 "
+            f"windows of 256 ({', '.join(f'{x:.1f}' for x in windows)}); p50 "
+            f"{out['concurrent']['p50_ms']:.2f} ms, p99 {out['concurrent']['p99_ms']:.2f} ms; "
+            f"{out['concurrent']['avg_batch']:.2f} requests a batch")
+
+        # the split of one steady request (a query not yet seen: no snippet cache)
+        svc, eng = d.app.search, d.app.search_engine
+        spent = {"_filter_doc_ids": 0.0, "_hydrate": 0.0, "_snippet": 0.0}
+
+        def timed(name):
+            orig = getattr(svc, name)
+
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return orig(*args, **kwargs)
+                finally:
+                    spent[name] += time.perf_counter() - t0
+            return call
+
+        for name in spent:
+            setattr(svc, name, timed(name))
+        try:
+            t = time.perf_counter()
+            d.client.search(queries[1] + " " + queries[2])
+            rtt = time.perf_counter() - t
+        finally:
+            for name in spent:
+                delattr(svc, name)
+        tr = eng.last_trace
+        split = {"round_trip_ms": rtt * 1e3,
+                 "engine_host_prep_ms": tr["stages"]["host_prep_ms"],
+                 "engine_device_ms": tr["stages"]["device_ms"],
+                 "engine_total_ms": tr["total_ms"],
+                 "filters_ms": spent["_filter_doc_ids"] * 1e3,
+                 "hydrate_ms": (spent["_hydrate"] - spent["_snippet"]) * 1e3,
+                 "snippets_ms": spent["_snippet"] * 1e3}
+        split["rest_ms"] = split["round_trip_ms"] - split["engine_total_ms"] - \
+            split["filters_ms"] - split["hydrate_ms"] - split["snippets_ms"]
+        out["split_ms"] = split
+        log("[phase10] one steady request (ms): " + json.dumps(
+            {k: round(v, 3) for k, v in split.items()}))
+
+        # 4. the card's answers against a CPU AppContext on a copy of the data dir
+        d.client.call("checkpoint")
+        shutil.copytree(data_dir, root / "cpu_copy",
+                        ignore=shutil.ignore_patterns("daemon.sock", ".lock", "daemon.*"))
+        cases = ([{"query": q} for q in queries[2:8]]
+                 + [{"query": q, "search_type": "keyword"} for q in queries[8:11]]
+                 + [{"query": q, "search_type": "semantic"} for q in queries[11:13]]
+                 + [{"query": queries[40], "search_type": "semantic"}]
+                 + [{"query": q, "path_glob": "*/d07/*"} for q in queries[13:15]]
+                 + [{"query": q, "tags": ["async"]} for q in queries[15:17]])
+        fields = [{"limit": 10, "search_type": "hybrid", **c} for c in cases]
+        card_res = [hits_of(d.client.call("search", **f)) for f in fields]
+        check(all(card_res), "every card query found something")
+        t = time.perf_counter()
+        cpu_app = AppContext(load_config(data_dir=root / "cpu_copy"), device="cpu")
+        try:
+            cpu_res = [hits_of(cpu_app.search.search_many_requests([f])[0]) for f in fields]
+        finally:
+            cpu_app.close()
+        out["card_vs_cpu"] = results_agree("daemon on the card against a CPU AppContext",
+                                           card_res, cpu_res)
+        log(f"[phase10] 16 queries (hybrid, keyword, semantic, path_glob, tags): card daemon "
+            f"== CPU app {out['card_vs_cpu']} ({time.perf_counter() - t:.2f} s on the CPU)")
+
+        # 5. the CLI against the socket
+        cli = []
+        for qtext in queries[3:5]:
+            want = hits_of(d.client.search(qtext))
+            proc = subprocess.run(
+                [sys.executable, "-m", "yams_tpu_torch.cli", "--storage", str(data_dir),
+                 "--json", "search", qtext], capture_output=True, text=True, timeout=300,
+                cwd=pathlib.Path(__file__).resolve().parent)
+            check(proc.returncode == 0, f"the CLI searched through the daemon ({proc.stderr[-500:]})")
+            got = [types.SimpleNamespace(doc_id=h["document_id"], score=h["score"],
+                                         kg_score=h["kg_score"]) for h in json.loads(proc.stdout)]
+            check([(r.doc_id, r.score) for r in got] == [(r.doc_id, r.score) for r in want],
+                  f"the CLI printed the daemon's hits for {qtext!r}")
+            cli.append(len(got))
+        out["cli_hits"] = cli
+        log(f"[phase10] CLI --json search through the socket == the daemon's hits ({cli})")
+
+        # 6. restart, then restart as int8
+        docs_before = d.client.status()["documents"]
+        before = [hits_of(d.client.search(qtext)) for qtext in queries]
+        d.stop()
+        t = time.perf_counter()
+        d = ThreadDaemon(cfg, dev)
+        out["restart_s"] = time.perf_counter() - t
+        check(d.client.status()["documents"] == docs_before,
+              f"the document counts survive the restart ({docs_before})")
+        after = [hits_of(d.client.search(qtext)) for qtext in queries]
+        out["restart"] = results_agree("restarted daemon", after, before)
+        check(out["restart"]["equal"] == len(queries), "64 searches equal across the restart")
+        d.stop()
+        cfg8 = load_config(data_dir=data_dir)
+        cfg8.vector.dtype = "int8"
+        d = ThreadDaemon(cfg8, dev)
+        vstats = d.client.call("stats", detailed=True)["vector_index"]
+        check(vstats["device_dtype"] == "int8" and d.app.search_engine.vector_index.device_dtype == "int8",
+              f"the int8 restart serves the int8 tier ({vstats})")
+        got8 = [hits_of(d.client.search(qtext)) for qtext in queries]
+        overlap = float(np.mean([len({r.doc_id for r in a[:10]} & {r.doc_id for r in b[:10]})
+                                 / max(len(b[:10]), 1) for a, b in zip(got8, before)]))
+        check(overlap >= 0.85, f"int8 top-10 overlap against bf16 {overlap:.4f} >= 0.85")
+        d.stop()
+        out["int8_overlap"] = overlap
+        log(f"[phase10] restart in {out['restart_s']:.2f} s: documents {docs_before}, 64 "
+            f"searches equal {out['restart']}; int8 restart: {vstats['device_dtype']}, top-10 "
+            f"overlap with bf16 {overlap:.4f}")
+        d = None
+        return out
+    finally:
+        if d is not None and d.thread.is_alive():
+            try:
+                d.stop()
+            except Exception:       # noqa: BLE001  (the phase already failed)
+                pass
+        tmp.cleanup()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; nothing was run", file=sys.stderr)
@@ -2068,10 +2426,17 @@ def main() -> int:
     for name in ("exact_topk_cuda", "pq4_adc_cuda"):
         check(kg_launches[name] >= 1, f"{name} launched on a reloaded index")
 
+    zero()
+    service = phase("phase10", phase10_service, dev, card)
+    svc_launches = read()
+    log(f"[service layer path] kernel launches {svc_launches}")
+    for name in ("gear_hash_cuda", "sha256_cuda"):
+        check(svc_launches[name] >= 1, f"{name} launched on the service layer's add")
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("yams_tpu", "jax", "jaxlib", "flax"))
     check(not loaded, f"no module of yams_tpu, jax, jaxlib or flax loaded (found {loaded})")
-    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'torch': torch.__version__})}")
+    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'torch': torch.__version__})}")
 
     sources = {
         "gear_hash_cuda": ("yams_tpu_torch/csrc/gear_hash.cu", "yams_tpu/ops/cdc.py:65",
@@ -2100,6 +2465,8 @@ def main() -> int:
                                                    "large_k", "rising_ms") if key in k}})
         if name in ("exact_topk_cuda", "pq4_adc_cuda"):
             records[-1]["launches_phase9"] = kg_launches[name]
+        if name in ("gear_hash_cuda", "sha256_cuda"):
+            records[-1]["launches_phase10"] = svc_launches[name]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ yams_tpu_torch keeps its own copy of every host module it runs (configs,
 tokenizer and sketch, chunkers, native library, storage, the indexes' host
 state). Here each copy and its original get the same seeded inputs:
 
-- every copied config dataclass has the reference's fields and defaults;
+- every copied config dataclass has the reference's fields and defaults
+  (the daemon's and the top-level Config among them);
 - tokenize, light_stem, the per-text sketch and the batched (native)
   sketch give bit-equal output; chunk_document gives the same chunks;
 - FastCDCChunker (native and NumPy) cuts the same boundaries;
@@ -14,7 +15,8 @@ state). Here each copy and its original get the same seeded inputs:
 - query understanding (search/query.py): intents, their leg-weight
   multipliers, qualifiers, fuzzy correction, expansions and routing plans
   are the same for the same queries, and the copy's code is the original's,
-  as it is for the SQLite store, the knowledge graph and the search tuner;
+  as it is for the SQLite store, the knowledge graph, the search tuner, the
+  configs and the service layer's host modules;
 - a repository written by the port's ContentStore is read back by the
   reference's, and the other way round, with whole-content dedup across.
 """
@@ -57,7 +59,7 @@ def _texts(n=40, seed=0):
 
 @pytest.mark.parametrize("name", ["ChunkingConfig", "CompressionConfig", "EmbeddingConfig",
                                   "VectorIndexConfig", "LexicalIndexConfig",
-                                  "SearchEngineConfig"])
+                                  "SearchEngineConfig", "DaemonConfig", "Config"])
 def test_config_dataclass_matches_reference(name):
     if name == "SearchEngineConfig":
         port, ref = SearchEngineConfig(), RefSearchConfig()
@@ -335,10 +337,22 @@ def test_query_module_is_the_reference_code():
     assert body(port_query) == body(ref_query)
 
 
-@pytest.mark.parametrize("name", ["metadata.db", "metadata.kg", "search.tuner"])
+@pytest.mark.parametrize("name", [
+    "metadata.db", "metadata.kg", "search.tuner",
+    # the service layer's host modules
+    "core.config", "metadata.repository", "metadata.tree", "metadata.recovery",
+    "ingest.detection", "ingest.content_handlers", "services.extraction",
+    "services.filters", "services.document_service", "services.symbol_service",
+    "services.code_parser", "services.graph_service", "utils.textrank",
+    "services.indexing_service", "services.search_service", "utils.minhash",
+    "daemon.protocol", "daemon.client", "daemon.aclient", "embed.batcher",
+    "daemon.components"])
 def test_copied_module_is_the_reference_code(name):
-    """The SQLite store, the knowledge graph and the search tuner: past the
-    module docstring each copy is the original, line for line."""
+    """The SQLite store, the knowledge graph, the search tuner, the configs
+    and the service layer's host modules (metadata, detection and
+    extraction, the document, symbol, graph, indexing and search services,
+    the daemon's protocol, clients and components): past the module
+    docstring each copy is the original, line for line."""
     import ast
     import importlib
     import inspect

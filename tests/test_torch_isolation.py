@@ -8,12 +8,16 @@
   chunk + hash, a ContentStore round trip, and SearchEngine searches
   (with an intent, so search/query.py runs; with feedback; on the int8
   tier), and the KG leg over the port's own SQLite store with the tuner,
-  then the indexes saved and reopened.
+  then the indexes saved and reopened; then the service layer: an
+  AppContext on the CPU adds and searches, and the port's daemon answers a
+  ping over its socket.
 - Statically, no file under yams_tpu_torch/ (nor chip_smoke.py) names
   yams_tpu in an import statement or in an importlib / __import__ call.
 - Every entry point runs on the card unless the caller asks for the CPU:
-  with no `device` argument each resolves to CUDA, which raises here, where
-  torch sees no card; with device="cpu" each runs.
+  with no `device` argument (the CLI: no `--device`) each resolves to CUDA,
+  which raises here, where torch sees no card; with device="cpu" each runs.
+  The entry points: SearchEngine, ContentStore, VectorIndex, SimeonProvider,
+  AppContext, YamsDaemon and the CLI.
 """
 
 import ast
@@ -113,6 +117,31 @@ def test_port_imports_and_runs_with_the_reference_refused(tmp_path):
         kgeng.vector_index = VectorIndex.load({str(tmp_path / "idx")!r}, device=cpu)
         kgeng.lexical_index = LexicalIndex.load({str(tmp_path / "idx")!r})
         assert kgeng.search("preemption")[0].doc_id == 1
+        # the service layer: AppContext add -> search, and a daemon ping
+        import asyncio, threading, time
+        from yams_tpu_torch.core.config import load_config
+        from yams_tpu_torch.daemon.client import DaemonClient
+        from yams_tpu_torch.daemon.server import YamsDaemon
+        from yams_tpu_torch.services.app import AppContext
+        app = AppContext(load_config(data_dir={str(tmp_path / "app")!r}), device="cpu")
+        app.documents.add_bytes(b"thread scheduler preempts", "sched.txt")
+        app.documents.add_bytes(b"chunk hashing and dedup", "cas.txt")
+        assert app.search.search("scheduler").hits[0].path == "/sched.txt"
+        app.close()
+        cfg = load_config(data_dir={str(tmp_path / "app")!r})
+        daemon, loop = YamsDaemon(cfg, device="cpu"), asyncio.new_event_loop()
+        th = threading.Thread(target=lambda: loop.run_until_complete(daemon.run()))
+        th.start()
+        client = DaemonClient(cfg.socket_path)
+        deadline = time.monotonic() + 60
+        while not client.ping(timeout=2.0):
+            assert th.is_alive() and time.monotonic() < deadline
+            time.sleep(0.1)
+        assert client.call("ping")["backend"] == "torch"
+        assert client.search("dedup chunk")["hits"][0]["path"] == "/cas.txt"
+        client.shutdown()
+        th.join(timeout=60)
+        assert not th.is_alive()
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in {REFUSED!r})
         print(len(names), loaded)
     """)
@@ -191,15 +220,48 @@ def _provider(device):
     return p.device
 
 
+def _app_context(device, root):
+    from yams_tpu_torch.core.config import load_config
+    from yams_tpu_torch.services.app import AppContext
+    cfg = load_config(data_dir=root)
+    app = AppContext(cfg) if device is None else AppContext(cfg, device=device)
+    app.documents.add_bytes(b"thread scheduler", "t.txt")
+    assert app.search.search("scheduler").hits[0].path == "/t.txt"
+    app.close()
+    return app.device
+
+
+def _daemon(device, root):
+    from yams_tpu_torch.core.config import load_config
+    from yams_tpu_torch.daemon.server import YamsDaemon
+    cfg = load_config(data_dir=root)
+    return (YamsDaemon(cfg) if device is None else YamsDaemon(cfg, device=device)).device
+
+
+def _cli(device, root):
+    import contextlib
+    import io
+    import json
+    from yams_tpu_torch.cli.main import main
+    argv = ["--storage", str(root), "--no-daemon", "--json", "status", "--detailed"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv if device is None else ["--device", device, *argv])
+    assert rc == 0
+    return torch.device(json.loads(out.getvalue())["devices"][0])
+
+
 _ENTRY_POINTS = {"SearchEngine": _search_engine, "ContentStore": _content_store,
-                 "VectorIndex": _vector_index, "SimeonProvider": _provider}
+                 "VectorIndex": _vector_index, "SimeonProvider": _provider,
+                 "AppContext": _app_context, "YamsDaemon": _daemon, "cli": _cli}
+_TAKE_A_DIR = ("ContentStore", "AppContext", "YamsDaemon", "cli")
 
 
 @pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
 def test_entry_point_defaults_to_the_card(name, tmp_path):
     def build(device):
         fn = _ENTRY_POINTS[name]
-        return fn(device, tmp_path / str(device)) if name == "ContentStore" else fn(device)
+        return fn(device, tmp_path / str(device)) if name in _TAKE_A_DIR else fn(device)
 
     if torch.cuda.is_available():
         assert build(None).type == "cuda"

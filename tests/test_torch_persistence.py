@@ -239,14 +239,24 @@ def test_lexical_load_refuses_classes(tmp_path):
 
 
 # -- an engine reopened ---------------------------------------------------------------
-def _restore_slot_map(engine, pairs):
-    """The service layer's slot-map restore: (slot, doc_id) pairs, gaps -1."""
-    engine._doc_by_slot, engine._slot_by_doc = [], {}
-    for slot, doc_id in sorted(pairs):
-        while len(engine._doc_by_slot) < slot:
-            engine._doc_by_slot.append(-1)
-        engine._doc_by_slot.append(doc_id)
-        engine._slot_by_doc[doc_id] = slot
+def _restore_slot_map(engine, pairs, db_path):
+    """The service layer's slot-map restore (AppContext._restore_slot_map)
+    from (slot, doc_id) pairs kept as the metadata store's '__slot__' rows."""
+    import types
+
+    from yams_tpu_torch.metadata.db import Database
+    from yams_tpu_torch.services.app import AppContext
+
+    db = Database(db_path)
+    with db.lock, db.conn:
+        db.conn.executemany(
+            "INSERT INTO documents (id, file_path, file_name, sha256_hash, created_time,"
+            " modified_time, indexed_time) VALUES (?,?,?,?,0,0,0)",
+            [(d, f"/{d}", f"{d}", f"{d:064x}") for _, d in pairs])
+        db.conn.executemany("INSERT INTO metadata (document_id, key, value) VALUES (?,?,?)",
+                            [(d, "__slot__", str(s)) for s, d in pairs])
+    AppContext._restore_slot_map(types.SimpleNamespace(db=db, search_engine=engine))
+    db.close()
 
 
 @pytest.mark.parametrize("writer", PACKAGES)
@@ -270,7 +280,7 @@ def test_engine_reopens_saved_indexes(tmp_path, writer):
     port = SearchEngine(lexical=lex, device=CPU)
     port.vector_index = VectorIndex.load(tmp_path, device=CPU)
     port.lexical_index = LexicalIndex.load(tmp_path, lex)
-    _restore_slot_map(port, pairs)
+    _restore_slot_map(port, pairs, tmp_path / "meta.db")
     got = port.search_batch(queries)
     for r, p in zip(want, got, strict=True):
         assert [x.doc_id for x in p] == [x.doc_id for x in r]

@@ -231,8 +231,10 @@ def test_kg_graph_links_documents_to_labels_in_their_text():
 
 
 def test_restore_slot_map_fills_gaps(tmp_path):
+    import types
+
     from yams_tpu_torch.metadata import Database
-    from yams_tpu_torch.services.app import restore_slot_map
+    from yams_tpu_torch.services.app import AppContext
     db = Database(tmp_path / "m.db")
     db.execute("INSERT INTO documents (id, file_path, file_name, sha256_hash, created_time,"
                " modified_time, indexed_time) VALUES (7, '/a', 'a', 'x', 0, 0, 0),"
@@ -244,5 +246,5 @@ def test_restore_slot_map_fills_gaps(tmp_path):
         pass
 
     eng = Engine()
-    restore_slot_map(db, eng)
+    AppContext._restore_slot_map(types.SimpleNamespace(db=db, search_engine=eng))
     assert eng._doc_by_slot == [9, -1, 7] and eng._slot_by_doc == {9: 0, 7: 2}

@@ -1,15 +1,41 @@
-"""Configuration dataclasses of the host tiers the port runs.
+"""Configuration.
 
-Copied from yams_tpu/core/config.py: the chunking, compression, embedding,
-vector index and lexical index configs, field for field with the same
-defaults (tests/test_torch_host_copies.py holds them equal). The daemon
-config, the top-level `Config` and its TOML/env loader are not copied:
-nothing in the port reads them.
+Mirrors the reference's TOML config + ConfigResolver (src/config/config_helpers.cpp,
+src/daemon/components/ConfigResolver.cpp): a single typed config merged from
+defaults <- TOML file <- environment (YAMS_TPU_* vars).
+
+Copied from yams_tpu/core/config.py (the port imports nothing of yams_tpu):
+past this docstring the code is the original's, line for line
+(tests/test_torch_host_copies.py); its relative imports resolve to
+the port's own modules.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import pathlib
+from typing import Any
+
+try:
+    import tomllib
+except ImportError:  # pragma: no cover
+    tomllib = None
+
+
+def default_data_dir() -> pathlib.Path:
+    env = os.environ.get("YAMS_TPU_STORAGE") or os.environ.get("YAMS_STORAGE")
+    if env:
+        return pathlib.Path(env)
+    xdg = os.environ.get("XDG_DATA_HOME")
+    base = pathlib.Path(xdg) if xdg else pathlib.Path.home() / ".local" / "share"
+    return base / "yams_tpu"
+
+
+def default_config_path() -> pathlib.Path:
+    xdg = os.environ.get("XDG_CONFIG_HOME")
+    base = pathlib.Path(xdg) if xdg else pathlib.Path.home() / ".config"
+    return base / "yams_tpu" / "config.toml"
 
 
 @dataclasses.dataclass(slots=True)
@@ -135,3 +161,112 @@ class LexicalIndexConfig:
     subword_max_doc_tokens: int = 512  # distinct tokens emitting trigrams/doc
     subword_tris_per_token: int = 8
     max_bigrams_per_doc: int = 256
+
+
+@dataclasses.dataclass(slots=True)
+class DaemonConfig:
+    socket_path: str = ""   # default: <data_dir>/daemon.sock
+    max_message_bytes: int = 256 * 1024 * 1024
+    worker_threads: int = 4
+    auto_embed: bool = True
+    # micro-batching serving aggregator: concurrent searches (plain AND
+    # filtered) wait up to this long for co-travellers, then run as fused
+    # device batches. 0 = off.
+    search_batch_window_ms: float = 2.0
+    search_batch_max: int = 64
+    # batches pipelined concurrently (overlaps host<->device round trips)
+    search_batch_inflight: int = 4
+    # threads in the read-only search pool
+    search_workers: int = 4
+
+
+def _search_config_factory():
+    # lazy: search config is a leaf dataclass but lives in the search layer
+    from ..search.config import SearchEngineConfig
+
+    return SearchEngineConfig()
+
+
+@dataclasses.dataclass(slots=True)
+class Config:
+    data_dir: pathlib.Path = dataclasses.field(default_factory=default_data_dir)
+    chunking: ChunkingConfig = dataclasses.field(default_factory=ChunkingConfig)
+    compression: CompressionConfig = dataclasses.field(default_factory=CompressionConfig)
+    embedding: EmbeddingConfig = dataclasses.field(default_factory=EmbeddingConfig)
+    vector: VectorIndexConfig = dataclasses.field(default_factory=VectorIndexConfig)
+    lexical: LexicalIndexConfig = dataclasses.field(default_factory=LexicalIndexConfig)
+    daemon: DaemonConfig = dataclasses.field(default_factory=DaemonConfig)
+    search: Any = dataclasses.field(default_factory=_search_config_factory)
+
+    @property
+    def storage_dir(self) -> pathlib.Path:
+        return self.data_dir / "storage"
+
+    @property
+    def metadata_db(self) -> pathlib.Path:
+        return self.data_dir / "yams.db"
+
+    @property
+    def vectors_dir(self) -> pathlib.Path:
+        return self.data_dir / "vectors"
+
+    @property
+    def wal_dir(self) -> pathlib.Path:
+        return self.data_dir / "wal"
+
+    @property
+    def socket_path(self) -> pathlib.Path:
+        if self.daemon.socket_path:
+            return pathlib.Path(self.daemon.socket_path)
+        return self.data_dir / "daemon.sock"
+
+
+def _apply_section(obj: Any, section: dict[str, Any]) -> None:
+    for key, value in section.items():
+        if hasattr(obj, key):
+            cur = getattr(obj, key)
+            if dataclasses.is_dataclass(cur) and isinstance(value, dict):
+                _apply_section(cur, value)
+            elif isinstance(cur, pathlib.Path):
+                setattr(obj, key, pathlib.Path(value))
+            elif isinstance(cur, tuple) and isinstance(value, list):
+                setattr(obj, key, tuple(value))
+            else:
+                setattr(obj, key, type(cur)(value) if cur is not None else value)
+
+
+def load_config(
+    path: pathlib.Path | None = None, data_dir: pathlib.Path | str | None = None
+) -> Config:
+    """defaults <- TOML <- env, as the reference's ConfigResolver does."""
+    cfg = Config()
+    path = path or default_config_path()
+    if tomllib is not None and path.is_file():
+        with open(path, "rb") as f:
+            _apply_section(cfg, tomllib.load(f))
+    if data_dir is not None:
+        cfg.data_dir = pathlib.Path(data_dir)
+    elif os.environ.get("YAMS_TPU_STORAGE"):
+        cfg.data_dir = pathlib.Path(os.environ["YAMS_TPU_STORAGE"])
+    if os.environ.get("YAMS_TPU_SOCKET"):
+        cfg.daemon.socket_path = os.environ["YAMS_TPU_SOCKET"]
+    if os.environ.get("YAMS_TPU_EMBEDDING_PROVIDER"):
+        cfg.embedding.provider = os.environ["YAMS_TPU_EMBEDDING_PROVIDER"]
+    if os.environ.get("YAMS_TPU_EMBEDDING_CHECKPOINT"):
+        cfg.embedding.checkpoint = os.environ["YAMS_TPU_EMBEDDING_CHECKPOINT"]
+    # env-layered search knobs (reference: search_config_environment.cpp):
+    # YAMS_SEARCH_<FIELD> overrides any SearchEngineConfig field
+    for f in dataclasses.fields(cfg.search):
+        raw = os.environ.get(f"YAMS_SEARCH_{f.name.upper()}")
+        if raw is None:
+            continue
+        cur = getattr(cfg.search, f.name)
+        try:
+            if isinstance(cur, bool):
+                setattr(cfg.search, f.name,
+                        raw.lower() in ("1", "true", "yes", "on"))
+            elif isinstance(cur, (int, float, str)):
+                setattr(cfg.search, f.name, type(cur)(raw))
+        except ValueError:
+            pass  # malformed override: keep the configured value
+    return cfg

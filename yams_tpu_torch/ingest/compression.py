@@ -10,12 +10,17 @@ Parity with the reference's src/compression/:
 
 Copied from yams_tpu/ingest/compression.py (the port imports
 nothing of yams_tpu). `zstandard` is imported when a zstd block is first
-compressed or read, so the module imports where the package is missing.
+compressed or read, so the module imports where the package is missing;
+where it is missing, the policy stores the blocks a zstd decision would
+have compressed uncompressed (framed blocks of either package stay
+readable; `zstd_available` tells the daemon to report it).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import importlib.util
 import lzma
 import struct
 import zlib
@@ -63,6 +68,12 @@ class CompressionHeader:
         if magic != MAGIC:
             raise CorruptionError(f"bad compression magic 0x{magic:08x}")
         return cls(algo, level, orig, comp, crc, ver, flags)
+
+
+@functools.cache
+def zstd_available() -> bool:
+    """Whether the `zstandard` package is installed."""
+    return importlib.util.find_spec("zstandard") is not None
 
 
 class _Zstd:
@@ -218,6 +229,8 @@ class CompressionPolicy:
                 return CompressionDecision(False)
         if age_days >= c.archive_after_days:
             return CompressionDecision(True, "lzma", c.lzma_level)
+        if c.algorithm == "zstd" and not zstd_available():
+            return CompressionDecision(False)
         if hot:
             return CompressionDecision(True, c.algorithm, c.zstd_hot_level)
         return CompressionDecision(True, c.algorithm, c.zstd_level)

@@ -1,4 +1,6 @@
 from .db import Database
 from .kg import KnowledgeGraphStore
+from .repository import MetadataRepository
+from .tree import TreeBuilder, TreeDiffer
 
-__all__ = ["Database", "KnowledgeGraphStore"]
+__all__ = ["Database", "MetadataRepository", "KnowledgeGraphStore", "TreeBuilder", "TreeDiffer"]
