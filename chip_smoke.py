@@ -112,7 +112,37 @@ seconds):
      (`python -m yams_tpu_torch.cli --json search`) through the socket
      printing the daemon's hits; a restart giving the same document counts
      and the same 64 answers, and a restart as int8 serving the int8 tier
-     with top-10 overlap >= 0.85 against bf16.
+     with top-10 overlap >= 0.85 against bf16;
+ 11. topology routing and the repair service: (a) on phase 3's card engine
+     (140,000 rows, D 384, auto_k 300) rebuild_topology with the connected
+     and k-means engines and the Louvain build over the index's first 32,768
+     rows (its host passes take ~23 s at 140,000), each build's wall time
+     and stages (the
+     kNN self-join, label propagation or Louvain passes, Lloyd steps, host
+     packaging), one kmeans_step's device time against its bound, two card
+     k-means builds bit-identical, the card build against the CPU twin's
+     build of the same host vectors (>= 0.99 of rows in the same cluster,
+     each differing row named with its top-2 margin), and the connected
+     labels of the first 16,384 rows equal to the CPU's; (b) a k-means
+     build at 1,048,576 x 768 (phase 4's generator, K 300): seconds,
+     kmeans_step against its bound, peak memory; (c) search_batch(64) and
+     (8) under the off, shadow, narrow (abstention gate at 0, so routes
+     commit) and augment policies on (a)'s k-means topology: steady ms and
+     the route's host ms; shadow's top-10 equal to off's on all 64; every
+     narrow hit inside its query's routed slots; the narrow gather tier at
+     B 8 and not at B 64; card == CPU twin (the topology carried by
+     convert.load_topology) on 16 queries per policy and at B 8 for the
+     gather tier; then the route-risk calibration available after the
+     shadow traffic and auto-promotion acting as configured; (d)
+     scripts/bench_narrow.py at its reference shape (1,000,448 x 768, 4,096
+     clusters, top-4 routing, k 10, C 32) at B 1/8/32/128: QPS and device
+     ms of the full scan, the routed gather and the contiguous slices,
+     narrow recall@10 >= 0.9, routed_gather_topk against its bytes bound;
+     (e) a daemon on phase 10's data dir: `repair --ops topology` reporting
+     auto_k clusters over the live rows, the default shadow policy's 64
+     answers unchanged with its counters moving, a full repair with no op
+     "failed", a dry run, doctor green naming the card, and the CLI's
+     repair and doctor through the socket equal to the daemon's.
 
 The kernel launch counters are zeroed just before each path and read just
 after: the add path (phases 2-3) must launch gear_hash_cuda and
@@ -123,7 +153,9 @@ only), and the experiments (phase 7) grouped_max_cuda and
 windowed_scan_cuda; phase 8's path runs torch operations only, and its
 counts are printed; phase 9 must launch exact_topk_cuda and pq4_adc_cuda
 (on the PQ4 index before the save and after the reload), and phase 10's
-add gear_hash_cuda and sha256_cuda (on the blob). At the end no module of
+add gear_hash_cuda and sha256_cuda (on the blob); phase 11's path runs
+torch operations only, and its counts are printed with its device
+operations' times and bounds. At the end no module of
 yams_tpu, jax, jaxlib or flax
 may be loaded. The second-last line is the kernels' JSON record (each with
 its launches, error, time, twin's time and bound), the last line the device
@@ -2080,11 +2112,13 @@ def percentiles(lat_s: list[float]) -> dict:
 
 
 def phase10_service(dev, card: str, n_files: int = 2048, n_dirs: int = 64,
-                    blob_bytes: int = 48 << 20) -> dict:
+                    blob_bytes: int = 48 << 20, keep: dict | None = None) -> dict:
     """The service layer on the card through the port's own daemon: add a
     seeded tree, async ingest, sequential and concurrent (batched) search,
     the card's answers against a CPU AppContext on a copy of the data dir,
-    the CLI against the socket, and two restarts (the second as int8)."""
+    the CLI against the socket, and two restarts (the second as int8).
+    With `keep`, the data dir outlives the phase: `keep` gets "tmp" (the
+    TemporaryDirectory to clean up), "data_dir" and "queries"."""
     import shutil
     import tempfile
     import threading
@@ -2326,6 +2360,8 @@ def phase10_service(dev, card: str, n_files: int = 2048, n_dirs: int = 64,
             f"searches equal {out['restart']}; int8 restart: {vstats['device_dtype']}, top-10 "
             f"overlap with bf16 {overlap:.4f}")
         d = None
+        if keep is not None:
+            keep.update(tmp=tmp, data_dir=data_dir, queries=queries)
         return out
     finally:
         if d is not None and d.thread.is_alive():
@@ -2333,7 +2369,508 @@ def phase10_service(dev, card: str, n_files: int = 2048, n_dirs: int = 64,
                 d.stop()
             except Exception:       # noqa: BLE001  (the phase already failed)
                 pass
-        tmp.cleanup()
+        if "tmp" not in (keep or {}):
+            tmp.cleanup()
+
+
+# -- phase 11 -----------------------------------------------------------------
+def top2_margin(vectors: np.ndarray, centroids: np.ndarray) -> np.ndarray:
+    """Each row's gap between its best and second-best centroid score (f64)."""
+    s = vectors.astype(np.float64) @ centroids.astype(np.float64).T
+    top2 = np.sort(s, axis=1)[:, -2:]
+    return top2[:, 1] - top2[:, 0]
+
+
+def assignments_agree(what: str, got: np.ndarray, want: np.ndarray,
+                      vectors: np.ndarray, centroids: np.ndarray,
+                      least: float = 0.99) -> dict:
+    """Two k-means builds of the same rows: at least `least` of the live rows
+    (want >= 0) get the same cluster; every row that differs is named with
+    its top-2 margin against `centroids`."""
+    live = want >= 0
+    check(np.array_equal(got < 0, ~live), f"{what}: the same rows are invalid")
+    differ = np.nonzero(got != want)[0]
+    frac = 1.0 - len(differ) / max(int(live.sum()), 1)
+    margins = top2_margin(vectors[differ], centroids) if len(differ) else np.zeros(0)
+    if len(differ):
+        named = [(int(r), round(float(mg), 7)) for r, mg in zip(differ[:32], margins[:32])]
+        log(f"[assignments] {what}: {len(differ)} rows differ (row, top-2 margin; first "
+            f"32): {named}")
+    check(frac >= least, f"{what}: {frac:.5f} of the rows agree (>= {least})")
+    return {"agree": frac, "differ": int(len(differ)),
+            "max_margin": float(margins.max()) if len(differ) else 0.0,
+            "median_margin": float(np.median(margins)) if len(differ) else 0.0}
+
+
+def hits_outside(results, masks, slot_by_doc) -> list:
+    """(query, rank, doc) of every hit whose slot its query's routed mask
+    leaves out."""
+    return [(q, j, r.doc_id) for q, (res, mask) in enumerate(zip(results, masks))
+            for j, r in enumerate(res) if mask[slot_by_doc[r.doc_id]] <= 0]
+
+
+def route_masks(eng, queries) -> list:
+    """The engine's own routed slot mask of each query, from the query
+    vectors search_batch computes (sketch @ projection, L2-normalized)."""
+    sketches, proj = eng.provider.query_device_inputs(queries)
+    v = np.asarray(sketches)[:len(queries)].astype(np.float32) @ proj.float().cpu().numpy()
+    v /= np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-9)
+    return [eng._routed_slot_mask(qv, eng.num_slots_padded, query=q)
+            for qv, q in zip(v, queries)]
+
+
+def promotes_as_configured(calib: dict, max_mpt: float, promoted: bool) -> bool:
+    """Auto-promotion acts as the config says: it promotes exactly when the
+    route-risk certificate is available and its misses per thousand clear
+    the gate."""
+    want = bool(calib["available"]) and calib["misses_per_thousand"] <= max_mpt
+    return promoted == want
+
+
+def top10_overlap(got, want) -> float:
+    return float(np.mean([len({r.doc_id for r in a[:10]} & {r.doc_id for r in b[:10]})
+                          / max(len(b[:10]), 1) for a, b in zip(got, want)]))
+
+
+def phase11_builds(dev, eng, cpu, n_sub: int = 16_384, louvain_rows: int = 32_768) -> dict:
+    """(a) The three builds on phase 3's card engine through
+    rebuild_topology (k-means last, so the engine keeps it), their stage
+    times, kmeans_step's device time against its bound, two card k-means
+    builds bit-identical, the card build against the CPU twin's, and the
+    connected labels of a 16,384-row subset against the CPU's. Louvain's
+    host passes take ~23 s at 140,000 rows on the card's host, so it
+    builds the index's first `louvain_rows` rows (the same build
+    rebuild_topology runs, on a TopologyEngine of its own)."""
+    from yams_tpu_torch.index import topology as topo
+
+    vi = eng.vector_index
+    n_live = vi.active_rows
+    K = topo.auto_k(n_live)
+    out: dict = {"rows": n_live, "capacity": vi.capacity, "dim": vi.dim, "auto_k": K,
+                 "louvain_rows": louvain_rows, "builds": {}}
+    for name in ("connected", "louvain", "kmeans"):
+        t = time.perf_counter()
+        if name == "louvain":
+            built = topo.TopologyEngine(
+                representatives=eng.config.topology_representatives, device=dev)
+            built.build(vi._vecs[:louvain_rows], vi._valid[:louvain_rows],
+                        epoch=eng._stats["searches"], engine="louvain")
+        else:
+            eng.rebuild_topology(engine=None if name == "kmeans" else name)
+            built = eng.topology
+        wall = time.perf_counter() - t
+        a = built.artifacts
+        b = {"s": wall, **built.last_timings, "clusters": len(a.centroids),
+             "max_size": int(a.cluster_sizes.max()),
+             "persistence": float(a.centroid_persistence)}
+        out["builds"][name] = b
+        rows = f"the first {louvain_rows} rows" if name == "louvain" else f"{n_live} rows"
+        log(f"[phase11] {name} build over {rows}: {wall:.2f} s, stages "
+            f"{json.dumps({k: round(v, 3) for k, v in built.last_timings.items()})}, "
+            f"{b['clusters']} clusters (largest {b['max_size']} rows)")
+    arts = eng.topology.artifacts
+    check(len(arts.centroids) == K, f"k-means built auto_k({n_live}) = {K} clusters")
+    v = torch.from_numpy(vi._vecs).to(dev)
+    m = torch.from_numpy(vi._valid).to(dev)
+    cen = torch.from_numpy(arts.centroids).to(dev)
+    N, D = v.shape
+    step_ms = cuda_ms(lambda: topo.kmeans_step(v, m, cen), 10)
+    out["kmeans_step"] = {"ms": step_ms, "N": N, "D": D, "K": K, "live": n_live,
+                          **kmeans_bound(n_live, N, D, K)}
+    del v, m, cen
+    log(f"[phase11] kmeans_step ({N} x {D} rows given, {n_live} live, K {K}): "
+        f"{step_ms:.4f} ms against a bound of {out['kmeans_step']['bound_ms']:.4f} ms "
+        f"({out['kmeans_step']['bound_by']})")
+
+    epoch = arts.epoch
+    t = time.perf_counter()
+    one = topo.TopologyEngine(device=dev).build(vi._vecs, vi._valid, epoch=epoch)
+    two = topo.TopologyEngine(device=dev).build(vi._vecs, vi._valid, epoch=epoch)
+    check(np.array_equal(one.assignments, two.assignments)
+          and np.array_equal(one.centroids.view(np.uint32), two.centroids.view(np.uint32))
+          and np.array_equal(one.assignments, arts.assignments),
+          "two card k-means builds of the same vectors are bit-identical")
+    log(f"[phase11] two card k-means builds bit-identical ({time.perf_counter() - t:.2f} s)")
+    t = time.perf_counter()
+    twin = topo.TopologyEngine(device="cpu").build(vi._vecs, vi._valid, epoch=epoch)
+    out["cpu_kmeans_s"] = time.perf_counter() - t
+    out["kmeans_vs_cpu"] = assignments_agree(
+        "card k-means against the CPU twin", arts.assignments, twin.assignments,
+        vi._vecs, twin.centroids)
+    log(f"[phase11] card k-means against the CPU twin's build ({out['cpu_kmeans_s']:.2f} s "
+        f"on the CPU): {json.dumps(out['kmeans_vs_cpu'])}")
+    # how the gate's agreement grows with the Lloyd steps: after one step
+    # (recorded, not gated) against the eight of the build above
+    one = topo.TopologyEngine(iters=1, device=dev).build(vi._vecs, vi._valid, epoch=epoch)
+    twin = topo.TopologyEngine(iters=1, device="cpu").build(vi._vecs, vi._valid, epoch=epoch)
+    out["kmeans_vs_cpu_1step"] = assignments_agree(
+        "card k-means after 1 Lloyd step against the CPU twin's (recorded)",
+        one.assignments, twin.assignments, vi._vecs, twin.centroids, least=0.0)
+    log(f"[phase11] after 1 Lloyd step, card against the CPU twin: "
+        f"{json.dumps(out['kmeans_vs_cpu_1step'])}")
+
+    sub = np.ascontiguousarray(vi._vecs[:n_sub])
+    sub_valid = np.ascontiguousarray(vi._valid[:n_sub])
+    card_labels = topo.connected_labels(
+        torch.from_numpy(sub).to(dev), torch.from_numpy(sub_valid).to(dev), 0.25,
+        knn=8, block_rows=256).cpu().numpy()
+    t = time.perf_counter()
+    cpu_labels = topo.connected_labels(torch.from_numpy(sub), torch.from_numpy(sub_valid),
+                                       0.25, knn=8, block_rows=256).numpy()
+    out["connected_subset"] = {"rows": n_sub, "cpu_s": time.perf_counter() - t,
+                               "components": int(len(np.unique(card_labels)))}
+    check(np.array_equal(card_labels, cpu_labels),
+          f"connected labels of {n_sub} rows: card == CPU "
+          f"({int((card_labels != cpu_labels).sum())} differ)")
+    log(f"[phase11] connected labels of the first {n_sub} rows: card == CPU "
+        f"({out['connected_subset']['components']} components)")
+    out["self_join"] = phase11_self_join(dev, vi)
+    return out
+
+
+def once_ms(fn):
+    """(fn(), its device milliseconds by CUDA events) of one call, no
+    warm-up: for work too long to repeat whose path has already run."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    r = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return r, start.elapsed_time(end)
+
+
+def kmeans_bound(n_live: int, N: int, D: int, K: int) -> dict:
+    """kmeans_step's bound: the live rows' f32 vectors and the (N,) mask read
+    once, the centroids read and written (a dead row's vector need not be
+    read), against the bf16 product of the live rows with the centroids."""
+    return bound(n_live * D * 4 + N * 4 + 2 * K * D * 4, 2 * n_live * K * D, PEAK_BF16)
+
+
+def self_join_bound(n_live: int, D: int, k: int, block: int) -> dict:
+    """The kNN self-join's bound: the live rows' f32 vectors read once and
+    (n_live, k) f32 scores and 4-byte ids written, against the bf16 product
+    of the live rows with the live rows padded to a block."""
+    return bound(n_live * D * 4 + n_live * k * 8,
+                 2.0 * n_live * (n_live + (-n_live) % block) * D, PEAK_BF16)
+
+
+def propagate_bound(n_live: int, knn: int, rounds: int = 24) -> dict:
+    """Label propagation's bound, bytes: each round reads a live row's knn
+    neighbor ids, gathers their knn labels, scatters knn labels back, and
+    reads and writes its own label to halve the path, in 4-byte ids and
+    labels (the least width that holds a row id); the min operations are
+    no bound beside them."""
+    return bound(rounds * n_live * (3 * knn + 2) * 4, rounds * n_live * (2 * knn + 2),
+                 PEAK_INT)
+
+
+def phase11_self_join(dev, vi, knn: int = 8, block: int = 256, n_cmp: int = 40_000) -> dict:
+    """The connected build's kNN self-join on phase 3's index: its device
+    time in the query slices the build takes (_KNN_QUERIES) and label
+    propagation's on its graph, against their bounds; then, on the first
+    `n_cmp` live rows, the sliced join (the last slice shorter) against one
+    slice of them all: values within 1e-5, a differing id only at a
+    near-tie within 1e-5, equal labels. One slice of all 140,000 rows gave
+    bit-equal lists but took 21.7 s on an H100 (PERF.md §6), too long to
+    repeat in every run."""
+    from yams_tpu_torch.index import topology as topo
+
+    def padded(x):
+        return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, (-len(x)) % block))
+
+    v = padded(torch.from_numpy(vi._vecs).to(dev))
+    m = padded(torch.from_numpy(vi._valid).to(dev))
+    n_live = int(vi._valid.sum())
+    (vals, nbrs), join_ms = once_ms(lambda: topo.knn_live(v, m, knn, block))
+    graph = topo.knn_edges(vals, nbrs, m, 0.25)
+    prop_ms = cuda_ms(lambda: topo.propagate_labels(graph), 5)
+    rows = torch.nonzero(m > 0).flatten()[:n_cmp]
+    n = len(rows)
+    vs, ms = padded(v.index_select(0, rows)), padded(m.index_select(0, rows))
+    del v, m, vals, nbrs, graph
+    (vals, nbrs), sliced_ms = once_ms(lambda: topo.knn_live(vs, ms, knn, block))
+    (vals1, nbrs1), one_ms = once_ms(lambda: topo.knn_live(vs, ms, knn, block, query_rows=n))
+    err, differ = fused_agree(f"self-join of {n} rows in slices of {topo._KNN_QUERIES} "
+                              "against one slice", vals, nbrs, vals1, nbrs1, tol=1e-5, tie=1e-5)
+    same = torch.equal(topo.propagate_labels(topo.knn_edges(vals, nbrs, ms, 0.25)),
+                       topo.propagate_labels(topo.knn_edges(vals1, nbrs1, ms, 0.25)))
+    check(same, f"connected labels of {n} rows: the sliced self-join's == one slice's")
+    out = {"rows": n_live, "knn": knn, "slices": -(-n_live // topo._KNN_QUERIES),
+           "join": {"ms": join_ms, **self_join_bound(n_live, vi.dim, knn, block)},
+           "propagate": {"ms": prop_ms, **propagate_bound(n_live, knn)},
+           "one_slice": {"rows": n, "slices": -(-n // topo._KNN_QUERIES), "sliced_ms": sliced_ms,
+                         "one_ms": one_ms, "max_err": err, "ids_differ": differ}}
+    del vs, ms, vals, nbrs, vals1, nbrs1
+    torch.cuda.empty_cache()
+    log(f"[phase11] self-join of {n_live} live rows, k {knn}, {out['slices']} slices: "
+        f"{join_ms:.1f} ms against {out['join']['bound_ms']:.3f} ms "
+        f"({out['join']['bound_by']}); propagate_labels {prop_ms:.3f} ms against "
+        f"{out['propagate']['bound_ms']:.4f} ms ({out['propagate']['bound_by']}); the first "
+        f"{n} rows in {out['one_slice']['slices']} slices ({sliced_ms:.1f} ms) against one "
+        f"({one_ms:.1f} ms): max error {err:.3g}, {differ} ids differ, labels equal")
+    return out
+
+
+def phase11_full_width(dev, N: int = 1 << 20, D: int = 768) -> dict:
+    """(b) TopologyEngine(device=cuda).build on phase 4's clustered
+    generator at 1,048,576 x 768 (K 300)."""
+    from yams_tpu_torch.index import topology as topo
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+    E = clustered_corpus(dev, gen, N, D)
+    host = E.float().cpu().numpy()
+    del E
+    valid = np.ones(len(host), np.float32)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    eng = topo.TopologyEngine(device=dev)
+    t = time.perf_counter()
+    arts = eng.build(host, valid)
+    build_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    K = topo.auto_k(len(host))
+    check(len(arts.centroids) == K and (arts.assignments >= 0).all()
+          and np.isfinite(arts.centroids).all(),
+          f"the full-width build gives {K} finite centroids and assigns every row")
+    v = torch.from_numpy(host).to(dev)
+    m = torch.from_numpy(valid).to(dev)
+    cen = torch.from_numpy(arts.centroids).to(dev)
+    N, D = v.shape
+    step_ms = cuda_ms(lambda: topo.kmeans_step(v, m, cen), 5)
+    out = {"N": N, "D": D, "K": K, "build_s": build_s, "stages": eng.last_timings,
+           "peak_gb": peak / 1e9,
+           "kmeans_step": {"ms": step_ms, "N": N, "D": D, "K": K, "live": N,
+                           **kmeans_bound(N, N, D, K)}}
+    del v, m, cen, host
+    torch.cuda.empty_cache()
+    log(f"[phase11] full width {N} x {D}, K {K}: build {build_s:.2f} s (stages "
+        f"{json.dumps({k: round(x, 3) for k, x in eng.last_timings.items()})}), peak "
+        f"{out['peak_gb']:.2f} GB above the start; kmeans_step {step_ms:.4f} ms against a "
+        f"bound of {out['kmeans_step']['bound_ms']:.4f} ms ({out['kmeans_step']['bound_by']})")
+    return out
+
+
+def phase11_policies(dev, eng, cpu, queries) -> dict:
+    """(c) search_batch under the four policies on the k-means topology:
+    steady ms at B 64 and 8, the route's host ms, shadow == off, narrow hits
+    within their routes, the gather tier at B 8 only, card == CPU (the CPU
+    twin gets the card's topology through convert.load_topology), and the
+    route-risk calibration and auto-promotion after the shadow traffic."""
+    from yams_tpu_torch.convert import load_topology
+
+    load_topology(cpu, eng)
+    cfg, ccfg = eng.config, cpu.config
+    saved = (cfg.topology_policy, cfg.topology_narrow_min_boundary_margin,
+             cfg.topology_auto_promote)
+    out: dict = {"policies": {}}
+    results = {}
+    try:
+        for policy in ("off", "shadow", "narrow", "augment"):
+            for c in (cfg, ccfg):
+                c.topology_policy = policy
+                # narrow commits its routes (no abstention) so the gather
+                # tier and the within-route check see real narrowing
+                c.topology_narrow_min_boundary_margin = 0.0 if policy == "narrow" else saved[1]
+            _, steady64, res = timed_search(dev, eng, queries)
+            tr64 = eng.last_trace
+            _, steady8, res8 = timed_search(dev, eng, queries[:8])
+            tr8 = eng.last_trace
+            results[policy] = res
+            row = {"steady64_ms": steady64 * 1e3, "steady8_ms": steady8 * 1e3,
+                   "route64_ms": tr64["stages"].get("topology_route_ms"),
+                   "route8_ms": tr8["stages"].get("topology_route_ms"),
+                   "device64_ms": tr64["stages"]["device_ms"],
+                   "gather_rows8": tr8.get("narrow_gather_rows"),
+                   "gather_rows64": tr64.get("narrow_gather_rows")}
+            row["card_vs_cpu16"] = results_agree(
+                f"{policy}: card against the CPU twin, B 16",
+                eng.search_batch(queries[:16]), cpu.search_batch(queries[:16]))
+            if policy == "narrow":
+                check(row["gather_rows8"] is not None and row["gather_rows64"] is None,
+                      f"narrow: the gather tier runs at B 8 and not at B 64 ({row})")
+                row["card_vs_cpu8"] = results_agree(
+                    "narrow gather tier: card against the CPU twin, B 8",
+                    eng.search_batch(queries[:8]), cpu.search_batch(queries[:8]))
+                outside = hits_outside(res, route_masks(eng, queries), eng._slot_by_doc)
+                outside += hits_outside(res8, route_masks(eng, queries[:8]), eng._slot_by_doc)
+                check(not outside, f"every narrow hit lies in its query's routed slots "
+                      f"({outside[:8]})")
+                row["recall10_vs_off"] = top10_overlap(res, results["off"])
+            out["policies"][policy] = row
+            log(f"[phase11] {policy}: search_batch(64) steady {row['steady64_ms']:.2f} ms "
+                f"(route {row['route64_ms']}), search_batch(8) {row['steady8_ms']:.2f} ms "
+                f"(route {row['route8_ms']}, gather rows {row['gather_rows8']}); card == CPU "
+                f"{row['card_vs_cpu16']}"
+                + (f"; recall@10 against off {row['recall10_vs_off']:.4f}"
+                   if policy == "narrow" else ""))
+        same = [[(r.doc_id, r.score) for r in a] == [(r.doc_id, r.score) for r in b]
+                for a, b in zip(results["shadow"], results["off"])]
+        check(all(same), f"shadow's top-10 equals off's on all 64 ({sum(same)})")
+        # calibration after the shadow traffic, then promotion as configured
+        for c in (cfg, ccfg):
+            c.topology_policy = "shadow"
+            c.topology_narrow_min_boundary_margin = saved[1]
+        eng.search_batch(queries)
+        calib = eng.route_calibration()
+        check(calib["available"], f"route calibration available after shadow traffic ({calib})")
+        cfg.topology_auto_promote = True
+        promotions = eng._stats["topology_promotions"]
+        eng.search_batch(queries[:8])
+        promoted = eng._stats["topology_promotions"] > promotions
+        check(promoted == (cfg.topology_policy == "narrow")
+              and promotes_as_configured(calib, cfg.topology_calibration_max_mpt, promoted),
+              f"auto-promotion acts as configured (max_mpt "
+              f"{cfg.topology_calibration_max_mpt}, {calib}, promoted {promoted})")
+        out["calibration"] = {k: v.item() if isinstance(v, np.generic) else v
+                              for k, v in calib.items()}
+        out["promoted"] = promoted
+        out["shadow_agree"] = eng._stats["topology_shadow_agree"]
+        log(f"[phase11] after the shadow traffic: calibration {json.dumps(calib, default=float)}; "
+            f"auto-promotion at max_mpt {cfg.topology_calibration_max_mpt}: {promoted}; "
+            f"shadow agreement {out['shadow_agree']:.4f}")
+        return out
+    finally:
+        for c in (cfg, ccfg):
+            (c.topology_policy, c.topology_narrow_min_boundary_margin,
+             c.topology_auto_promote) = saved
+
+
+def phase11_narrow(dev, **shape) -> dict:
+    """(d) The narrow mechanism at the reference script's shape
+    (scripts/bench_narrow.py: 1,000,448 x 768, 4,096 clusters, sigma 0.35,
+    top-4 routing, k 10, C 32)."""
+    from yams_tpu_torch.scripts import bench_narrow
+
+    rows = bench_narrow.run(batches=(1, 8, 32, 128), seed=SEED, device=dev, **shape,
+                            log=lambda line: log(f"[phase11] bench_narrow {line}"))
+    for r in rows:
+        check(r["narrow_recall10"] >= 0.9,
+              f"bench_narrow B {r['B']}: narrow recall@10 {r['narrow_recall10']:.4f} >= 0.9")
+    torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
+def phase11_service(dev, keep: dict) -> dict:
+    """(e) Repair through a daemon on phase 10's data dir: `repair --ops
+    topology`, the default shadow policy's answers unchanged and its
+    counters moving, a full repair, a dry run, doctor, and the CLI through
+    the socket against the daemon."""
+    from yams_tpu_torch.core.config import load_config
+    from yams_tpu_torch.index.topology import auto_k
+
+    data_dir, queries = keep["data_dir"], keep["queries"]
+    cfg = load_config(data_dir=data_dir)
+    d = ThreadDaemon(cfg, dev)
+    out: dict = {}
+    try:
+        eng = d.app.search_engine
+        check(eng.config.topology_policy == "shadow", "the daemon's default policy is shadow")
+        before = [hits_of(d.client.search(q)) for q in queries]
+        routes0 = eng.stats()["topology_routes"]
+        n = eng.vector_index.active_rows
+        t = time.perf_counter()
+        rep = d.client.repair(["topology"])
+        out["repair_topology_s"] = time.perf_counter() - t
+        want = f"{auto_k(n)} clusters over {n} rows"
+        check(rep == {"topology": want}, f"repair --ops topology reports {want!r} ({rep})")
+        after = [hits_of(d.client.search(q)) for q in queries]
+        out["shadow_vs_before"] = results_agree("shadow after the repair against before",
+                                                after, before)
+        check(out["shadow_vs_before"]["equal"] == len(queries),
+              "64 answers unchanged under shadow after the repair")
+        st = eng.stats()
+        check(st["topology_routes"] - routes0 >= len(queries)
+              and eng.route_calibration()["queries"] > 0,
+              f"the shadow counters moved ({st['topology_routes']}, {eng.route_calibration()})")
+        out["shadow_routes"] = st["topology_routes"] - routes0
+        out["shadow_agree"] = st["topology_shadow_agree"]
+        t = time.perf_counter()
+        full = d.client.repair()
+        out["repair_all_s"] = time.perf_counter() - t
+        failed = {op: r for op, r in full.items() if str(r).startswith("failed")}
+        check(not failed and len(full) == 15, f"no repair op failed ({failed or full})")
+        out["repair_all"] = full
+        dry = d.client.call("repair", dry_run=True)
+        check(dry["dry_run"] and set(dry["plan"].values()) == {"planned"},
+              f"the dry run plans every op ({dry['plan']})")
+        doc = d.client.doctor()
+        name = torch.cuda.get_device_name(dev)
+        check(all(ok for ok, _ in doc.values()) and name in doc["device"][1],
+              f"doctor is green and names the card ({doc})")
+        out["doctor"] = doc
+        cli = {}
+        for argv, answer in ((["repair", "--ops", "topology"], None), (["doctor"], doc)):
+            if answer is None:
+                answer = d.client.repair(["topology"])
+            proc = subprocess.run(
+                [sys.executable, "-m", "yams_tpu_torch.cli", "--storage", str(data_dir),
+                 "--json", *argv], capture_output=True, text=True, timeout=300,
+                cwd=pathlib.Path(__file__).resolve().parent)
+            check(proc.returncode == 0 and json.loads(proc.stdout) == answer,
+                  f"the CLI's {argv[0]} through the socket equals the daemon's "
+                  f"({proc.returncode}, {proc.stdout[-300:]}, {proc.stderr[-300:]})")
+            cli[argv[0]] = True
+        out["cli"] = cli
+        log(f"[phase11] daemon: repair --ops topology {rep['topology']!r} in "
+            f"{out['repair_topology_s']:.2f} s; 64 shadow answers unchanged "
+            f"{out['shadow_vs_before']}, {out['shadow_routes']} routes, agreement "
+            f"{out['shadow_agree']:.4f}; full repair in {out['repair_all_s']:.2f} s "
+            f"{json.dumps(full)}; dry run plans {len(dry['plan'])} ops; doctor green, "
+            f"device {doc['device'][1]!r}; the CLI's repair and doctor == the daemon's")
+        d.stop()
+        d = None
+        return out
+    finally:
+        if d is not None and d.thread.is_alive():
+            try:
+                d.stop()
+            except Exception:       # noqa: BLE001  (the phase already failed)
+                pass
+
+
+def phase11_ops(topology: dict) -> list:
+    """Phase 11's device operations (torch, no hand kernel yet), each with
+    its time and bound: kmeans_step at phase 3's rows and at full width,
+    the kNN self-join and label propagation (the connected build's, at the
+    live rows), and routed_gather_topk at each bench_narrow B."""
+    b = topology["builds"]
+    rows = [{"op": "kmeans_step", "shape": f"{k['N']}x{k['D']} K {k['K']}", "live": k["live"],
+             "ms": k["ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"]}
+            for k in (b["kmeans_step"], topology["full_width"]["kmeans_step"])]
+    j = b["self_join"]
+    for op in ("join", "propagate"):
+        rows.append({"op": "knn_self_join" if op == "join" else "propagate_labels",
+                     "rows": j["rows"], "knn": j["knn"], **j[op]})
+    rows += [{"op": "routed_gather_topk", "B": r["B"], "R": r["routed_rows"],
+              "ms": r["narrow_dev_ms"], "bound_ms": r["narrow_bound_ms"], "bound_by": "bytes",
+              "full_scan_ms": r["full_dev_ms"]} for r in topology["narrow"]["rows"]]
+    return rows
+
+
+def phase11_topology(dev, card: str, eng, cpu, queries, keep: dict) -> dict:
+    """Topology routing and the repair service on the card: (a) the builds
+    on phase 3's engine, (b) the full-width build, (c) search under the four
+    policies, (d) the narrow mechanism, (e) repair and doctor through a
+    daemon on phase 10's data dir."""
+    out = {"card": card}
+    try:
+        for name, fn, args in (
+                ("builds", phase11_builds, (dev, eng, cpu)),
+                ("full_width", phase11_full_width, (dev,)),
+                ("policies", phase11_policies, (dev, eng, cpu, queries)),
+                ("narrow", phase11_narrow, (dev,)),
+                ("service", phase11_service, (dev, keep))):
+            t = time.perf_counter()
+            out[name] = fn(*args)
+            out[name + "_s"] = time.perf_counter() - t
+            log(f"[phase11 {name}] {out[name + '_s']:.2f} s")
+        return out
+    finally:
+        if "tmp" in keep:
+            keep.pop("tmp").cleanup()
 
 
 def main() -> int:
@@ -2427,16 +2964,24 @@ def main() -> int:
         check(kg_launches[name] >= 1, f"{name} launched on a reloaded index")
 
     zero()
-    service = phase("phase10", phase10_service, dev, card)
+    keep: dict = {}
+    service = phase("phase10", phase10_service, dev, card, 2048, 64, 48 << 20, keep)
     svc_launches = read()
     log(f"[service layer path] kernel launches {svc_launches}")
     for name in ("gear_hash_cuda", "sha256_cuda"):
         check(svc_launches[name] >= 1, f"{name} launched on the service layer's add")
 
+    zero()
+    topology = phase("phase11", phase11_topology, dev, card, eng, cpu, queries, keep)
+    topo_launches = read()
+    log(f"[topology and repair path] kernel launches {topo_launches} (its builds, routing "
+        "and gather scan are torch operations: no hand kernel yet)")
+    log("[phase11] device operations " + json.dumps(phase11_ops(topology)))
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("yams_tpu", "jax", "jaxlib", "flax"))
     check(not loaded, f"no module of yams_tpu, jax, jaxlib or flax loaded (found {loaded})")
-    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'torch': torch.__version__})}")
+    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'torch': torch.__version__})}")
 
     sources = {
         "gear_hash_cuda": ("yams_tpu_torch/csrc/gear_hash.cu", "yams_tpu/ops/cdc.py:65",

@@ -5,7 +5,9 @@
   CLI prints for the same tree (the CSR lexical leg, set in the config
   file both read: same ids, scores within 1e-4).
 - Every command whose service the port lacks exits 3 with "not ported:
-  ROADMAP queue 1 item N".
+  ROADMAP queue 1 item N"; repair, doctor, restore, dedupe and tune print
+  what the reference's CLI prints for the same tree, apart from the repair
+  service's named departures.
 - A daemon on the socket whose ping lacks "backend": "torch" (a daemon of
   the JAX package) is refused: exit 2 with a message, never served by.
 - Against the port's daemon the CLI routes through the socket and prints
@@ -109,10 +111,64 @@ def test_in_process_commands_match_the_reference(env, capsys):
 
 NOT_PORTED = [("grep", ["grep", "x"], 3), ("session", ["session", "list"], 3),
               ("watch", ["watch", "."], 3), ("download", ["download", "file:///x"], 3),
-              ("repair", ["repair"], 3), ("doctor", ["doctor"], 3),
-              ("plugin", ["plugin", "list"], 3), ("restore", ["restore", "s", "t"], 3),
-              ("dedupe", ["dedupe"], 3), ("auth", ["auth", "list-keys"], 3),
-              ("serve", ["serve"], 3), ("model", ["model"], 5), ("tune", ["tune"], 3)]
+              ("plugin", ["plugin", "list"], 3), ("auth", ["auth", "list-keys"], 3),
+              ("serve", ["serve"], 3), ("model", ["model"], 5)]
+
+# the repair service's departures from the reference, by op
+# (yams_tpu_torch/services/repair_service.py)
+DOWNLOADS_WAIT = ("0 url-docs normalized, .part/resume cleanup skipped: the "
+                  "download service waits for ROADMAP queue 1 item 3")
+
+
+def _ported_argv(name, snapshot, target):
+    return {"repair": ["repair"], "doctor": ["doctor"], "tune": ["tune"],
+            "restore": ["restore", snapshot, str(target)],
+            "dedupe": ["dedupe", "--threshold", "0.9"]}[name]
+
+
+@pytest.mark.parametrize("name", ["repair", "doctor", "restore", "dedupe", "tune"])
+def test_ported_commands_match_the_reference(env, capsys, name):
+    """The commands that exited 3 until the repair service was ported print
+    what the reference's CLI prints for the same tree, apart from the
+    departures the repair service names: the downloads op's cleanup step
+    waits for item 3, the embeddings op does not re-queue the binary
+    ('skipped') document, and doctor's device and native lines name the
+    port's own."""
+    tree = make_tree(env / "tree", n_notes=30)
+    got = {}
+    for label, main, argv in (("port", port_main, port), ("ref", ref_main, ref)):
+        s = env / label
+        rc, add, _ = run(main, capsys, "--json", *argv(s, "add", str(tree), "--snapshot"))
+        assert rc == 0
+        snap = json.loads(add)["snapshot_id"]
+        rc, out, err = run(main, capsys, "--json",
+                           *argv(s, *_ported_argv(name, snap, env / f"{label}_out")))
+        got[label] = (rc, json.loads(out.replace(str(s), "<storage>")))
+    (prc, p), (rrc, r) = got["port"], got["ref"]
+    assert prc == rrc == 0
+    if name == "repair":
+        assert set(p) == set(r) and not any(v.startswith("failed") for v in p.values())
+        assert p.pop("downloads") == DOWNLOADS_WAIT
+        assert r.pop("downloads").startswith("0 url-docs normalized, 0 orphan")
+        assert p.pop("embeddings") == "0 documents embedded"
+        assert r.pop("embeddings") == "0 documents embedded (1 re-queued from lost index)"
+        assert p == r and "clusters over" in p["topology"]
+    elif name == "doctor":
+        assert p.pop("device") == [True, "cpu"] and r.pop("device")[0]
+        assert p.pop("native_lib")[0] == r.pop("native_lib")[0]
+        assert p == r
+    elif name == "restore":
+        assert {k: v for k, v in p.items() if k != "target"} == \
+            {k: v for k, v in r.items() if k != "target"} and p["restored"] > 30
+        for f in (env / "ref_out").rglob("*"):
+            if f.is_file():
+                twin = env / "port_out" / f.relative_to(env / "ref_out")
+                assert twin.read_bytes() == f.read_bytes()
+    elif name == "dedupe":
+        assert [(x["a"], x["b"]) for x in p] == [(x["a"], x["b"]) for x in r] and p
+        assert max(abs(x["similarity"] - y["similarity"]) for x, y in zip(p, r)) <= 1e-4
+    else:
+        assert p == r and p["engine_stats"] == {"searches": 0}
 
 
 @pytest.mark.parametrize("name,argv,item", NOT_PORTED, ids=[n[0] for n in NOT_PORTED])

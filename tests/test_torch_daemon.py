@@ -11,8 +11,10 @@ socket (as tests/test_interfaces.py runs the reference's):
   that worker needs the state lock (the reference holds the lock across the
   wait), and a batch envelope refuses it;
 - `feedback` with no id answers InvalidArgument; the handlers of services
-  the port lacks answer UNSUPPORTED naming their ROADMAP item; trusted
-  plugins are reported as not loaded;
+  the port lacks answer UNSUPPORTED naming their ROADMAP item; `repair`
+  (with and without dry_run) and `doctor` answer as the reference's
+  RepairService on the same tree; trusted plugins are reported as not
+  loaded;
 - `spawn_daemon` and `python -m yams_tpu_torch.daemon` run the port's
   daemon on the device they are given.
 
@@ -191,7 +193,7 @@ def test_feedback_needs_an_id(daemon):
 
 @pytest.mark.parametrize("rtype,fields,item", [
     ("grep", {"pattern": "x"}, 3), ("session", {"op": "list"}, 3),
-    ("repair", {}, 3), ("doctor", {}, 3), ("download", {"url": "file:///x"}, 3),
+    ("download", {"url": "file:///x"}, 3),
     ("download_start", {"url": "file:///x"}, 3), ("download_list", {}, 3),
     ("cancel", {"job_id": "j"}, 3), ("plugins", {}, 3), ("plugin_scan", {}, 3),
     ("plugin_trust_list", {}, 3), ("model_load", {"model": "hf"}, 5),
@@ -200,6 +202,52 @@ def test_unported_handlers_answer_unsupported(daemon, rtype, fields, item):
     with pytest.raises(YamsError, match=f"not ported: ROADMAP queue 1 item {item}") as e:
         daemon.client.call(rtype, **fields)
     assert e.value.code == ErrorCode.UNSUPPORTED
+
+
+@pytest.mark.parametrize("rtype", ["repair", "doctor", "repair_dry_run"])
+def test_repair_and_doctor_answer_as_the_reference(daemon, tree, tmp_path, rtype):
+    """`repair` (with and without dry_run) and `doctor` through the socket
+    answer as the reference's RepairService on an AppContext over the same
+    tree, apart from the repair service's named departures (the downloads
+    op's cleanup waits for item 3; the binary, 'skipped', document is not
+    re-queued; doctor's device and native lines are the port's own)."""
+    from test_torch_services import ref_config_for
+    from yams_tpu.services.app import AppContext as RefApp
+    from yams_tpu.services.repair_service import RepairService as RefRepair
+
+    ref_app = RefApp(ref_config_for(tmp_path / "ref"))
+    try:
+        populate(ref_app, tree)
+        daemon.client.add_path(str(tree))
+        _add_tagged(daemon.client)
+        svc = RefRepair(ref_app)
+        if rtype == "repair":
+            got, want = daemon.client.repair(), svc.run()
+            assert not any(v.startswith("failed") for v in got.values())
+            assert got.pop("downloads").endswith("waits for ROADMAP queue 1 item 3")
+            want.pop("downloads")
+            assert got.pop("embeddings") == "0 documents embedded"
+            assert want.pop("embeddings").endswith("(1 re-queued from lost index)")
+            assert got == want and "clusters over" in got["topology"]
+            assert daemon.app.search_engine.topology is not None
+        else:
+            if rtype == "doctor":
+                got = daemon.client.doctor()
+                want = {k: list(v) for k, v in svc.doctor().items()}
+            else:
+                res = daemon.client.call("repair", dry_run=True, ops=["topology", "nope"])
+                assert res["dry_run"] and res["plan"] == {"topology": "planned",
+                                                          "nope": "unknown op"}
+                assert daemon.app.search_engine.topology is None   # nothing ran
+                got = {k: [v["ok"], v["detail"]] for k, v in res["doctor"].items()}
+                want = {k: list(v) for k, v in svc.doctor().items()}
+            assert got.pop("device") == [True, "cpu"] and want.pop("device")[0]
+            assert got.pop("native_lib")[0] == want.pop("native_lib")[0]
+            norm = lambda d, root: {k: [ok, str(det).replace(str(root), "<dir>")]  # noqa: E731
+                                    for k, (ok, det) in d.items()}
+            assert norm(got, daemon.app.config.data_dir) == norm(want, ref_app.config.data_dir)
+    finally:
+        ref_app.close()
 
 
 def test_a_session_filter_answers_unsupported(daemon):

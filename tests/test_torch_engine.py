@@ -128,26 +128,29 @@ def test_engine_matches_reference_after_direct_adds(engines):
     {"semantic_rescue_slots": 2},
 ])
 def test_unported_engine_paths_refuse(engines, change):
-    """Topology routing refuses. The tuner and semantic rescue refused until
-    the port had them: each now matches the reference on the same adds (the
-    tuner after the same feedback, with the same arm chosen). Both run the
-    CSR lexical leg: the packed leg's BM25 sums drift a few ulps from the
-    reference's, which reorders near-tied docs, and the RRF term of the
-    arms that weight it more (vector_heavy, rrf_heavy) turns one rank into
-    ~6e-4 of fused score."""
+    """Narrow topology routing, the tuner and semantic rescue each refused
+    until the port had them: each now matches the reference on the same adds
+    (narrow over a topology built on both engines after the same number of
+    searches, so with the same k-means seed; the tuner after the same
+    feedback, with the same arm chosen). Both run the CSR lexical leg: the
+    packed leg's BM25 sums drift a few ulps from the reference's, which
+    reorders near-tied docs, and the RRF term of the arms that weight it
+    more (vector_heavy, rrf_heavy) turns one rank into ~6e-4 of fused
+    score."""
     _, docs, queries = engines
     from yams_tpu_torch.core.config import LexicalIndexConfig as PortLexical
     port = SearchEngine(SearchEngineConfig(**change), lexical=PortLexical(packed_max_entries=0),
                         device=CPU)
     port.add_documents(docs[:20])
-    if "topology_policy" in change:
-        with pytest.raises(NotImplementedError):
-            port.search_batch(queries[:2])
-        return
     from yams_tpu.search.tuner import SearchTuner as RefTuner
     from yams_tpu_torch.search.tuner import SearchTuner
     ref = RefEngine(RefConfig(**change), lexical=LexicalIndexConfig(packed_max_entries=0))
     ref.add_documents(docs[:20])
+    if "topology_policy" in change:
+        ref.rebuild_topology()
+        port.rebuild_topology()
+        assert np.array_equal(port.topology.artifacts.assignments,
+                              ref.topology.artifacts.assignments)
     if "tuner_enabled" in change:
         ref.tuner, port.tuner = RefTuner(), SearchTuner()
         for i in range(10):

@@ -346,7 +346,9 @@ def test_query_module_is_the_reference_code():
     "services.code_parser", "services.graph_service", "utils.textrank",
     "services.indexing_service", "services.search_service", "utils.minhash",
     "daemon.protocol", "daemon.client", "daemon.aclient", "embed.batcher",
-    "daemon.components"])
+    "daemon.components",
+    # the repair service's host modules
+    "utils.tda", "storage.compression_recovery"])
 def test_copied_module_is_the_reference_code(name):
     """The SQLite store, the knowledge graph, the search tuner, the configs
     and the service layer's host modules (metadata, detection and
@@ -364,3 +366,64 @@ def test_copied_module_is_the_reference_code(name):
 
     assert body(importlib.import_module(f"yams_tpu_torch.{name}")) == \
         body(importlib.import_module(f"yams_tpu.{name}"))
+
+
+def _defs(mod, names):
+    """{name: AST dump} of top-level functions/classes and Class.method
+    definitions of a module."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(mod))
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = ast.dump(node)
+            if isinstance(node, ast.ClassDef):
+                for sub in node.body:
+                    if isinstance(sub, ast.FunctionDef):
+                        out[f"{node.name}.{sub.name}"] = ast.dump(sub)
+    return {n: out[n] for n in names}
+
+
+TOPOLOGY_HOST = ["auto_k", "TopologyArtifacts", "RouteSelection", "pick_representatives",
+                 "TopologyTuner", "TopologyEngine._attach_reps", "TopologyEngine.build_auto",
+                 "TopologyEngine.cluster_scores", "TopologyEngine.select_routes",
+                 "TopologyEngine.route", "TopologyEngine.member_rows",
+                 "TopologyEngine.routed_row_mask"]
+
+
+@pytest.mark.parametrize("name", TOPOLOGY_HOST)
+def test_topology_host_half_is_the_reference_code(name):
+    """The host half of index/topology.py (auto-k, the artifacts, the
+    representatives, routing and the topology tuner) is the reference's,
+    definition for definition."""
+    from yams_tpu.index import topology as ref_topology
+    from yams_tpu_torch.index import topology as port_topology
+
+    assert _defs(port_topology, [name]) == _defs(ref_topology, [name])
+
+
+@pytest.mark.parametrize("name", ["LexicalIndex.mine_concepts",
+                                  "LexicalIndex.docs_with_bigram"])
+def test_concept_miner_is_the_reference_code(name):
+    from yams_tpu.index import lexical_index as ref_lexical
+    from yams_tpu_torch.index import lexical_index as port_lexical
+
+    assert _defs(port_lexical, [name]) == _defs(ref_lexical, [name])
+
+
+def test_concept_miner_matches_reference():
+    """The same adds give the same mined concepts and bigram postings."""
+    rng = np.random.default_rng(8)
+    phrases = ["storage engines", "raft consensus", "page cache", "write ahead"]
+    port, ref = LexicalIndex(), RefLexical()
+    for slot in range(60):
+        words = [WORDS[z % len(WORDS)] for z in rng.zipf(1.3, 12)]
+        text = " ".join(words + [phrases[slot % 4]] * int(rng.integers(1, 3)))
+        port.add_document(slot, text)
+        ref.add_document(slot, text)
+    got, want = port.mine_concepts(min_df=2), ref.mine_concepts(min_df=2)
+    assert got == want and len(got) >= 4
+    for a, b, _pmi, _df in got:
+        assert port.docs_with_bigram(a, b) == ref.docs_with_bigram(a, b)

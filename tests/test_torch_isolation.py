@@ -149,6 +149,39 @@ def test_port_imports_and_runs_with_the_reference_refused(tmp_path):
     assert int(n) >= 30 and loaded.strip() == "[]"
 
 
+def test_repair_then_shadow_search_with_the_reference_refused(tmp_path):
+    """The topology and repair slice in a fresh interpreter that refuses the
+    reference: the new modules import, a CPU AppContext is repaired (every
+    op, none failed; doctor green), and a search under the default shadow
+    policy then routes through the repaired topology."""
+    out = _run_guarded(f"""
+        import importlib
+        for name in ("yams_tpu_torch.index.topology", "yams_tpu_torch.utils.tda",
+                     "yams_tpu_torch.services.repair_service",
+                     "yams_tpu_torch.storage.compression_recovery",
+                     "yams_tpu_torch.scripts.bench_narrow"):
+            importlib.import_module(name)
+        from yams_tpu_torch.core.config import load_config
+        from yams_tpu_torch.services.app import AppContext
+        from yams_tpu_torch.services.repair_service import RepairService
+        app = AppContext(load_config(data_dir={str(tmp_path / "app")!r}), device="cpu")
+        for i in range(12):
+            app.documents.add_bytes(f"note {{i}} on thread scheduler preemption".encode(),
+                                    f"n{{i}}.txt")
+        app.documents.add_bytes(b"chunk hashing and dedup", "cas.txt")
+        report = RepairService(app).run()
+        assert not [op for op, r in report.items() if r.startswith("failed")], report
+        assert all(ok for ok, _ in RepairService(app).doctor().values())
+        eng = app.search_engine
+        assert eng.config.topology_policy == "shadow" and eng.topology is not None
+        assert app.search.search("scheduler").hits
+        assert "shadow_agreement" in eng.last_trace and eng.stats()["topology_routes"] > 0
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in {REFUSED!r})
+        print(report["topology"], loaded)
+    """)
+    assert "clusters over" in out and out.strip().endswith("[]")
+
+
 def test_the_guard_refuses_the_reference():
     """The finder above does refuse: importing yams_tpu through it fails."""
     proc = subprocess.run([sys.executable, "-c", _GUARD + "import yams_tpu.core.config"],
@@ -251,9 +284,18 @@ def _cli(device, root):
     return torch.device(json.loads(out.getvalue())["devices"][0])
 
 
+def _topology_engine(device):
+    from yams_tpu_torch.index.topology import TopologyEngine
+    eng = TopologyEngine() if device is None else TopologyEngine(device=device)
+    v = np.eye(16, dtype=np.float32)
+    assert len(eng.build(v, np.ones(16, np.float32)).assignments) == 16
+    return eng.device
+
+
 _ENTRY_POINTS = {"SearchEngine": _search_engine, "ContentStore": _content_store,
                  "VectorIndex": _vector_index, "SimeonProvider": _provider,
-                 "AppContext": _app_context, "YamsDaemon": _daemon, "cli": _cli}
+                 "AppContext": _app_context, "YamsDaemon": _daemon, "cli": _cli,
+                 "TopologyEngine": _topology_engine}
 _TAKE_A_DIR = ("ContentStore", "AppContext", "YamsDaemon", "cli")
 
 

@@ -248,3 +248,90 @@ def test_restore_slot_map_fills_gaps(tmp_path):
     eng = Engine()
     AppContext._restore_slot_map(types.SimpleNamespace(db=db, search_engine=eng))
     assert eng._doc_by_slot == [9, -1, 7] and eng._slot_by_doc == {9: 0, 7: 2}
+
+
+# -- phase 11's checks --------------------------------------------------------
+
+def _near_tied_rows():
+    """Rows 0-2 sit far from the centroid boundary; row 3 sits on it."""
+    cent = torch.eye(4)[:2].numpy()
+    vec = torch.tensor([[1.0, 0.0, 0.0, 0.0], [0.9, 0.1, 0.0, 0.0],
+                        [0.0, 1.0, 0.0, 0.0], [0.5, 0.5 + 1e-6, 0.0, 0.0]]).numpy()
+    return vec, cent
+
+
+def test_assignments_agree_names_the_rows_that_differ(capsys):
+    import numpy as np
+
+    vec, cent = _near_tied_rows()
+    want = np.array([0, 0, 1, 1, -1])
+    got = np.array([0, 0, 1, 0, -1])
+    vec = np.vstack([vec, np.zeros((1, 4), np.float32)])
+    out = smoke.assignments_agree("tie", got, want, vec, cent, least=0.7)
+    assert out["differ"] == 1 and out["agree"] == pytest.approx(0.75)
+    assert out["max_margin"] < 1e-5
+    assert "(3, " in capsys.readouterr().out
+    with pytest.raises(RuntimeError, match="agree"):
+        smoke.assignments_agree("tie", got, want, vec, cent, least=0.99)
+    with pytest.raises(RuntimeError, match="invalid"):
+        smoke.assignments_agree("tie", np.array([0, 0, 1, 1, 0]), want, vec, cent, least=0.5)
+
+
+def test_hits_outside_finds_a_hit_beyond_its_route():
+    import types
+
+    import numpy as np
+
+    hit = lambda d: types.SimpleNamespace(doc_id=d)  # noqa: E731
+    slot_by_doc = {10: 0, 11: 1, 12: 2}
+    masks = [np.array([1.0, 1.0, 0.0]), np.array([0.0, 0.0, 1.0])]
+    assert smoke.hits_outside([[hit(10), hit(11)], [hit(12)]], masks, slot_by_doc) == []
+    assert smoke.hits_outside([[hit(10), hit(12)], [hit(12), hit(11)]], masks,
+                              slot_by_doc) == [(0, 1, 12), (1, 1, 11)]
+
+
+@pytest.mark.parametrize("calib,max_mpt,promoted,ok", [
+    ({"available": True, "misses_per_thousand": 10.0}, 50, True, True),
+    ({"available": True, "misses_per_thousand": 10.0}, 50, False, False),
+    ({"available": True, "misses_per_thousand": 80.0}, 50, False, True),
+    ({"available": True, "misses_per_thousand": 80.0}, 50, True, False),
+    ({"available": False, "misses_per_thousand": None}, 50, False, True),
+])
+def test_promotes_as_configured(calib, max_mpt, promoted, ok):
+    assert smoke.promotes_as_configured(calib, max_mpt, promoted) is ok
+
+
+def test_phase11_ops_lists_each_device_operation():
+    join = {"ms": 9.0, **smoke.self_join_bound(100, 8, 8, 64)}
+    prop = {"ms": 0.5, **smoke.propagate_bound(100, 8)}
+    topology = {
+        "builds": {"rows": 100, "capacity": 128, "dim": 8,
+                   "kmeans_step": {"N": 128, "D": 8, "K": 64, "live": 100, "ms": 0.1,
+                                   "bound_ms": 0.01, "bound_by": "bytes"},
+                   "self_join": {"rows": 100, "knn": 8, "join": join, "propagate": prop}},
+        "full_width": {"kmeans_step": {"N": 1024, "D": 8, "K": 32, "live": 1024, "ms": 0.2,
+                                       "bound_ms": 0.02, "bound_by": "bytes"}},
+        "narrow": {"rows": [{"B": 1, "routed_rows": 64, "narrow_dev_ms": 0.3,
+                             "narrow_bound_ms": 0.001, "full_dev_ms": 0.4}]},
+    }
+    ops = smoke.phase11_ops(topology)
+    assert [o["op"] for o in ops] == ["kmeans_step", "kmeans_step", "knn_self_join",
+                                      "propagate_labels", "routed_gather_topk"]
+    # the self-join's work is the live rows' against the live rows padded
+    # to a block, not the index's capacity
+    assert ops[2]["bound_ops"] == 2.0 * 100 * 128 * 8 and ops[2]["ms"] == 9.0
+    assert ops[3]["bound_bytes"] == 24 * 100 * (3 * 8 + 2) * 4
+
+
+def test_phase11_bounds_count_the_live_rows():
+    """Phase 3's index: 140,000 live rows of D 384 in 262,144; K 300."""
+    km = smoke.kmeans_bound(140_000, 262_144, 384, 300)
+    assert km["bound_by"] == "bytes"
+    assert km["bound_bytes"] == 140_000 * 384 * 4 + 262_144 * 4 + 2 * 300 * 384 * 4
+    assert km["bound_ms"] == pytest.approx(0.0648, abs=1e-4)
+    join = smoke.self_join_bound(140_000, 384, 8, 256)
+    assert join["bound_by"] == "operations"
+    assert join["bound_ops"] == 2.0 * 140_000 * 140_032 * 384
+    assert join["bound_ms"] == pytest.approx(15.23, abs=0.01)
+    prop = smoke.propagate_bound(140_000, 8)
+    assert prop["bound_by"] == "bytes" and prop["bound_bytes"] == 24 * 140_000 * 26 * 4

@@ -14,9 +14,12 @@ from the reference in these ways only:
 - the CLI uses a daemon only when its ping says "backend": "torch". A
   daemon of the JAX package on the socket is an error (exit 2), never a
   silent server;
+- `repair` and `doctor` go to a running daemon (as every mutation does),
+  else run in-process; the reference's run in-process always, beside a
+  daemon that holds the same data dir;
 - the commands whose services the port lacks (grep, session, watch,
-  download, repair, doctor, plugin, restore, dedupe, auth, serve, model,
-  tune) exit 3 with "not ported: ROADMAP queue 1 item N".
+  download, plugin, auth, serve, model) exit 3 with "not ported: ROADMAP
+  queue 1 item N".
 """
 
 from __future__ import annotations
@@ -41,9 +44,8 @@ from ..core.errors import ErrorCode, YamsError
 
 # commands of the reference whose services are not ported yet -> ROADMAP
 # queue 1 item that ports them
-NOT_PORTED = {"grep": 3, "session": 3, "watch": 3, "download": 3, "repair": 3,
-              "doctor": 3, "plugin": 3, "restore": 3, "dedupe": 3, "auth": 3,
-              "serve": 3, "model": 5, "tune": 3}
+NOT_PORTED = {"grep": 3, "session": 3, "watch": 3, "download": 3, "plugin": 3,
+              "auth": 3, "serve": 3, "model": 5}
 
 
 def _fmt_size(n: float) -> str:
@@ -583,6 +585,80 @@ def cmd_config(cli: Cli):
     return 0
 
 
+def cmd_repair(cli: Cli):
+    ops = cli.args.ops.split(",") if cli.args.ops else None
+    client = cli.client_or_none()
+    if client:
+        report = client.repair(ops)
+    else:
+        from ..services.repair_service import RepairService
+
+        report = RepairService(cli.app).run(ops)
+    cli.out(report, lambda o: [print(f"{k}: {v}") for k, v in o.items()])
+    return 0
+
+
+def cmd_doctor(cli: Cli):
+    client = cli.client_or_none()
+    if client:
+        report = client.doctor()
+    else:
+        from ..services.repair_service import RepairService
+
+        report = {k: list(v) for k, v in RepairService(cli.app).doctor().items()}
+    def text(o):
+        for check, (ok, detail) in o.items():
+            mark = "ok " if ok else "FAIL"
+            print(f"[{mark}] {check}: {detail}")
+    cli.out(report, text)
+    return 0 if all(ok for ok, _ in report.values()) else 1
+
+
+def cmd_restore(cli: Cli):
+    out = cli.app.indexing.restore_snapshot(
+        cli.args.snapshot_id, cli.args.target, overwrite=cli.args.overwrite
+    )
+    cli.out(out, lambda o: print(
+        f"restored {o['restored']} files to {o['target']} "
+        f"({o['skipped']} skipped, {o['failed']} failed)"))
+    return 0
+
+
+def cmd_dedupe(cli: Cli):
+    pairs = cli.app.search.semantic_dedupe(threshold=cli.args.threshold)
+    cli.out(pairs, lambda o: [
+        print(f"{p['similarity']:.2f}  {p['a']}  <->  {p['b']}") for p in o
+    ])
+    return 0
+
+
+def cmd_tune(cli: Cli):
+    """Runtime tuning: show the active TuneAdvisor profile + search-tuner
+    arm stats (reference: `yams tune` + TuningManager)."""
+    from ..daemon.components import TuneAdvisor
+
+    adv = TuneAdvisor()
+    out = {"profile": adv.profile,
+           "knobs": {k: adv.get(k) for k in adv.PROFILES[adv.profile]}}
+    eng = cli.app.search_engine
+    if eng.tuner is not None:
+        out["search_tuner"] = eng.tuner.snapshot()
+    out["engine_stats"] = {
+        k: v for k, v in eng.stats().items()
+        if k in ("searches", "avg_latency_ms", "topology_persistence")
+    }
+
+    def text(o):
+        print(f"profile: {o['profile']}")
+        for k, v in o["knobs"].items():
+            print(f"  {k}: {v}")
+        if "search_tuner" in o:
+            print(f"tuner: {o['search_tuner']}")
+
+    cli.out(out, text)
+    return 0
+
+
 def cmd_not_ported(cli: Cli):
     cmd = cli.args.command
     print(f"error: yams {cmd}: not ported: ROADMAP queue 1 item {NOT_PORTED[cmd]}",
@@ -826,8 +902,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("repair", help="run repair operations")
     sp.add_argument("--ops", help="comma-separated op names (default: all)")
-    sp.set_defaults(fn=cmd_not_ported)
-    sub.add_parser("doctor", help="health checks").set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_repair)
+    sub.add_parser("doctor", help="health checks").set_defaults(fn=cmd_doctor)
 
     sp = sub.add_parser("plugin", help="plugin management")
     psub = sp.add_subparsers(dest="plugin_cmd", required=True)
@@ -840,7 +916,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("snapshot_id")
     sp.add_argument("target")
     sp.add_argument("--overwrite", action="store_true")
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_restore)
 
     sp = sub.add_parser("watch", help="watch a directory and index changes")
     sp.add_argument("directory")
@@ -853,7 +929,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("dedupe", help="find near-duplicate documents")
     sp.add_argument("--threshold", type=float, default=0.8)
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_dedupe)
 
     sp = sub.add_parser("download", help="download a URL into the store")
     sp.add_argument("url")
@@ -864,7 +940,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     sub.add_parser(
         "tune", help="show runtime tuning profile + tuner stats"
-    ).set_defaults(fn=cmd_not_ported)
+    ).set_defaults(fn=cmd_tune)
 
     sub.add_parser("config", help="show effective config").set_defaults(fn=cmd_config)
 

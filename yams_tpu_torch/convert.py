@@ -15,6 +15,11 @@ was), after which both engines compute the same searches with the same
 codebook and choose the same tuner arms. Postings, impacts and device views
 are derived state and are rebuilt on the next search. The KG itself lives
 in its SQLite file, which both packages open.
+
+`topology_from_jax(topology)` carries a TopologyEngine's artifacts, and
+`load_topology(port_engine, engine)` an engine's whole topology surface
+(the topology, its tuner, the route-risk calibration), so routing compares
+on equal artifacts.
 """
 
 from __future__ import annotations
@@ -189,3 +194,58 @@ def load_pq_state(vi, state: dict[str, np.ndarray]) -> None:
     vi._pq_sel_width = int(state["pq_sel_width"])
     vi._pq_built_rows = int(state["pq_built_rows"])
     vi._pq_device = None
+
+
+def topology_from_jax(topology, *, device: str | torch.device = "cuda"):
+    """A port TopologyEngine holding the artifacts of `topology` (a yams_tpu
+    TopologyEngine, or a port one) as NumPy arrays: centroids, assignments,
+    sizes, cohesion, epoch, representatives and their counts, and the
+    centroid persistence; the member CSR is rebuilt from the assignments.
+    Routing then compares with equal artifacts, apart from the builds."""
+    from .index.topology import TopologyArtifacts, TopologyEngine
+
+    eng = TopologyEngine(iters=topology.iters, seed=topology.seed,
+                         representatives=topology.representatives, device=device)
+    a = topology.artifacts
+    if a is not None:
+        copy = lambda x: None if x is None else np.array(_host(x))  # noqa: E731
+        eng.artifacts = TopologyArtifacts(
+            centroids=copy(a.centroids).astype(np.float32),
+            assignments=copy(a.assignments).astype(np.int32),
+            cluster_sizes=copy(a.cluster_sizes),
+            epoch=int(a.epoch),
+            cohesion=copy(a.cohesion),
+            centroid_persistence=float(a.centroid_persistence),
+            rep_vectors=copy(a.rep_vectors),
+            rep_counts=copy(a.rep_counts),
+        )
+        eng._member_csr = None
+        eng.member_rows(np.empty(0, np.int64))   # rebuilds the CSR
+    return eng
+
+
+def topology_tuner_from_jax(tuner):
+    """A port TopologyTuner with the plays, reward totals and history of
+    `tuner` (a yams_tpu TopologyTuner, or a port one)."""
+    from .index.topology import TopologyTuner
+
+    out = TopologyTuner(reward_mode=tuner.reward_mode, exploration=tuner.exploration)
+    out.counts = dict(tuner.counts)
+    out.totals = dict(tuner.totals)
+    out.history = list(tuner.history)
+    return out
+
+
+def load_topology(engine, source) -> None:
+    """Carry the topology surface of search engine `source` (a yams_tpu
+    SearchEngine, or a port one) into port `engine`: the topology, the
+    topology tuner, the route-risk calibration and the persistence stat."""
+    engine.topology = (None if source.topology is None else
+                       topology_from_jax(source.topology, device=engine.device))
+    engine.topology_tuner = (None if source.topology_tuner is None else
+                             topology_tuner_from_jax(source.topology_tuner))
+    engine._route_calib = dict(source._route_calib)
+    if "topology_persistence" in source._stats:
+        engine._stats["topology_persistence"] = source._stats["topology_persistence"]
+    else:
+        engine._stats.pop("topology_persistence", None)

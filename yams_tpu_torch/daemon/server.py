@@ -28,8 +28,10 @@ from the reference in these ways only:
 - A request for a service the port lacks answers UNSUPPORTED naming the
   ROADMAP item that ports it: any NotImplementedError a handler raises
   (AppContext's grep, session, download and watch services and the
-  daemon's `plugins` raise it when used), and the repair, doctor and
-  model-loading handlers, whose modules are not ported.
+  daemon's `plugins` raise it when used), and the model-loading handlers,
+  whose modules are not ported. `repair` and `doctor` run the port's
+  RepairService on the mutator worker under the write side of
+  `state_lock`, as every mutation does.
 """
 
 from __future__ import annotations
@@ -798,10 +800,25 @@ class YamsDaemon:
         return {"ok": True}
 
     def handle_repair(self, req):
-        not_ported("repair")
+        from ..services.repair_service import RepairService
+
+        svc = RepairService(self.app)
+        if req.get("dry_run"):
+            # read-only: report the planned ops + current health probes
+            # instead of executing (doctor checks the same invariants the
+            # repair ops fix)
+            ops = req.get("ops") or list(svc.OPS)
+            plan = {op: ("planned" if hasattr(svc, f"repair_{op}")
+                         else "unknown op") for op in ops}
+            checks = {k: {"ok": bool(v[0]), "detail": v[1]}
+                      for k, v in svc.doctor().items()}
+            return {"dry_run": True, "plan": plan, "doctor": checks}
+        return svc.run(req.get("ops"))
 
     def handle_doctor(self, req):
-        not_ported("doctor")
+        from ..services.repair_service import RepairService
+
+        return {k: list(v) for k, v in RepairService(self.app).doctor().items()}
 
     def handle_suggest_context(self, req):
         return {"context": self.app.search.suggest_context(

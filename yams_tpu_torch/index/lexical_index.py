@@ -16,8 +16,10 @@ vectors and the per-query arm router. What the port adds:
     `save` writes nothing else, so either package reads the other's
     lexical.pkl, and a file that names any class is refused.
 
-`save`, `load` and `df_view` are the reference's. The dense BM25 oracle
-`search` and concept mining are not copied: nothing in the port reaches them.
+`save`, `load`, `df_view` and the concept miner (`mine_concepts`,
+`docs_with_bigram`, which the repair service's `concepts` op runs) are the
+reference's. The dense BM25 oracle `search` is not copied: nothing in the
+port reaches it.
 """
 
 from __future__ import annotations
@@ -416,6 +418,49 @@ class LexicalIndex:
         else:
             arm = "bm25"
         return ids, mask, arm
+
+    def mine_concepts(self, top_n: int = 256, min_df: int = 3,
+                      min_pmi: float = 0.3) -> list[tuple[str, str, float, int]]:
+        """PMI-based word-bigram concept mining over the corpus (reference:
+        simeon_lexical_backend.h:140-150 concept_mining — discovers bigram
+        concepts whose components co-occur far above chance).
+
+        Zero extra passes: the bigram FIELD postings already carry df(ab);
+        PMI(a,b) = log( p(ab) / (p(a) p(b)) ) with probabilities over docs.
+        Returns [(a, b, pmi, df)] sorted by pmi*log(df) (a frequent strong
+        concept beats a rare perfect one), capped at top_n."""
+        import math
+
+        n_docs = max(len(self._docs), 1)
+        out: list[tuple[str, str, float, int]] = []
+        with self._lock:
+            for term, tid in self._vocab.items():
+                if self.BIGRAM_SEP not in term:
+                    continue
+                a, b = term.split(self.BIGRAM_SEP, 1)
+                df_ab = len(self._postings.get(tid, ()))
+                if df_ab < min_df:
+                    continue
+                ta, tb = self._vocab.get(a), self._vocab.get(b)
+                if ta is None or tb is None:
+                    continue
+                df_a = len(self._postings.get(ta, ()))
+                df_b = len(self._postings.get(tb, ()))
+                if not df_a or not df_b:
+                    continue
+                pmi = math.log(df_ab * n_docs / (df_a * df_b))
+                if pmi >= min_pmi:
+                    out.append((a, b, pmi, df_ab))
+        out.sort(key=lambda t: -(t[2] * math.log1p(t[3])))
+        return out[:top_n]
+
+    def docs_with_bigram(self, a: str, b: str) -> dict[int, float]:
+        """doc_slot -> tf for one bigram concept (for KG linking)."""
+        tid = self._vocab.get(a + self.BIGRAM_SEP + b)
+        if tid is None:
+            return {}
+        with self._lock:
+            return dict(self._postings.get(tid, ()))
 
     def route_arm(self, query: str) -> str:
         """Cheap per-query profile -> arm (the host analog of the reference's

@@ -1,7 +1,7 @@
 """Tiled distance scan + exact top-k: the vector store's KNN core.
 
 Port of yams_tpu/ops/scan.py (`dense_scores`, `exact_topk_scan`,
-`exact_topk_pallas`, `grouped_topk_pallas`):
+`exact_topk_pallas`, `grouped_topk_pallas`, `routed_gather_topk`):
 
   - dot_f32 / dense_scores: (B, D) x (N, D) -> (B, N) f32 scores from bf16
     operands, invalid rows -> -1e30;
@@ -25,7 +25,9 @@ Port of yams_tpu/ops/scan.py (`dense_scores`, `exact_topk_scan`,
     with int32 sums: torch._int_mm, the reference's lax.dot_general with
     i32 accumulation), `int8_scores` and `int8_topk_scan`; `merge_topk`.
     The int32 sums are exact in any order, so the f32 scores equal the
-    reference's bit for bit given the same queries.
+    reference's bit for bit given the same queries;
+  - routed_gather_topk: the topology narrow tier's scan of each query's
+    routed rows alone (a gather, a batched bf16 product, the top-k).
 """
 
 from __future__ import annotations
@@ -383,3 +385,30 @@ def grouped_topk_pallas(queries: torch.Tensor, corpus: torch.Tensor,
         raise ValueError(f"grouped_topk_pallas: unsupported device {queries.device}")
     out_v, pos = top_k(vals, k)
     return out_v, idx.gather(1, pos)
+
+
+# ---------------------------------------------------------------------------
+# topology narrow tier: a per-query scan of the routed rows only
+# ---------------------------------------------------------------------------
+
+def routed_gather_topk(queries: torch.Tensor, corpus: torch.Tensor,
+                       row_idx: torch.Tensor, row_ok: torch.Tensor, k: int):
+    """Score only each query's routed rows: (B, D) queries, (N, D) bf16
+    corpus, (B, R) row indices (padding 0) and (B, R) f32 liveness ->
+    (values (B, k) f32 desc, ROW indices (B, k) i32); padding scores -1e30.
+
+    The rows are gathered into a (B, R, D) bf16 buffer and scored by a
+    batched bf16 product with f32 sums (cuBLAS with an f32 output on the
+    card; an f32 product of the bf16-rounded values on the CPU); the top-k
+    keeps lax.top_k's tie order (`select.top_k`). Work is B*R*D, against
+    B*N*D plus one shared corpus read for the full scan."""
+    B, R = row_idx.shape
+    rows = corpus.index_select(0, row_idx.reshape(-1).long()).reshape(B, R, -1)
+    q = queries.to(torch.bfloat16)[:, :, None]
+    if rows.device.type == "cuda":
+        s = torch.bmm(rows.to(torch.bfloat16), q, out_dtype=torch.float32)
+    else:
+        s = torch.bmm(rows.to(torch.bfloat16).float(), q.float())
+    s = s[:, :, 0] + (row_ok - 1.0) * 1e30
+    vals, pos = top_k(s, k)
+    return vals, row_idx.gather(1, pos).to(torch.int32)

@@ -13,7 +13,13 @@ on the device, rebuilt only when they or the slot layout change), `stats`,
 the knowledge-graph leg over a `kg_store` (alias matches and the entity
 side index, `add_entity_vectors`, searched once a batch on the device), the
 graph rerank, the `cross_reranker` hook, semantic rescue, the search tuner's
-arms and rewards, and the result glue (:1131-1216). The host state lives in
+arms and rewards, topology routing (`rebuild_topology` over the port's
+TopologyEngine on the engine's device, `route_calibration`, shadow ->
+narrow auto-promotion, and search_batch under the off, shadow, narrow and
+augment policies: the per-query narrow masks, the narrow gather tier
+through `routed_gather_topk` at 0 < B <= narrow_gather_max_batch, the
+shadow agreement and route-risk calibration, :364-494, 755-824, 895-925,
+1105-1129), and the result glue (:1131-1216). The host state lives in
 the port's VectorIndex / LexicalIndex, copies of the reference's host code
 with torch device views, so both engines hold identical state for identical
 adds. It runs on the card unless the caller asks for the CPU.
@@ -23,11 +29,13 @@ always pushed into the scan (all ones over the used slots when unfiltered),
 as in the reference, so it runs the plain pq_adc_topk and never the K4
 kernel, whose route is the unfiltered scan only.
 
+The narrow gather tier's trace also carries `topology_route_ms` (the
+reference records it for the masked routes only).
+
 Not ported, and refused loudly (NotImplementedError) rather than skipped:
-topology routing (the policies other than "off" and "shadow"), sharded
-serving, the narrow gather tier, late interaction (ColBERT) and fragment
-geometry. The reference's `provider` argument (non-Simeon embedders) has no
-counterpart yet.
+sharded serving, late interaction (ColBERT), fragment geometry and
+semantic chunking. The reference's `provider` argument (non-Simeon
+embedders) has no counterpart yet.
 """
 
 from __future__ import annotations
@@ -47,7 +55,9 @@ from ..embed.chunker import chunk_document
 from ..embed.provider import SimeonProvider
 from ..embed.simeon import tokenize
 from ..index.lexical_index import LexicalIndex
+from ..index.topology import TopologyEngine
 from ..index.vector_index import VectorIndex
+from ..ops.scan import routed_gather_topk
 from .config import SearchEngineConfig
 from .fusion import (NEG, W_TEXT, W_VEC, hybrid_fuse_precomputed, hybrid_query,
                      pack_weights)
@@ -137,6 +147,8 @@ class SearchEngine:
         self.entity_index = VectorIndex(
             dim=self.provider.dim, capacity=1024, block_rows=256,
             space_id=self.provider.space_id + "/entities", device=self.device)
+        self.topology = None        # TopologyEngine, built via rebuild_topology()
+        self.topology_tuner = None  # TopologyTuner, opt-in (engine-selection MAB)
         self.tuner = None           # SearchTuner, opt-in (the caller sets it)
         self.cross_reranker = None  # optional callable(query, [SearchResult]) -> list
         self.last_trace: dict | None = None
@@ -149,12 +161,17 @@ class SearchEngine:
         self._hot_gen = 0
         self._hot_dev: tuple | None = None  # ((gen, Nd, n_slots), tensor)
         self._lock = threading.RLock()
-        # the reference's counters; the topology ones stay 0 (not ported)
         self._stats = {
             "searches": 0, "total_ms": 0.0, "documents": 0,
             "topology_routes": 0, "topology_shadow_agree": 0.0,
             "topology_abstained": 0, "topology_budget_clamped": 0,
             "topology_promotions": 0,
+        }
+        # shadow-route miss-risk calibration for the CURRENT topology build
+        # (an empty fingerprint or zero observations leaves risk
+        # UNAVAILABLE, not zero)
+        self._route_calib = {
+            "fingerprint": "", "queries": 0, "protected": 0, "missed": 0,
         }
 
     # -- identity -----------------------------------------------------------------
@@ -253,6 +270,139 @@ class SearchEngine:
                 profile=corpus_profile(len(self._slot_by_doc)),
             )
 
+    # -- topology (reference: TopologyManager + topology_routing_session) ---------
+    def rebuild_topology(self, iters: int = 8, engine: str | None = None) -> None:
+        vi = self.vector_index
+        if vi.active_rows == 0:
+            return
+        eng = TopologyEngine(
+            iters=iters,
+            representatives=self.config.topology_representatives,
+            device=self.device,
+        )
+        if engine is not None:
+            arts = eng.build(
+                vi._vecs, vi._valid, epoch=self._stats["searches"],
+                engine=engine,
+            )
+        else:
+            arts = eng.build_auto(
+                vi._vecs, vi._valid, epoch=self._stats["searches"],
+                tuner=self.topology_tuner,
+            )
+        self.topology = eng
+        # rebuild-quality signal (reference: clusterCentroidPersistence reward)
+        self._stats["topology_persistence"] = arts.centroid_persistence
+        # a new build voids any accumulated route-risk evidence (reference:
+        # constructionFingerprint — calibration is per-construction)
+        self._route_calib = {
+            "fingerprint": f"{arts.epoch}/{len(arts.centroids)}",
+            "queries": 0, "protected": 0, "missed": 0,
+        }
+
+    def route_calibration(self) -> dict:
+        """Route-risk certificate for the current topology build.
+
+        `available` stays False until >= topology_calibration_min_queries
+        shadow observations exist for THIS construction (reference: a zero
+        observation count leaves route risk unavailable rather than zero)."""
+        c = dict(self._route_calib)
+        cfg = self.config
+        c["available"] = (
+            bool(c["fingerprint"])
+            and c["queries"] >= cfg.topology_calibration_min_queries
+            and c["protected"] > 0
+        )
+        c["misses_per_thousand"] = (
+            1000.0 * c["missed"] / c["protected"] if c["protected"] else None
+        )
+        return c
+
+    def _maybe_promote_narrow(self) -> bool:
+        """Shadow -> Narrow auto-promotion, gated on the calibration
+        certificate (reference: maxMissesPerThousand)."""
+        c = self.route_calibration()
+        if not c["available"]:
+            return False
+        if c["misses_per_thousand"] > self.config.topology_calibration_max_mpt:
+            return False
+        self.config.topology_policy = "narrow"
+        self._stats["topology_promotions"] += 1
+        return True
+
+    def _lexical_seed_rows(self, query: str) -> np.ndarray | None:
+        """Top lexical docs' chunk rows — the sparse routing leg's voters
+        (reference: topologyMaxSeedDocuments highest-ranked lexical docs).
+
+        Host-side and cheap: per query term, idf-weighted tf votes over the
+        in-memory postings (terms with df > 4096 skipped — too common to
+        discriminate a cluster), top seed docs by vote, then their chunk
+        rows via the vector index slot map."""
+        n_seeds = self.config.topology_max_seed_docs
+        if n_seeds <= 0:
+            return None
+        lex = self.lexical_index
+        tids, weights = lex.query_term_ids(query)
+        n_docs = max(lex.doc_count, 1)
+        votes: dict[int, float] = {}
+        for tid, w in zip(tids, weights):
+            if w <= 0:
+                continue
+            plist = lex._postings.get(int(tid))
+            if not plist or len(plist) > 4096:
+                continue
+            idf = float(np.log1p(n_docs / len(plist)))
+            for slot, tf in plist.items():
+                votes[slot] = votes.get(slot, 0.0) + w * idf * float(tf)
+        if not votes:
+            return None
+        top = sorted(votes, key=votes.get, reverse=True)[:n_seeds]
+        slots = self.vector_index._slots
+        return np.nonzero(np.isin(slots, np.asarray(top)))[0]
+
+    def _route_query(self, query_vec: np.ndarray, query: str | None = None):
+        """One query's RouteSelection under the configured routing knobs."""
+        cfg = self.config
+        seeds = (self._lexical_seed_rows(query)
+                 if query is not None else None)
+        return self.topology.select_routes(
+            query_vec, seeds,
+            min_clusters=cfg.topology_min_clusters,
+            max_clusters=cfg.topology_top_clusters,
+            adaptive_score_gap=cfg.topology_adaptive_score_gap,
+            alpha=cfg.topology_sparse_dense_alpha,
+            min_boundary_margin=cfg.topology_narrow_min_boundary_margin,
+            budget_rows=cfg.topology_route_budget_rows,
+        )
+
+    def _routed_slot_mask(self, query_vec: np.ndarray, num_slots: int,
+                          query: str | None = None) -> np.ndarray:
+        """Topology route -> slot-level scan mask (cluster members only).
+
+        An abstained route (boundary margin below the narrow gate) returns
+        the FULL mask: narrowing without a trustworthy certificate is how
+        recall silently dies (reference: selection.abstained)."""
+        sel = self._route_query(query_vec, query)
+        if sel.abstained:
+            self._stats["topology_abstained"] += 1
+            return np.ones(num_slots, np.float32)
+        if sel.budget_clamped:
+            self._stats["topology_budget_clamped"] += 1
+        row_mask = self.topology.routed_row_mask(
+            query_vec, policy="narrow", selection=sel,
+        )
+        slots = self.vector_index._slots
+        mask = np.zeros(num_slots, np.float32)
+        routed_slots = np.unique(slots[: len(row_mask)][row_mask > 0])
+        routed_slots = routed_slots[(routed_slots >= 0) & (routed_slots < num_slots)]
+        mask[routed_slots] = 1.0
+        if not routed_slots.size:
+            # empty-route fallback identity: an empty route is exactly the
+            # global scan (reference contract:
+            # Topology/SelectiveRouting.lean selectiveRoute_emptyFallback_identity)
+            mask[:] = 1.0
+        return mask
+
     # -- PQ engine lifecycle ----------------------------------------------------
     def ensure_pq(self) -> bool:
         """Build/refresh PQ codebooks when a pq engine is configured
@@ -311,21 +461,25 @@ class SearchEngine:
                     best[r.doc_id] = scaled
         return sorted(best.values(), key=lambda r: -r.score)[:k]
 
-    def _refuse_unported(self, cfg) -> None:
-        if cfg.topology_policy not in ("off", "shadow"):
-            # "shadow" without a topology build is "off" in the reference
-            raise NotImplementedError(
-                f"topology policy {cfg.topology_policy!r} is not ported")
+    def _candidates(self, vals, slots, B_real, B, rrf_c, Nd, chunk_agg):
+        """Per-query chunk -> doc aggregation of a host candidate list ->
+        ((B, rrf_c) values, (B, rrf_c) slots, sink Nd where empty)."""
+        vv = np.full((B, rrf_c), NEG, np.float32)
+        vs = np.full((B, rrf_c), Nd, np.int32)
+        for i in range(B_real):
+            vals_i, slots_i = _aggregate_pq_candidates(vals[i], slots[i], Nd, chunk_agg)
+            n_i = min(len(vals_i), rrf_c)
+            vv[i, :n_i] = vals_i[:n_i]
+            vs[i, :n_i] = slots_i[:n_i]
+        return vv, vs
 
     def _pq_candidates(self, qv, B_real, B, rrf_c, Nd, doc_mask, mask_idx, mode):
         """The PQ tier's vector leg: ADC scan with the doc mask pushed in,
-        host rerank, chunk -> doc aggregation -> ((B, rrf_c) values,
-        (B, rrf_c) slots, sink Nd where empty). `qv` is the batch's memo of
+        host rerank, chunk -> doc aggregation. `qv` is the batch's memo of
         host query vectors."""
-        vv = np.full((B, rrf_c), NEG, np.float32)
-        vs = np.full((B, rrf_c), Nd, np.int32)
         if mode == "keyword":
-            return vv, vs
+            return (np.full((B, rrf_c), NEG, np.float32),
+                    np.full((B, rrf_c), Nd, np.int32))
         qv = qv()
         if mask_idx is not None:
             dmq = doc_mask[mask_idx[:B_real]]
@@ -339,13 +493,24 @@ class SearchEngine:
             prows >= 0,
             vi.slots_of_rows(np.maximum(prows, 0).reshape(-1)).reshape(prows.shape),
             -1)
-        for i in range(B_real):
-            vals_i, slots_i = _aggregate_pq_candidates(
-                pvals[i], pslots[i], Nd, self.config.chunk_agg)
-            n_i = min(len(vals_i), rrf_c)
-            vv[i, :n_i] = vals_i[:n_i]
-            vs[i, :n_i] = slots_i[:n_i]
-        return vv, vs
+        return self._candidates(pvals, pslots, B_real, B, rrf_c, Nd,
+                                self.config.chunk_agg)
+
+    def _gather_candidates(self, qv, E, row_idx, row_ok, B_real, B, rrf_c, Nd,
+                           chunk_agg):
+        """The narrow gather tier's vector leg: routed_gather_topk over each
+        query's routed rows, then chunk -> doc aggregation."""
+        dev = self.device
+        gv, grows = routed_gather_topk(
+            torch.from_numpy(qv).to(dev), E, torch.from_numpy(row_idx).to(dev),
+            torch.from_numpy(row_ok).to(dev), k=min(rrf_c, row_idx.shape[1]))
+        gv, grows = gv.cpu().numpy(), grows.cpu().numpy()
+        gslots = np.where(
+            gv > -1e29,
+            self.vector_index.slots_of_rows(
+                np.maximum(grows, 0).reshape(-1)).reshape(gv.shape),
+            -1)
+        return self._candidates(gv, gslots, B_real, B, rrf_c, Nd, chunk_agg)
 
     def search_batch(
         self,
@@ -367,7 +532,6 @@ class SearchEngine:
             _, tuner_arm = self.tuner.select(corpus_profile(len(self._slot_by_doc)))
             cfg = tuner_arm.apply(cfg)
             trace["tuner_arm"] = tuner_arm.name
-        self._refuse_unported(cfg)
         dev = self.device
         Nd = self.num_slots_padded
         B_real = len(queries)
@@ -422,6 +586,8 @@ class SearchEngine:
         # PQ capacity tier: the dense matrix never reaches the device; the
         # vector leg runs as ADC scan + host rerank outside the fused query
         use_pq = cfg.pq_tier_enabled and self.vector_index.has_pq
+        if not use_pq:
+            E, row_valid, row2slot, row_scale = self.vector_index.device_arrays()
         bm = self.lexical_index.device_arrays(Nd, dev)
         n_used = len(self._doc_by_slot)
 
@@ -458,11 +624,82 @@ class SearchEngine:
             rows.append(np.zeros(Nd, np.uint8))  # padded queries match nothing
             idx[B_real:] = len(rows) - 1
             U = _round_pow2(len(rows), floor=4)
-            doc_mask = np.zeros((U, Nd), np.uint8)
-            doc_mask[: len(rows)] = np.stack(rows)
+            base_mask = np.zeros((U, Nd), np.uint8)
+            base_mask[: len(rows)] = np.stack(rows)
             mask_idx = idx
         else:
-            doc_mask = _mask_of(filter_doc_ids)
+            base_mask = _mask_of(filter_doc_ids)
+
+        # topology routing: narrow -> per-query scan masks; shadow ->
+        # counterfactual masks kept for agreement stats; augment/off -> full
+        # scan
+        policy = cfg.topology_policy if self.topology is not None else "off"
+        shadow_masks: list[np.ndarray] | None = None
+        doc_mask: np.ndarray = base_mask
+
+        # narrow gather tier: at small batches, score only the routed rows
+        # (routed_gather_topk) instead of mask-scanning all N. Falls through
+        # to the masked narrow path when any query abstains, filters are
+        # active, or a route has no live member.
+        narrow_gather: tuple[np.ndarray, np.ndarray] | None = None
+        if (policy == "narrow" and mode != "keyword" and not use_pq
+                and 0 < B_real <= cfg.narrow_gather_max_batch
+                and filter_doc_ids is None and per_query_filters is None):
+            t_r = time.monotonic()
+            qvecs = _query_vecs()
+            sels = [self._route_query(qv, qt) for qv, qt in zip(qvecs, queries)]
+            if not any(s.abstained for s in sels):
+                valid_host = self.vector_index._valid
+                slots_host = self.vector_index._slots
+                rowlists = [self.topology.member_rows(s.clusters) for s in sels]
+                # an empty route is the global scan: the masked path below
+                # does that, so leave the gather tier
+                live_lists = [rl[valid_host[rl] > 0] for rl in rowlists]
+                rmax = max((len(r) for r in live_lists), default=0)
+                if rmax and all(len(r) for r in live_lists):
+                    R = min(_round_pow2(rmax, floor=64),
+                            self.vector_index.capacity)
+                    row_idx = np.zeros((B_real, R), np.int32)
+                    row_ok = np.zeros((B_real, R), np.float32)
+                    # narrow gates the whole pipeline: the lexical leg sees
+                    # the routed slot masks too
+                    masks = np.zeros((B, Nd), np.uint8)
+                    for i, rl in enumerate(live_lists):
+                        row_idx[i, : len(rl)] = rl
+                        row_ok[i, : len(rl)] = 1.0
+                        sl = slots_host[rl]
+                        masks[i, sl[(sl >= 0) & (sl < Nd)]] = 1
+                    narrow_gather = (row_idx, row_ok)
+                    doc_mask = masks
+                    self._stats["topology_routes"] += B_real
+                    trace["narrow_gather_rows"] = int(R)
+                    trace["stages"]["topology_route_ms"] = \
+                        (time.monotonic() - t_r) * 1e3
+
+        if (policy in ("narrow", "shadow") and mode != "keyword"
+                and narrow_gather is None):
+            t_r = time.monotonic()
+            qvecs = _query_vecs()
+            routed = [self._routed_slot_mask(qv, Nd, query=qt)
+                      for qv, qt in zip(qvecs, queries)]
+            self._stats["topology_routes"] += len(routed)
+            if policy == "narrow":
+                # narrow masks are per query: expand any dedup'd filter rows
+                # on the host and drop mask_idx for this batch
+                per_q = np.zeros((B, Nd), np.float32)
+                per_q[:B_real] = np.stack(routed)
+                if mask_idx is not None:
+                    per_q *= base_mask[mask_idx].astype(np.float32)
+                    mask_idx = None
+                elif base_mask.ndim == 2:
+                    per_q *= base_mask
+                else:
+                    per_q[B_real:] = 1.0
+                    per_q *= base_mask[None, :]
+                doc_mask = per_q.astype(np.float32)
+            else:
+                shadow_masks = routed
+            trace["stages"]["topology_route_ms"] = (time.monotonic() - t_r) * 1e3
 
         hot = self._hot_device(Nd)
         t_dev = time.monotonic()
@@ -496,8 +733,22 @@ class SearchEngine:
                 bm25_prefilter=lex_prefilter,
                 packed_lexical=use_packed,
             )
+        elif narrow_gather is not None:
+            # narrow gather tier: vector candidates from the routed rows,
+            # fusion by the precomputed-candidates program (as the PQ tier)
+            vv, vs = self._gather_candidates(_query_vecs(), E, *narrow_gather,
+                                             B_real, B, rrf_c, Nd, cfg.chunk_agg)
+            vals, slots, bm_at, vec_at = hybrid_fuse_precomputed(
+                to_dev(tids), to_dev(tmask), *lexical,
+                to_dev(doc_mask), hot, to_dev(w), to_dev(vv), to_dev(vs), None,
+                k=k_dev,
+                rrf_cand=rrf_c,
+                window=self.lexical_index.config.postings_window,
+                num_slots=Nd,
+                bm25_prefilter=lex_prefilter,
+                packed_lexical=use_packed,
+            )
         else:
-            E, row_valid, row2slot, row_scale = self.vector_index.device_arrays()
             rows = E.shape[0]
             flat = self.vector_index.identity_layout and rows >= Nd
             scale_opts: dict = {
@@ -531,6 +782,30 @@ class SearchEngine:
         vals, slots, bm_at, vec_at = (
             t[:B_real].cpu().numpy() for t in (vals, slots, bm_at, vec_at))
         trace["stages"]["device_ms"] = (time.monotonic() - t_dev) * 1e3
+
+        # shadow policy: how often narrow routing would have agreed, and the
+        # per-construction miss-risk certificate (protected candidates = the
+        # production top-k; a miss = one the shadow route would have dropped)
+        if shadow_masks is not None:
+            agree = []
+            calib = self._route_calib
+            for i in range(B_real):
+                top = [int(s) for s, v in zip(slots[i], vals[i]) if v > -1e29][:k]
+                if top:
+                    covered = sum(shadow_masks[i][s] > 0 for s in top)
+                    agree.append(covered / len(top))
+                    calib["queries"] += 1
+                    calib["protected"] += len(top)
+                    calib["missed"] += len(top) - covered
+            if agree:
+                prev = self._stats["topology_shadow_agree"]
+                cur = float(np.mean(agree))
+                self._stats["topology_shadow_agree"] = (
+                    0.9 * prev + 0.1 * cur if self._stats["searches"] else cur
+                )
+                trace["shadow_agreement"] = cur
+            if cfg.topology_auto_promote and self._maybe_promote_narrow():
+                trace["topology_promoted"] = True
 
         # entity-vector leg: ONE device search for the whole batch
         kg_leg = bool(self.kg) and mode == "hybrid"

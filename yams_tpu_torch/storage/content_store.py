@@ -11,8 +11,9 @@ pass when the ingest library built, else the Python chunker and the
 policy-compressing engine). Unlike the reference, a device failure is not
 swallowed: it propagates.
 
-The reference's compression recovery and transaction managers are not
-copied: nothing on the port's paths reaches them.
+The store carries the compression monitor, recovery and transaction
+managers (`storage/compression_recovery.py`) as the reference's does; the
+repair service's `compression` op scans and repairs through them.
 """
 
 from __future__ import annotations
@@ -34,6 +35,9 @@ from ..ingest.chunker import FastCDCChunker
 from ..ingest.compression import ALGO_ZSTD, CompressionHeader, CompressionPolicy
 from ..ingest.device_pipeline import available, device_chunk_hash
 from ..ingest.hasher import sha256_bytes, sha256_file
+from .compression_recovery import (CompressionMonitor,
+                                   CompressionRecoveryManager,
+                                   CompressionTransactionManager)
 from .engine import CompressedStorageEngine, StorageEngine
 from .gc import GarbageCollector
 from .integrity import IntegrityVerifier
@@ -82,6 +86,12 @@ class ContentStore:
         # block and leave the new manifest dangling.
         self._mutate_lock = threading.RLock()
         self.verifier = IntegrityVerifier(self.engine, self.refcounter)
+        self.compression_monitor = CompressionMonitor()
+        self.compression_recovery = CompressionRecoveryManager(
+            self.engine.inner, self.refcounter, self.wal,
+            self.compression_monitor)
+        self.compression_tx = CompressionTransactionManager(
+            self.engine.inner, self.wal, self.compression_monitor)
         if self.wal:
             self.recover()
 
