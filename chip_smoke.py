@@ -142,7 +142,37 @@ seconds):
      auto_k clusters over the live rows, the default shadow policy's 64
      answers unchanged with its counters moving, a full repair with no op
      "failed", a dry run, doctor green naming the card, and the CLI's
-     repair and doctor through the socket equal to the daemon's.
+     repair and doctor through the socket equal to the daemon's;
+ 12. the neural embedding path and the late-interaction tier, at the
+     in-repo realtext_bert_d192 checkpoint's full width (3 layers, D 192, 6
+     heads, T up to 128): (a) HFBertEncoder.encode (bf16) on 4,096 of
+     phase 3's texts (texts/s, tokens/s, tokenizer and forward seconds),
+     the batch's forward at each bucket T 16-128 and one layer at 1,024 x
+     128 against their bounds, the layer's attention against
+     F.scaled_dot_product_attention on the same q, k, v; the card against
+     the port's CPU forward on 64 texts: f32 within 1e-4, bf16 cosine >=
+     0.99, the same for encode_tokens and for NeuralEncoder at its
+     defaults on the port's seeded weights; (b) a SearchEngine with
+     create_provider("hf") over phase 3's documents (the tokenizer timed
+     on 1,024 first; the count cut if the add's tokenizer would pass ~60
+     s): add_documents split into tokenizer, forward and index,
+     search_batch(64) first and steady, and card == CPU (results_agree,
+     ties named) on 2,048-document engines at f32 compute, 16 queries;
+     (c) the ColBERT tier and the fragment arm on 16,384 documents (one
+     forward a document for its tokens and one for its sentences, as in
+     the reference): search_batch(64) steady with late_interaction_ms,
+     then with fragment_geometry_ms; a doc holding the query's exact
+     tokens first and its score risen by the tiers; card == CPU with the
+     tiers on; maxsim_scores and the token-index gather at search_batch's
+     shape against their bounds, one torch.matmul + max and index_select;
+     (d) matryoshka_topk at 1,048,576 x 768 (phase 4's generator with
+     phase 5's planted copies), B 1,024, k 10, d0 192 and 384: recall@10
+     against the exact scan (>= 0.9), QPS, ms against the bound and the
+     exact scan; (e) an AppContext with embedding.provider="hf" through
+     the daemon on a fresh data dir: add_path of 256 notes and a 48 MiB
+     blob with its copy, searches, model_load hf, model_status,
+     embed_batch, the CLI's search and model list equal to the daemon's,
+     16 searches equal across a restart.
 
 The kernel launch counters are zeroed just before each path and read just
 after: the add path (phases 2-3) must launch gear_hash_cuda and
@@ -155,7 +185,11 @@ counts are printed; phase 9 must launch exact_topk_cuda and pq4_adc_cuda
 (on the PQ4 index before the save and after the reload), and phase 10's
 add gear_hash_cuda and sha256_cuda (on the blob); phase 11's path runs
 torch operations only, and its counts are printed with its device
-operations' times and bounds. At the end no module of
+operations' times and bounds; phase 12's daemon add must launch
+gear_hash_cuda and sha256_cuda (on the blob), and its device operations
+(the BERT forward and layer, MaxSim, the token-index gather, matryoshka)
+are printed with their calls on the path, times, bounds and yardsticks. At
+the end no module of
 yams_tpu, jax, jaxlib or flax
 may be loaded. The second-last line is the kernels' JSON record (each with
 its launches, error, time, twin's time and bound), the last line the device
@@ -2873,6 +2907,537 @@ def phase11_topology(dev, card: str, eng, cpu, queries, keep: dict) -> dict:
             keep.pop("tmp").cleanup()
 
 
+# -- phase 12 -----------------------------------------------------------------
+HF_SHAPE = {"layers": 3, "dim": 192, "heads": 6, "intermediate": 768}
+
+
+class CallCounts:
+    """Calls of phase 12's device operations on the card while installed:
+    each target (module or class, attribute) is wrapped to count the calls
+    that get a CUDA tensor, except while `paused` (timing repetitions and
+    yardsticks are not the path)."""
+
+    def __init__(self, targets: dict):
+        self.targets, self.counts, self.paused, self._orig = targets, {}, False, {}
+
+    def __enter__(self):
+        for name, (owner, attr) in self.targets.items():
+            fn = self._orig[name] = getattr(owner, attr)
+            self.counts[name] = 0
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                if not self.paused and any(isinstance(x, torch.Tensor) and x.is_cuda
+                                           for x in (*a, *kw.values())):
+                    self.counts[_name] += 1
+                return _fn(*a, **kw)
+            setattr(owner, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self._orig[name])
+
+    def timed(self, fn, reps: int) -> float:
+        """cuda_ms(fn, reps) with the counts paused."""
+        self.paused = True
+        try:
+            return cuda_ms(fn, reps)
+        finally:
+            self.paused = False
+
+
+def bert_flops(tokens: int, T: int, layers: int = 3, D: int = 192, inter: int = 768) -> float:
+    """Multiply-adds x 2 of the BERT layers: q, k, v, o (4 D^2), the MLP
+    (2 D I) and the attention's two products (2 T D), a token a layer."""
+    return 2.0 * tokens * layers * (4 * D * D + 2 * D * inter + 2 * T * D)
+
+
+def bert_weight_bytes(layers: int = 3, D: int = 192, inter: int = 768) -> float:
+    return 4.0 * layers * (4 * D * D + 2 * D * inter + 10 * D + inter)
+
+
+def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return (a * b).sum(-1) / np.maximum(
+        np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1), 1e-12)
+
+
+def phase12_encoder(dev, docs, counts: CallCounts) -> dict:
+    """(a) HFBertEncoder.encode on 4,096 of phase 3's texts; each bucket's
+    forward; a layer, its attention against SDPA; card against the CPU."""
+    from yams_tpu_torch.embed import hf_encoder
+    from yams_tpu_torch.embed.encoder import NeuralEncoder
+    from yams_tpu_torch.embed.provider import DEFAULT_HF_CHECKPOINT
+
+    ck = str(DEFAULT_HF_CHECKPOINT)
+    out: dict = {}
+    enc = hf_encoder.HFBertEncoder(ck, "bfloat16", device=dev)
+    texts = [body for _, body, _ in docs[:4096]]
+    enc.encode(texts[:64])                           # first launches, cuBLAS handles
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ids = [enc.tokenizer.encode(x, enc.max_len) for x in texts]
+    tok_s = time.perf_counter() - t
+    t = time.perf_counter()
+    vecs = enc.encode_ids(ids)                        # a host array: synchronized
+    fwd_s = time.perf_counter() - t
+    n_tok = sum(len(r) for r in ids)
+    T = enc._bucket(max(len(r) for r in ids))
+    check(vecs.shape == (len(texts), 192) and bool(np.isfinite(vecs).all()),
+          f"{len(texts)} finite vectors")
+    check(np.abs(np.linalg.norm(vecs, axis=1) - 1).max() < 1e-2, "unit vectors")
+    out["encode"] = {"texts": len(texts), "tokens": n_tok, "bucket": T, "tokenize_s": tok_s,
+                     "forward_s": fwd_s, "texts_per_s": len(texts) / (tok_s + fwd_s),
+                     "tokens_per_s": n_tok / (tok_s + fwd_s)}
+    log(f"[phase12 encoder] encode 4,096 texts ({n_tok} tokens, bucket T {T}): tokenizer "
+        f"{tok_s:.3f} s, forward {fwd_s:.3f} s; {out['encode']['texts_per_s']:.1f} texts/s, "
+        f"{out['encode']['tokens_per_s']:.1f} tokens/s")
+
+    # each bucket's forward on the card, the 4,096 texts padded to T (cut at T)
+    P = dict(enc.model.named_parameters())
+    buckets = {}
+    with torch.inference_mode():
+        for Tb in (16, 32, 64, 128):
+            ii, aa = hf_encoder.pad_batch([r[:Tb] for r in ids], Tb, enc.tokenizer.pad_id)
+            i_t, a_t = torch.from_numpy(ii).to(dev), torch.from_numpy(aa).to(dev)
+            ms = counts.timed(lambda: enc.model(i_t, a_t), 3)
+            live = int(aa.sum())
+            b = bound(ii.nbytes + aa.nbytes + bert_weight_bytes() + live * 192 * 4
+                      + len(ids) * 192 * 4, bert_flops(len(ids) * Tb, Tb), PEAK_BF16)
+            buckets[Tb] = {"ms": ms, **b}
+        out["buckets"] = buckets
+        log("[phase12 encoder] forward of the 4,096-text batch a bucket (bf16, device ms, "
+            "bound): " + ", ".join(f"T {t_}: {v['ms']:.3f} / {v['bound_ms']:.4f}"
+                                    for t_, v in buckets.items()))
+
+        # one layer at full width: a 131,072-token slice (1,024 rows at T 128)
+        ii, aa = hf_encoder.pad_batch([r[:128] for r in ids[:1024]], 128, enc.tokenizer.pad_id)
+        i_t, a_t = torch.from_numpy(ii).to(dev), torch.from_numpy(aa).to(dev)
+        x = hf_encoder.bert_embed(P, i_t)
+        neg = (1.0 - a_t)[:, None, None, :] * -1e9
+        layer_ms = counts.timed(lambda: hf_encoder.bert_layer(
+            P, "layer0", x, neg, num_heads=6, compute_dtype="bfloat16"), 5)
+        layer_b = bound(2 * x.numel() * 4 + a_t.numel() * 4 + bert_weight_bytes(1),
+                        bert_flops(1024 * 128, 128, layers=1), PEAK_BF16)
+        q, k, v = (torch.randn(1024, 128, 6, 32, device=dev, dtype=torch.bfloat16)
+                   for _ in range(3))
+        attn_ms = counts.timed(lambda: hf_encoder.attention(q, k, v, neg), 5)
+        keep = (a_t > 0)[:, None, None, :]
+        sdpa_ms = counts.timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=keep), 5)
+        attn_b = bound(4 * q.numel() * 2 + a_t.numel() * 4, 4.0 * 1024 * 128 * 128 * 192,
+                       PEAK_BF16)
+        out["layer"] = {"shape": [1024, 128, 192], "ms": layer_ms, **layer_b,
+                        "attention_ms": attn_ms, "attention_bound_ms": attn_b["bound_ms"],
+                        "sdpa_ms": sdpa_ms}
+        log(f"[phase12 encoder] one layer (1,024 x 128 x 192, bf16): {layer_ms:.3f} ms against "
+            f"{layer_b['bound_ms']:.4f} ({layer_b['bound_by']}); its attention {attn_ms:.3f} ms "
+            f"against {attn_b['bound_ms']:.4f}, F.scaled_dot_product_attention on the same "
+            f"q, k, v {sdpa_ms:.3f} ms")
+
+    # the card against the port's CPU forward on 64 texts
+    sample = texts[:48] + [t_ + " " + b_ for _, b_, t_ in docs[4096:4112]]
+    cpu32 = hf_encoder.HFBertEncoder(ck, "float32", device="cpu")
+    cpu16 = hf_encoder.HFBertEncoder(ck, "bfloat16", device="cpu")
+    card32 = hf_encoder.HFBertEncoder(ck, "float32", device=dev)
+    want32, want16 = cpu32.encode(sample), cpu16.encode(sample)
+    err32 = float(np.abs(card32.encode(sample) - want32).max())
+    got16 = enc.encode(sample)
+    cos16 = float(min(cosines(got16, want32).min(), cosines(got16, want16).min()))
+    tok_err, tok_cos = 0.0, 1.0
+    for text in sample[:16]:
+        w32 = cpu32.encode_tokens(text)
+        tok_err = max(tok_err, float(np.abs(card32.encode_tokens(text) - w32).max()))
+        tok_cos = min(tok_cos, float(cosines(enc.encode_tokens(text), w32).min()))
+    neural_card = NeuralEncoder(device=dev)
+    neural_cpu = NeuralEncoder(device="cpu")
+    ng, nw = neural_card.encode(sample), neural_cpu.encode(sample)
+    n_cos, n_err = float(cosines(ng, nw).min()), float(np.abs(ng - nw).max())
+    out["card_vs_cpu"] = {"f32_max_abs": err32, "bf16_min_cos": cos16,
+                          "tokens_f32_max_abs": tok_err, "tokens_bf16_min_cos": tok_cos,
+                          "neural_bf16_min_cos": n_cos, "neural_max_abs": n_err}
+    log(f"[phase12 encoder] card vs the port's CPU forward, 64 texts: f32 max abs {err32:.3g}, "
+        f"bf16 min cosine {cos16:.6f}; encode_tokens (16 texts) f32 {tok_err:.3g}, bf16 "
+        f"{tok_cos:.6f}; NeuralEncoder at its defaults (seeded weights, bf16) min cosine "
+        f"{n_cos:.6f}, max abs {n_err:.3g}")
+    check(err32 <= 1e-4 and tok_err <= 1e-4, "f32 card forward within 1e-4 of the CPU's")
+    check(cos16 >= 0.99 and tok_cos >= 0.99 and n_cos >= 0.99, "bf16 cosines >= 0.99")
+    return out
+
+
+def timed_wraps(obj, names):
+    """Wrap obj's methods to add their wall seconds into the returned dict."""
+    spent = {n: 0.0 for n in names}
+    for n in names:
+        fn = getattr(obj, n)
+
+        def wrapped(*a, _fn=fn, _n=n, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                spent[_n] += time.perf_counter() - t0
+        setattr(obj, n, wrapped)
+    return spent
+
+
+def phase12_sub_engines(dev, docs, n: int = 2048):
+    """Card and CPU engines over n documents, the hf provider at f32 compute
+    on each, both tiers enabled (searched with or without them)."""
+    from yams_tpu_torch.embed.provider import create_provider
+    from yams_tpu_torch.search.engine import SearchEngine
+
+    pair = []
+    for device in (dev, torch.device("cpu")):
+        eng = SearchEngine(provider=create_provider("hf", compute_dtype="float32",
+                                                    device=device), device=device)
+        eng.enable_late_interaction()
+        eng.enable_fragment_geometry()
+        t = time.perf_counter()
+        eng.add_documents(docs[:n])
+        log(f"[phase12] {n}-document sub-engine on {device} (hf at f32, both tiers) "
+            f"built in {time.perf_counter() - t:.2f} s")
+        pair.append(eng)
+    return pair
+
+
+def tiers(eng, on: bool):
+    """Detach (or give back) an engine's ColBERT and fragment indexes."""
+    if on:
+        eng.token_index, eng.fragment_index = eng._tiers
+    else:
+        eng._tiers = (eng.token_index, eng.fragment_index)
+        eng.token_index = eng.fragment_index = None
+
+
+def phase12_engine(dev, docs, queries, subs, n_docs: int = 70_000) -> dict:
+    """(b) an engine with create_provider("hf") over phase 3's documents."""
+    from yams_tpu_torch.embed.chunker import chunk_document
+    from yams_tpu_torch.embed.provider import create_provider
+    from yams_tpu_torch.search.engine import SearchEngine
+
+    out: dict = {}
+    prov = create_provider("hf", device=dev)
+    # the WordPiece tokenizer is host Python: time it on 1,024 documents first
+    texts = [x for _, body, title in docs[:1024]
+             for x in [title] + [c.text for c in chunk_document(body, "sentence")]]
+    t = time.perf_counter()
+    for x in texts:
+        prov.encoder.tokenizer.encode(x, prov.encoder.max_len)
+    per_doc = (time.perf_counter() - t) / 1024
+    n = min(n_docs, int(60.0 / per_doc))      # keep the add's tokenizer under ~60 s
+    out["tokenizer_per_doc_s"] = per_doc
+    out["docs"] = n
+    log(f"[phase12 engine] tokenizer {per_doc * 1e6:.1f} us a document on 1,024 documents "
+        f"({len(texts)} texts): {n_docs} documents would take {per_doc * n_docs:.1f} s; "
+        f"adding {n}")
+    eng = SearchEngine(provider=prov, device=dev)
+    spent = timed_wraps(prov.encoder, ["encode", "encode_ids"])
+    t = time.perf_counter()
+    eng.add_documents(docs[:n])
+    add_s = time.perf_counter() - t
+    out["add"] = {"s": add_s, "tokenize_s": spent["encode"] - spent["encode_ids"],
+                  "forward_s": spent["encode_ids"], "index_s": add_s - spent["encode"],
+                  "rows": eng.vector_index.active_rows}
+    log(f"[phase12 engine] add_documents {n} documents in {add_s:.2f} s: tokenizer "
+        f"{out['add']['tokenize_s']:.2f} s, forward {out['add']['forward_s']:.2f} s, index "
+        f"{out['add']['index_s']:.2f} s; rows {out['add']['rows']}")
+    first_s, steady_s, res = timed_search(dev, eng, queries)
+    check(all(len(r) == 10 for r in res), "10 results per query")
+    check(all(np.isfinite([x.score for r in res for x in r])), "finite scores")
+    out["search"] = {"first_ms": first_s * 1e3, "steady_ms": steady_s * 1e3,
+                     "stages": eng.last_trace["stages"]}
+    log(f"[phase12 engine] search_batch(64): first {first_s * 1e3:.1f} ms, steady "
+        f"{steady_s * 1e3:.1f} ms; stages {json.dumps(eng.last_trace['stages'])}")
+    card, cpu = subs
+    for e in (card, cpu):
+        tiers(e, False)
+    try:
+        out["card_vs_cpu"] = results_agree("hf engine, 2,048 documents, card against CPU",
+                                           card.search_batch(queries[:16]),
+                                           cpu.search_batch(queries[:16]))
+    finally:
+        for e in (card, cpu):
+            tiers(e, True)
+    log(f"[phase12 engine] card == CPU on the 2,048-document sub-engines (f32), 16 queries: "
+        f"{out['card_vs_cpu']}")
+    return out
+
+
+EXACT_DOC = (900_000, "gradient descent optimizer converges", "")
+
+
+def phase12_tiers(dev, docs, queries, subs, counts: CallCounts, n_docs: int = 16_384) -> dict:
+    """(c) the ColBERT tier and the fragment arm over 16,384 documents."""
+    from yams_tpu_torch.embed.provider import create_provider
+    from yams_tpu_torch.search.engine import SearchEngine
+
+    out: dict = {}
+    prov = create_provider("hf", device=dev)
+    eng = SearchEngine(provider=prov, device=dev)
+    eng.enable_late_interaction()
+    eng.enable_fragment_geometry()
+    spent = timed_wraps(prov, ["encode", "encode_tokens"])
+    t = time.perf_counter()
+    eng.add_documents(docs[:n_docs - 1] + [EXACT_DOC])
+    add_s = time.perf_counter() - t
+    out["add"] = {"s": add_s, "docs": n_docs, "encode_tokens_s": spent["encode_tokens"],
+                  "encode_s": spent["encode"]}
+    log(f"[phase12 tiers] add_documents {n_docs} documents with both tiers in {add_s:.2f} s "
+        f"(encode_tokens, one forward a document: {spent['encode_tokens']:.2f} s; encode, "
+        f"chunks and one forward a document's sentences: {spent['encode']:.2f} s)")
+    frag = eng.fragment_index
+    eng.fragment_index = None
+    _, late_s, _ = timed_search(dev, eng, queries)
+    late_stage = eng.last_trace["stages"]["late_interaction_ms"]
+    eng.fragment_index = frag
+    _, both_s, _ = timed_search(dev, eng, queries)
+    stages = eng.last_trace["stages"]
+    out["search"] = {"late_steady_ms": late_s * 1e3, "late_interaction_ms": late_stage,
+                     "both_steady_ms": both_s * 1e3, "stages": stages}
+    log(f"[phase12 tiers] search_batch(64) steady: ColBERT tier {late_s * 1e3:.1f} ms "
+        f"(late_interaction_ms {late_stage:.1f}); with the fragment arm {both_s * 1e3:.1f} ms "
+        f"(stages {json.dumps(stages)})")
+    with_tiers = eng.search("gradient descent", k=10)
+    tiers(eng, False)
+    without = eng.search("gradient descent", k=10)
+    tiers(eng, True)
+    score = {r.doc_id: r.score for r in with_tiers}
+    base = {r.doc_id: r.score for r in without}
+    check(with_tiers[0].doc_id == EXACT_DOC[0], "the doc with the query's exact tokens on top")
+    check(score[EXACT_DOC[0]] > base.get(EXACT_DOC[0], -1e30), "and its score rises")
+    out["exact_doc"] = {"score_with": score[EXACT_DOC[0]],
+                        "score_without": base.get(EXACT_DOC[0]),
+                        "rank_without": [r.doc_id for r in without].index(EXACT_DOC[0])
+                        if EXACT_DOC[0] in base else None}
+    log(f"[phase12 tiers] 'gradient descent': the exact-token doc first, score "
+        f"{out['exact_doc']['score_without']} -> {out['exact_doc']['score_with']}")
+    card, cpu = subs
+    out["card_vs_cpu"] = results_agree("hf engine with both tiers, card against CPU",
+                                       card.search_batch(queries[:16]),
+                                       cpu.search_batch(queries[:16]))
+    log(f"[phase12 tiers] card == CPU with the tiers on (2,048 documents, f32, 16 queries): "
+        f"{out['card_vs_cpu']}")
+    out["ops"] = phase12_rerank_ops(dev, eng, queries, counts)
+    return out
+
+
+def phase12_rerank_ops(dev, eng, queries, counts: CallCounts) -> dict:
+    """maxsim_scores and the token-index gather at search_batch(64)'s shape,
+    each against its bound and its yardstick (timed, not on the path)."""
+    from yams_tpu_torch.ops.maxsim import maxsim_scores
+
+    cfg = eng.config
+    B, Tq, D = len(queries), cfg.late_interaction_max_tokens, eng.provider.dim
+    rrf_c = min(cfg.rrf_candidates, eng.num_slots_padded)
+    C = min(max(2 * 10, cfg.rrf_candidates), 2 * rrf_c)      # search_batch's k_dev at k 10
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    slots = torch.randint(0, len(eng._doc_by_slot), (B, C), generator=gen, device=dev)
+    qt = torch.randn(B, Tq, D, device=dev)
+    qm = torch.ones(B, Tq, device=dev)
+    ti = eng.token_index
+    tok, mask = ti.device_arrays()
+    gather_ms = counts.timed(lambda: ti.gather(slots), 10)
+    counts.paused = True            # the operands of the timed operations
+    ct, cm = ti.gather(slots)
+    counts.paused = False
+    gather_b = bound(2 * ct.numel() * 2 + 2 * cm.numel() * 4 + slots.numel() * 8, 0.0,
+                     PEAK_CORE)
+    select_ms = cuda_ms(lambda: tok.index_select(0, slots.reshape(-1)), 10)
+    ms = cuda_ms(lambda: maxsim_scores(qt, qm, ct, cm), 10)
+    ms_b = bound(ct.numel() * 2 + cm.numel() * 4 + qt.numel() * 4 + qm.numel() * 4 + B * C * 4,
+                 2.0 * B * C * Tq * ct.shape[2] * D, PEAK_BF16)
+    q16, c16 = qt.bfloat16(), ct.reshape(B, -1, D).bfloat16()
+    mm_ms = cuda_ms(lambda: torch.matmul(q16, c16.transpose(1, 2)).reshape(
+        B, Tq, C, -1).amax(-1), 10)
+    out = {"shape": [B, C, Tq, int(ct.shape[2]), D],
+           "maxsim": {"ms": ms, **ms_b, "matmul_max_ms": mm_ms},
+           "gather": {"ms": gather_ms, **gather_b, "index_select_ms": select_ms}}
+    log(f"[phase12 ops] maxsim_scores (B {B}, C {C}, Tq {Tq}, Td {ct.shape[2]}, D {D}): "
+        f"{ms:.4f} ms against {ms_b['bound_ms']:.4f} ({ms_b['bound_by']}), one torch.matmul "
+        f"+ max {mm_ms:.4f}; token-index gather {gather_ms:.4f} ms against "
+        f"{gather_b['bound_ms']:.4f}, index_select {select_ms:.4f}")
+    return out
+
+
+def phase12_matryoshka(dev, counts: CallCounts, N: int = 1 << 20, D: int = 768,
+                       B: int = 1024, k: int = 10, dups: int = 9) -> dict:
+    """(d) matryoshka_topk on phase 4's corpus with phase 5's planted copies
+    (on phase 4's rows alone a row's neighbours sit near cosine 0, so a
+    prefix has nothing to find), recall@10 against the exact scan."""
+    from yams_tpu_torch.ops import matryoshka
+    from yams_tpu_torch.ops.scan import dot_f32
+    from yams_tpu_torch.ops.select import top_k
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    E = clustered_corpus(dev, gen, N, D)
+    perm = torch.randperm(N, generator=gen, device=dev)
+    base, planted = perm[:B], perm[B:B * (dups + 1)]
+    copies = E[base].float()[:, None, :] + (0.25 / np.sqrt(D)) * torch.randn(
+        B, dups, D, generator=gen, device=dev)
+    E[planted] = (copies / copies.norm(dim=2, keepdim=True)).reshape(-1, D).bfloat16()
+    q = E[base].float()
+    valid = torch.ones(N, device=dev)
+    ei = top_k(dot_f32(q, E), k)[1].cpu().numpy()
+    exact_ms = cuda_ms(lambda: top_k(dot_f32(q, E), k), 3)
+    out = {"exact_ms": exact_ms, "queries": "phase 5's planted copies", "shape": [N, D, B]}
+    for d0 in (192, 384):
+        E0 = matryoshka.prefix_corpus(E, d0)
+        _, mi = matryoshka.matryoshka_topk(q, E, E0, valid, k=k)
+        rec = recall_at(mi.cpu().numpy(), ei)
+        ms = counts.timed(lambda: matryoshka.matryoshka_topk(q, E, E0, valid, k=k), 5)
+        C = k * 8
+        b = bound(E0.numel() * 2 + valid.numel() * 4 + q.numel() * 4 + B * C * D * 2
+                  + B * k * 8, 2.0 * B * N * d0 + 2.0 * B * C * D, PEAK_BF16)
+        out[f"d0_{d0}"] = {"recall10": rec, "ms": ms, "qps": B / ms * 1e3, **b}
+        check(rec >= 0.9, f"matryoshka recall@10 at d0 {d0} >= 0.9 ({rec:.4f})")
+        del E0
+    log(f"[phase12 matryoshka] {N} x {D}, B {B}, k {k}, rerank x8: " + "; ".join(
+        f"d0 {d0}: recall@10 {out[f'd0_{d0}']['recall10']:.4f}, {out[f'd0_{d0}']['ms']:.3f} ms "
+        f"({out[f'd0_{d0}']['qps']:.1f} QPS) against {out[f'd0_{d0}']['bound_ms']:.4f}"
+        for d0 in (192, 384)) + f"; the exact scan (dot_f32 + top_k) {exact_ms:.3f} ms")
+    return out
+
+
+def phase12_service(dev, n_files: int = 256, blob_bytes: int = 48 << 20) -> dict:
+    """(e) an AppContext with embedding.provider="hf" through the daemon."""
+    import tempfile
+
+    from yams_tpu_torch.core.config import load_config
+
+    out: dict = {}
+    tmp = tempfile.TemporaryDirectory(prefix="yhf")
+    root = pathlib.Path(tmp.name)
+    d = None
+    try:
+        vocab, texts, blob, _, _ = svc_tree(root / "tree", n_files, 16, blob_bytes, SEED + 20)
+        cfg = load_config(data_dir=root / "data")
+        cfg.embedding.provider = "hf"
+        d = ThreadDaemon(cfg, dev)
+        check(d.app.search_engine.provider.name == "hf", "the daemon serves the hf provider")
+        t = time.perf_counter()
+        rep = d.client.add_path(str((root / "tree").resolve()))
+        out["add_s"] = time.perf_counter() - t
+        check(rep["files_added"] == n_files + 2 and rep["files_failed"] == 0,
+              f"the add took every file ({rep['files_added']}, {rep['errors'][:3]})")
+        rng = np.random.default_rng(SEED + 21)
+        queries = [" ".join(vocab[rng.zipf(1.3, size=int(rng.integers(1, 4))) % 512])
+                   for _ in range(16)]
+        before = [hits_of(d.client.search(qtext)) for qtext in queries]
+        check(all(before), "every query found something")
+        loaded = d.client.call("model_load", model="hf")
+        status = d.client.call("model_status")
+        engine_space = d.app.search_engine.provider.space_id
+        check(loaded["space_id"] == engine_space and loaded["dim"] == 192,
+              f"model_load hf gives the engine's space ({loaded})")
+        check(status["default"]["space_id"] == engine_space
+              and [m["name"] for m in status["loaded"]] == ["hf"], f"model_status ({status})")
+        sample = list(texts.values())[:8]
+        emb = d.client.call("embed_batch", texts=sample, model="hf")
+        want = d.app.search_engine.provider.encode(sample)
+        cos = float(cosines(np.asarray(emb["vectors"], np.float32), want).min())
+        check(emb["dim"] == 192 and cos >= 0.99, f"embed_batch gives the model's vectors ({cos})")
+        cli = {}
+        for argv in (["search", queries[0]], ["search", queries[1]], ["model", "list"]):
+            proc = subprocess.run(
+                [sys.executable, "-m", "yams_tpu_torch.cli", "--storage", str(root / "data"),
+                 "--json", *argv], capture_output=True, text=True, timeout=300,
+                cwd=pathlib.Path(__file__).resolve().parent)
+            check(proc.returncode == 0, f"the CLI ran {argv} ({proc.stderr[-500:]})")
+            cli[" ".join(argv)] = json.loads(proc.stdout)
+        for i in (0, 1):
+            got = [(h["document_id"], h["score"]) for h in cli[f"search {queries[i]}"]]
+            check(got == [(r.doc_id, r.score) for r in before[i]],
+                  f"the CLI printed the daemon's hits for {queries[i]!r}")
+        rows = cli["model list"]
+        check([(r["model_id"], r["dim"], r["space_id"]) for r in rows]
+              == [("hf", 192, engine_space)], f"the CLI's model list ({rows})")
+        d.stop()
+        d = ThreadDaemon(cfg, dev)
+        after = [hits_of(d.client.search(qtext)) for qtext in queries]
+        out["restart"] = results_agree("hf daemon restarted", after, before, atol=1e-5)
+        check(out["restart"]["equal"] == len(queries), "16 searches equal across the restart")
+        d.stop()
+        d = None
+        out.update(files=rep["files_added"], space_id=engine_space, embed_min_cos=cos)
+        log(f"[phase12 service] hf AppContext through the daemon: {rep['files_added']} files "
+            f"added in {out['add_s']:.2f} s; model_load / model_status / embed_batch (min "
+            f"cosine {cos:.6f}); CLI search and model list == the daemon's; 16 searches equal "
+            f"across a restart")
+        return out
+    finally:
+        if d is not None and d.thread.is_alive():
+            try:
+                d.stop()
+            except Exception:       # noqa: BLE001  (the phase already failed)
+                pass
+        tmp.cleanup()
+
+
+def phase12_neural(dev, card: str, docs, queries) -> dict:
+    """The neural embedding path and the late-interaction tier on the card:
+    (a) the encoders, (b) the engine with the hf provider, (c) the ColBERT
+    tier and the fragment arm, (d) matryoshka top-k, (e) the daemon."""
+    from yams_tpu_torch.embed import encoder, hf_encoder
+    from yams_tpu_torch.index.token_index import TokenIndex
+    from yams_tpu_torch.ops import matryoshka
+    from yams_tpu_torch.search import engine as engine_module
+
+    out = {"card": card}
+    counts = CallCounts({
+        "bert_forward": (hf_encoder, "bert_forward"), "bert_layer": (hf_encoder, "bert_layer"),
+        "neural_forward": (encoder, "neural_forward"),
+        "maxsim_scores": (engine_module, "maxsim_scores"),
+        "token_index_gather": (TokenIndex, "gather"),
+        "matryoshka_topk": (matryoshka, "matryoshka_topk")})
+    with counts:
+        t = time.perf_counter()
+        subs = phase12_sub_engines(dev, docs)
+        out["sub_engines_s"] = time.perf_counter() - t
+        for name, fn, args in (
+                ("encoder", phase12_encoder, (dev, docs, counts)),
+                ("engine", phase12_engine, (dev, docs, queries, subs)),
+                ("tiers", phase12_tiers, (dev, docs, queries, subs, counts)),
+                ("matryoshka", phase12_matryoshka, (dev, counts)),
+                ("service", phase12_service, (dev,))):
+            t = time.perf_counter()
+            out[name] = fn(*args)
+            out[name + "_s"] = time.perf_counter() - t
+            log(f"[phase12 {name}] {out[name + '_s']:.2f} s")
+            torch.cuda.empty_cache()
+    out["op_calls"] = dict(counts.counts)
+    return out
+
+
+def phase12_ops(neural: dict) -> list:
+    """Phase 12's device operations: calls on the path, card time, bound and
+    yardstick."""
+    c, enc, ti = neural["op_calls"], neural["encoder"], neural["tiers"]["ops"]
+    batch = enc["buckets"][enc["encode"]["bucket"]]
+    mat = neural["matryoshka"]
+    rows = [
+        {"op": "bert_layer", "calls": c["bert_layer"], "shape": enc["layer"]["shape"],
+         "ms": enc["layer"]["ms"], "bound_ms": enc["layer"]["bound_ms"],
+         "bound_by": enc["layer"]["bound_by"], "attention_ms": enc["layer"]["attention_ms"],
+         "sdpa_ms": enc["layer"]["sdpa_ms"]},
+        {"op": "bert_forward", "calls": c["bert_forward"], "shape": [4096, enc["encode"]["bucket"]],
+         "ms": batch["ms"], "bound_ms": batch["bound_ms"], "bound_by": batch["bound_by"]},
+        {"op": "maxsim_scores", "calls": c["maxsim_scores"], "shape": ti["shape"],
+         "ms": ti["maxsim"]["ms"], "bound_ms": ti["maxsim"]["bound_ms"],
+         "bound_by": ti["maxsim"]["bound_by"], "matmul_max_ms": ti["maxsim"]["matmul_max_ms"]},
+        {"op": "token_index_gather", "calls": c["token_index_gather"], "shape": ti["shape"][:4],
+         "ms": ti["gather"]["ms"], "bound_ms": ti["gather"]["bound_ms"],
+         "bound_by": ti["gather"]["bound_by"], "index_select_ms": ti["gather"]["index_select_ms"]}]
+    for d0 in (192, 384):
+        m = mat[f"d0_{d0}"]
+        rows.append({"op": f"matryoshka_topk d0 {d0}", "calls": c["matryoshka_topk"],
+                     "shape": mat["shape"], "ms": m["ms"], "bound_ms": m["bound_ms"],
+                     "bound_by": m["bound_by"], "exact_scan_ms": mat["exact_ms"],
+                     "recall10": m["recall10"]})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; nothing was run", file=sys.stderr)
@@ -2978,10 +3543,19 @@ def main() -> int:
         "and gather scan are torch operations: no hand kernel yet)")
     log("[phase11] device operations " + json.dumps(phase11_ops(topology)))
 
+    zero()
+    neural = phase("phase12", phase12_neural, dev, card, docs, queries)
+    neural_launches = read()
+    log(f"[neural embedding path] kernel launches {neural_launches} (the encoders, MaxSim, "
+        "the gather and matryoshka are torch operations: no hand kernel yet)")
+    for name in ("gear_hash_cuda", "sha256_cuda"):
+        check(neural_launches[name] >= 1, f"{name} launched on the hf daemon's add")
+    log("[phase12] device operations " + json.dumps(phase12_ops(neural)))
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("yams_tpu", "jax", "jaxlib", "flax"))
     check(not loaded, f"no module of yams_tpu, jax, jaxlib or flax loaded (found {loaded})")
-    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'torch': torch.__version__})}")
+    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'neural': neural, 'torch': torch.__version__})}")
 
     sources = {
         "gear_hash_cuda": ("yams_tpu_torch/csrc/gear_hash.cu", "yams_tpu/ops/cdc.py:65",
@@ -3012,6 +3586,7 @@ def main() -> int:
             records[-1]["launches_phase9"] = kg_launches[name]
         if name in ("gear_hash_cuda", "sha256_cuda"):
             records[-1]["launches_phase10"] = svc_launches[name]
+        records[-1]["launches_phase12"] = neural_launches[name]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -112,7 +112,7 @@ def test_in_process_commands_match_the_reference(env, capsys):
 NOT_PORTED = [("grep", ["grep", "x"], 3), ("session", ["session", "list"], 3),
               ("watch", ["watch", "."], 3), ("download", ["download", "file:///x"], 3),
               ("plugin", ["plugin", "list"], 3), ("auth", ["auth", "list-keys"], 3),
-              ("serve", ["serve"], 3), ("model", ["model"], 5)]
+              ("serve", ["serve"], 3)]
 
 # the repair service's departures from the reference, by op
 # (yams_tpu_torch/services/repair_service.py)

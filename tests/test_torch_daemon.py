@@ -11,7 +11,9 @@ socket (as tests/test_interfaces.py runs the reference's):
   that worker needs the state lock (the reference holds the lock across the
   wait), and a batch envelope refuses it;
 - `feedback` with no id answers InvalidArgument; the handlers of services
-  the port lacks answer UNSUPPORTED naming their ROADMAP item; `repair`
+  the port lacks answer UNSUPPORTED naming their ROADMAP item; `model_load`,
+  `model_status` and `embed_batch` with a loaded model answer as the
+  reference's providers; `repair`
   (with and without dry_run) and `doctor` answer as the reference's
   RepairService on the same tree; trusted plugins are reported as not
   loaded;
@@ -196,12 +198,40 @@ def test_feedback_needs_an_id(daemon):
     ("download", {"url": "file:///x"}, 3),
     ("download_start", {"url": "file:///x"}, 3), ("download_list", {}, 3),
     ("cancel", {"job_id": "j"}, 3), ("plugins", {}, 3), ("plugin_scan", {}, 3),
-    ("plugin_trust_list", {}, 3), ("model_load", {"model": "hf"}, 5),
-    ("model_status", {}, 5)])
+    ("plugin_trust_list", {}, 3)])
 def test_unported_handlers_answer_unsupported(daemon, rtype, fields, item):
     with pytest.raises(YamsError, match=f"not ported: ROADMAP queue 1 item {item}") as e:
         daemon.client.call(rtype, **fields)
     assert e.value.code == ErrorCode.UNSUPPORTED
+
+
+@pytest.mark.parametrize("model,options", [("mock", {"dim": 32}),
+                                           ("hf", {"compute_dtype": "float32"})])
+def test_model_load_status_and_embed_batch(daemon, model, options):
+    """`model_load` builds the provider on the daemon's device, `model_status`
+    lists it beside the default, and `embed_batch` with that model answers
+    the reference provider's vectors (mock: bit for bit; hf at f32: 1e-5)."""
+    import numpy as np
+
+    from yams_tpu.embed.provider import create_provider as ref_create
+    from yams_tpu_torch.embed.provider import list_providers
+
+    c = daemon.client
+    want = ref_create(model, **options)
+    loaded = c.call("model_load", model=model, options=options)
+    assert loaded == {"model": model, "dim": want.dim, "space_id": want.space_id}
+    assert daemon.daemon._models[model].device == CPU
+    st = c.call("model_status")
+    assert st["loaded"] == [{"name": model, "dim": want.dim, "space_id": want.space_id}]
+    assert st["registry"] == list_providers() == ["hf", "mock", "neural", "simeon"]
+    assert st["default"]["space_id"] == daemon.app.search_engine.provider.space_id
+    texts = ["raft consensus snapshot", "merkle tree diff", "", "zstd page cache " * 20]
+    got = c.call("embed_batch", texts=texts, model=model, max_batch_tokens=16)
+    assert got["dim"] == want.dim and got["batches"] >= 2
+    np.testing.assert_allclose(np.asarray(got["vectors"], np.float32), want.encode(texts),
+                               atol=0 if model == "mock" else 1e-5, rtol=0)
+    assert c.call("model_unload", model=model) == {"unloaded": True}
+    assert c.call("model_status")["loaded"] == []
 
 
 @pytest.mark.parametrize("rtype", ["repair", "doctor", "repair_dry_run"])

@@ -18,7 +18,10 @@ state). Here each copy and its original get the same seeded inputs:
   as it is for the SQLite store, the knowledge graph, the search tuner, the
   configs and the service layer's host modules;
 - a repository written by the port's ContentStore is read back by the
-  reference's, and the other way round, with whole-content dedup across.
+  reference's, and the other way round, with whole-content dedup across;
+- the WordPiece tokenizer gives the reference's ids on both in-repo
+  vocabularies, and the fragment arm's sentence picker the same sentences;
+  both are the reference's code.
 """
 
 import dataclasses
@@ -427,3 +430,48 @@ def test_concept_miner_matches_reference():
     assert got == want and len(got) >= 4
     for a, b, _pmi, _df in got:
         assert port.docs_with_bigram(a, b) == ref.docs_with_bigram(a, b)
+
+
+@pytest.mark.parametrize("name", ["hf_encoder:WordPieceTokenizer",
+                                  "fragment_index:top_sentences"])
+def test_embedding_host_code_is_the_reference_code(name):
+    """The WordPiece tokenizer and the fragment arm's sentence picker are
+    the reference's, definition for definition."""
+    import importlib
+
+    module, definition = name.split(":")
+    package = "embed" if module == "hf_encoder" else "index"
+    port_mod = importlib.import_module(f"yams_tpu_torch.{package}.{module}")
+    ref_mod = importlib.import_module(f"yams_tpu.{package}.{module}")
+    names = [definition] + ([f"{definition}.{m}" for m in
+                             ("__init__", "_basic_split", "_wordpiece", "encode")]
+                            if definition == "WordPieceTokenizer" else [])
+    assert _defs(port_mod, names) == _defs(ref_mod, names)
+
+
+@pytest.mark.parametrize("checkpoint", ["realtext_bert_d192.npz", "synthetic_bert_d128.npz"])
+def test_wordpiece_ids_match_reference(checkpoint):
+    """Both in-repo vocabularies: the same ids for the same seeded text, at
+    several max lengths (words longer than 100 characters go to [UNK])."""
+    from yams_tpu.embed.hf_encoder import WordPieceTokenizer as RefTokenizer
+    from yams_tpu_torch.embed.hf_encoder import WordPieceTokenizer
+    from yams_tpu_torch.embed.provider import DEFAULT_HF_CHECKPOINT
+
+    z = np.load(DEFAULT_HF_CHECKPOINT.parent / checkpoint)
+    vocab = [str(v) for v in z["vocab"]]
+    port, ref = WordPieceTokenizer(vocab), RefTokenizer(vocab)
+    texts = _texts(60, seed=3) + ["x" * 150 + " tail", "Punctuation, (brackets) & co!"]
+    for text in texts:
+        for max_len in (8, 32, 128):
+            assert port.encode(text, max_len) == ref.encode(text, max_len), text
+
+
+def test_top_sentences_match_reference():
+    from yams_tpu.index.fragment_index import top_sentences as ref_top
+    from yams_tpu_torch.index.fragment_index import top_sentences
+
+    rng = np.random.default_rng(5)
+    for text in _texts(30, seed=4):
+        doc = "\n\n".join(text for _ in range(int(rng.integers(1, 4)))) + "\n# heading line here"
+        for n in (1, 3, 6):
+            assert top_sentences(doc, n=n) == ref_top(doc, n=n)

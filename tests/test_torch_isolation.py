@@ -8,7 +8,8 @@
   chunk + hash, a ContentStore round trip, and SearchEngine searches
   (with an intent, so search/query.py runs; with feedback; on the int8
   tier), and the KG leg over the port's own SQLite store with the tuner,
-  then the indexes saved and reopened; then the service layer: an
+  then the indexes saved and reopened, and the hf provider with the
+  ColBERT tier and the fragment arm; then the service layer: an
   AppContext on the CPU adds and searches, and the port's daemon answers a
   ping over its socket.
 - Statically, no file under yams_tpu_torch/ (nor chip_smoke.py) names
@@ -17,7 +18,8 @@
   with no `device` argument (the CLI: no `--device`) each resolves to CUDA,
   which raises here, where torch sees no card; with device="cpu" each runs.
   The entry points: SearchEngine, ContentStore, VectorIndex, SimeonProvider,
-  AppContext, YamsDaemon and the CLI.
+  AppContext, YamsDaemon, the CLI, TopologyEngine, the hf, neural and mock
+  providers and TokenIndex.
 """
 
 import ast
@@ -117,6 +119,15 @@ def test_port_imports_and_runs_with_the_reference_refused(tmp_path):
         kgeng.vector_index = VectorIndex.load({str(tmp_path / "idx")!r}, device=cpu)
         kgeng.lexical_index = LexicalIndex.load({str(tmp_path / "idx")!r})
         assert kgeng.search("preemption")[0].doc_id == 1
+        # the hf provider with the ColBERT tier and the fragment arm
+        from yams_tpu_torch.embed.provider import create_provider
+        hfeng = SearchEngine(provider=create_provider("hf", device=cpu), device=cpu)
+        hfeng.enable_late_interaction()
+        hfeng.enable_fragment_geometry()
+        hfeng.add_documents([(1, "the merkle tree diff detects renamed files. It compares hashes.", ""),
+                             (2, "packet routing fabric forwards frames. Switches learn.", "")])
+        assert hfeng.search("merkle tree diff")[0].doc_id == 1
+        assert {{"late_interaction_ms", "fragment_geometry_ms"}} <= set(hfeng.last_trace["stages"])
         # the service layer: AppContext add -> search, and a daemon ping
         import asyncio, threading, time
         from yams_tpu_torch.core.config import load_config
@@ -284,6 +295,36 @@ def _cli(device, root):
     return torch.device(json.loads(out.getvalue())["devices"][0])
 
 
+def _hf_provider(device):
+    from yams_tpu_torch.embed.provider import HFProvider
+    p = HFProvider() if device is None else HFProvider(device=device)
+    assert p.encode(["hello world"]).shape == (1, p.dim)
+    return p.device
+
+
+def _neural_provider(device):
+    from yams_tpu_torch.embed.provider import NeuralProvider
+    kw = {"dim": 48, "max_len": 32}
+    p = NeuralProvider(**kw) if device is None else NeuralProvider(**kw, device=device)
+    assert p.encode(["hello world"]).shape == (1, 48)
+    return p.device
+
+
+def _mock_provider(device):
+    from yams_tpu_torch.embed.provider import MockProvider
+    p = MockProvider() if device is None else MockProvider(device=device)
+    assert p.query_device_inputs(["hello"])[1].device.type == p.device.type
+    return p.device
+
+
+def _token_index(device):
+    from yams_tpu_torch.index.token_index import TokenIndex
+    idx = TokenIndex(dim=8) if device is None else TokenIndex(dim=8, device=device)
+    idx.set_doc(0, np.eye(8, dtype=np.float32)[:3])
+    assert idx.gather(torch.zeros((1, 1), dtype=torch.int64))[1].sum() == 3
+    return idx.device
+
+
 def _topology_engine(device):
     from yams_tpu_torch.index.topology import TopologyEngine
     eng = TopologyEngine() if device is None else TopologyEngine(device=device)
@@ -295,7 +336,9 @@ def _topology_engine(device):
 _ENTRY_POINTS = {"SearchEngine": _search_engine, "ContentStore": _content_store,
                  "VectorIndex": _vector_index, "SimeonProvider": _provider,
                  "AppContext": _app_context, "YamsDaemon": _daemon, "cli": _cli,
-                 "TopologyEngine": _topology_engine}
+                 "TopologyEngine": _topology_engine, "HFProvider": _hf_provider,
+                 "NeuralProvider": _neural_provider, "MockProvider": _mock_provider,
+                 "TokenIndex": _token_index}
 _TAKE_A_DIR = ("ContentStore", "AppContext", "YamsDaemon", "cli")
 
 

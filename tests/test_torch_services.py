@@ -19,9 +19,10 @@ dir, at small widths (dim 64):
 - the port's departures: int8 reopens as int8; a checkpoint that fails to
   parse is quarantined, while a RuntimeError from `VectorIndex.load`
   propagates and leaves the files in place; the entity side index is saved
-  and reopened; sharding "on", an unported provider and the unported
-  services raise NotImplementedError; `YAMS_TPU_DEBUG_NANS` prints that it
-  is not ported; stats list the CPU device.
+  and reopened; sharding "on" and the unported services raise
+  NotImplementedError, and an unknown provider the reference's ValueError;
+  `YAMS_TPU_DEBUG_NANS` prints that it is not ported; stats list the CPU
+  device.
 """
 
 import dataclasses
@@ -327,9 +328,12 @@ def test_sharding_on_is_not_ported(tmp_path, monkeypatch):
 
 
 def test_an_unported_provider_raises(tmp_path):
+    """Every provider of the reference's registry is ported (mock, neural
+    and hf build in tests/test_torch_providers.py); a name outside the
+    registry raises the reference's ValueError."""
     cfg = port_config_for(tmp_path / "d")
-    cfg.embedding.provider = "hf"
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    cfg.embedding.provider = "nope"
+    with pytest.raises(ValueError, match="unknown embedding provider: 'nope'"):
         AppContext(cfg, device="cpu")
 
 

@@ -17,9 +17,13 @@ from the reference in these ways only:
 - `repair` and `doctor` go to a running daemon (as every mutation does),
   else run in-process; the reference's run in-process always, beside a
   daemon that holds the same data dir;
+- `model list` beside a running daemon reads the `vector_models` table
+  from the metadata database alone (read-only) instead of opening a
+  second AppContext on the daemon's data dir; `model download` converts
+  with the port's `yams_tpu_torch/scripts/convert_hf_encoder.py`;
 - the commands whose services the port lacks (grep, session, watch,
-  download, plugin, auth, serve, model) exit 3 with "not ported: ROADMAP
-  queue 1 item N".
+  download, plugin, auth, serve) exit 3 with "not ported: ROADMAP queue 1
+  item N".
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from ..core.errors import ErrorCode, YamsError
 # commands of the reference whose services are not ported yet -> ROADMAP
 # queue 1 item that ports them
 NOT_PORTED = {"grep": 3, "session": 3, "watch": 3, "download": 3, "plugin": 3,
-              "auth": 3, "serve": 3, "model": 5}
+              "auth": 3, "serve": 3}
 
 
 def _fmt_size(n: float) -> str:
@@ -659,6 +663,48 @@ def cmd_tune(cli: Cli):
     return 0
 
 
+def cmd_model(cli: Cli):
+    op = getattr(cli.args, "model_cmd", "list")
+    if op == "download":
+        # HF hub id (needs egress) or local checkpoint dir -> converted npz
+        from ..scripts import convert_hf_encoder
+
+        out_dir = cli.config.data_dir / "models"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        out = cli.args.out or str(
+            out_dir / (cli.args.model_id.replace("/", "--") + ".npz"))
+        try:
+            convert_hf_encoder.convert(cli.args.model_id, out)
+        except Exception as e:
+            print(f"model download failed: {e}\n"
+                  f"(hub ids need network egress; air-gapped hosts can pass "
+                  f"a local checkpoint directory instead)", file=sys.stderr)
+            return 1
+        print(f"converted -> {out}\nUse it with:\n"
+              f"  [embedding] provider = \"hf\" checkpoint = \"{out}\"  "
+              f"(config.toml)\n  or YAMS_TPU_EMBEDDING_PROVIDER=hf "
+              f"YAMS_TPU_EMBEDDING_CHECKPOINT={out}")
+        return 0
+    query = "SELECT * FROM vector_models"
+    if cli.client_or_none() is not None:
+        import sqlite3
+
+        conn = sqlite3.connect(f"file:{cli.config.metadata_db}?mode=ro", uri=True)
+        conn.row_factory = sqlite3.Row
+        try:
+            rows = conn.execute(query).fetchall()
+        finally:
+            conn.close()
+    else:
+        rows = cli.app.db.execute(query).fetchall()
+    out = [
+        {"model_id": r["model_id"], "dim": r["dim"], "space_id": r["space_id"]}
+        for r in rows
+    ]
+    cli.out(out, lambda o: [print(f"{m['model_id']}  dim={m['dim']}  {m['space_id']}") for m in o])
+    return 0
+
+
 def cmd_not_ported(cli: Cli):
     cmd = cli.args.command
     print(f"error: yams {cmd}: not ported: ROADMAP queue 1 item {NOT_PORTED[cmd]}",
@@ -971,7 +1017,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("model_id", nargs="?", default="",
                     help="HF hub id or local checkpoint dir (download)")
     sp.add_argument("--out", default="", help="output .npz path")
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_model)
 
     sp = sub.add_parser("daemon", help="daemon control")
     sp.add_argument("daemon_cmd", choices=["start", "stop", "status", "restart"])

@@ -20,6 +20,13 @@ in its SQLite file, which both packages open.
 `load_topology(port_engine, engine)` an engine's whole topology surface
 (the topology, its tuner, the route-risk calibration), so routing compares
 on equal artifacts.
+
+Model weights: `hf_state_from_npz(path)` reads a converted BERT checkpoint
+(scripts/convert_hf_encoder.py's flat npz) into the state dict of the
+port's `embed.hf_encoder.BertEncoder` (the same names with "." for "/"),
+and `neural_state_from_flax(params)` turns the reference `NeuralEncoder`'s
+flax parameter tree, as NumPy arrays, into the state dict of the port's
+`embed.encoder.NeuralEncoderModule`.
 """
 
 from __future__ import annotations
@@ -249,3 +256,61 @@ def load_topology(engine, source) -> None:
         engine._stats["topology_persistence"] = source._stats["topology_persistence"]
     else:
         engine._stats.pop("topology_persistence", None)
+
+
+def hf_state_from_npz(path: str) -> dict[str, torch.Tensor]:
+    """A converted BERT checkpoint -> BertEncoder's state dict (f32): every
+    array but the config scalars and the vocabulary, "/" turned into "."."""
+    with np.load(path, allow_pickle=False) as z:
+        return {k.replace("/", "."): torch.from_numpy(np.asarray(z[k], np.float32))
+                for k in z.files if not k.startswith("cfg/") and k != "vocab"}
+
+
+_FLAX_BLOCK = {"LayerNorm_0": "ln1", "LayerNorm_1": "ln2", "Dense_0": "fc1",
+               "Dense_1": "fc2"}
+_FLAX_ATTN = {"query": "q", "key": "k", "value": "v", "out": "o"}
+
+
+def _flat(tree: dict, prefix: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def neural_state_from_flax(params) -> dict[str, torch.Tensor]:
+    """The reference NeuralEncoder's flax tree (with or without its
+    "params" level; NumPy leaves) -> NeuralEncoderModule's state dict.
+
+    `Embed_0` / `Embed_1` become "tok" / "pos"; `Block_i`'s LayerNorm_0,
+    LayerNorm_1, Dense_0 and Dense_1 become "blocks.i.ln1", "ln2", "fc1"
+    and "fc2"; its attention's query, key and value kernels (D, H, hd) and
+    biases (H, hd) become (D, H*hd) and (H*hd,), and `out`'s kernel
+    (H, hd, D) becomes (H*hd, D); the final `LayerNorm_0` is "ln_f". A
+    partial tree gives a partial state dict."""
+    if "params" in params:
+        params = params["params"]
+    out: dict[str, torch.Tensor] = {}
+    for path, value in _flat(params):
+        a = np.array(value, np.float32)
+        head, leaf = path[0], path[-1]
+        if head in ("Embed_0", "Embed_1"):
+            key = "tok" if head == "Embed_0" else "pos"
+        elif head == "LayerNorm_0" and len(path) == 2:
+            key = f"ln_f.{leaf}"
+        elif head.startswith("Block_"):
+            pre = f"blocks.{int(head[len('Block_'):])}"
+            sub = path[1]
+            if sub == "MultiHeadDotProductAttention_0":
+                key = f"{pre}.attn.{_FLAX_ATTN[path[2]]}.{leaf}"
+                if path[2] == "out":
+                    a = a.reshape(-1, a.shape[-1]) if leaf == "kernel" else a
+                else:
+                    a = a.reshape(a.shape[0], -1) if leaf == "kernel" else a.reshape(-1)
+            else:
+                key = f"{pre}.{_FLAX_BLOCK[sub]}.{leaf}"
+        else:
+            raise KeyError(f"unknown NeuralEncoder parameter {'/'.join(path)}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(a))
+    return out

@@ -25,11 +25,11 @@ from the reference in these ways only:
   plugins_trust.txt lists any, `degraded["plugins"]` says so.
   `degraded["native"]` follows the port's own native libraries, and
   `degraded["compression"]` says when zstandard is missing.
+- `model_load` builds the provider on the daemon's device.
 - A request for a service the port lacks answers UNSUPPORTED naming the
   ROADMAP item that ports it: any NotImplementedError a handler raises
   (AppContext's grep, session, download and watch services and the
-  daemon's `plugins` raise it when used), and the model-loading handlers,
-  whose modules are not ported. `repair` and `doctor` run the port's
+  daemon's `plugins` raise it when used). `repair` and `doctor` run the port's
   RepairService on the mutator worker under the write side of
   `state_lock`, as every mutation does.
 """
@@ -75,12 +75,6 @@ from ..services.app import NotPorted
 from .protocol import FrameError, async_read_frame, async_write_frame
 
 CHECKPOINT_INTERVAL_S = 300.0  # reference: CheckpointManager.h:38-63
-
-
-def not_ported(what: str, item: int = 3):
-    """Answer a request for a service the port does not have yet."""
-    raise YamsError(f"{what} is not ported: ROADMAP queue 1 item {item}",
-                    code=ErrorCode.UNSUPPORTED)
 
 
 class DaemonState:
@@ -904,13 +898,29 @@ class YamsDaemon:
     # -- model lifecycle (LoadModel/UnloadModel/ModelStatus,
     #    ipc_protocol_requests.h:1195-1291) --------------------------------------------
     def handle_model_load(self, req):
-        not_ported("model loading", 5)
+        from ..embed.provider import create_provider
+
+        name = req["model"]
+        opts = req.get("options", {})
+        if name not in self._models:
+            self._models[name] = create_provider(name, device=self.app.device, **opts)
+        p = self._models[name]
+        return {"model": name, "dim": p.dim, "space_id": p.space_id}
 
     def handle_model_unload(self, req):
         return {"unloaded": self._models.pop(req["model"], None) is not None}
 
     def handle_model_status(self, req):
-        not_ported("model loading", 5)
+        from ..embed.provider import list_providers
+
+        eng = self.app.search_engine.provider
+        return {
+            "default": {"name": self.app.config.embedding.profile,
+                        "dim": eng.dim, "space_id": eng.space_id},
+            "loaded": [{"name": n, "dim": p.dim, "space_id": p.space_id}
+                       for n, p in self._models.items()],
+            "registry": list_providers(),
+        }
 
     # -- embedding services (BatchEmbedding/EmbedDocuments,
     #    ipc_protocol_requests.h:1107-1194) --------------------------------------------

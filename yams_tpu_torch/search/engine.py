@@ -1,10 +1,11 @@
-"""SearchEngine on torch: the dense hybrid tier of yams_tpu's engine.
+"""SearchEngine on torch: the hybrid tiers of yams_tpu's engine.
 
 Port of yams_tpu/search/engine.py for the paths a search takes:
-`add_document(s)` and `remove_document` (host tokenization, Simeon
-embeddings, index updates), `search` / `search_batch` / `search_expanded`
-on the dense tier (search_batch's default branch, engine.py:592-1020: the
-bf16 or int8 corpus, the materialized or, on a flat corpus above
+`add_document(s)` and `remove_document` (host tokenization, embeddings by
+the engine's provider, index updates; sentence, paragraph, fixed and
+semantic chunking), `search` / `search_batch` / `search_expanded` on the
+dense tier (search_batch's default branch, engine.py:592-1020: the bf16 or
+int8 corpus, the materialized or, on a flat corpus above
 `streaming_threshold` rows, the streaming vector leg, every chunk
 aggregation, intent-adaptive leg weights), the PQ capacity tier (`ensure_pq`
 and search_batch's `use_pq` branch, engine.py:498-535, 849-897), the
@@ -19,10 +20,20 @@ narrow auto-promotion, and search_batch under the off, shadow, narrow and
 augment policies: the per-query narrow masks, the narrow gather tier
 through `routed_gather_topk` at 0 < B <= narrow_gather_max_batch, the
 shadow agreement and route-risk calibration, :364-494, 755-824, 895-925,
-1105-1129), and the result glue (:1131-1216). The host state lives in
-the port's VectorIndex / LexicalIndex, copies of the reference's host code
-with torch device views, so both engines hold identical state for identical
-adds. It runs on the card unless the caller asks for the CPU.
+1105-1129), the late-interaction (ColBERT) tier and the fragment-geometry
+arm (`enable_late_interaction`, `enable_fragment_geometry`, their index
+hooks in add and remove, and their MaxSim rerank stages over the fused
+candidates, `late_interaction_ms` and `fragment_geometry_ms` in the trace,
+:256-290, 1039-1099), and the result glue (:1131-1216). The host state
+lives in the port's VectorIndex / LexicalIndex / TokenIndex, copies of the
+reference's host code with torch device views, so both engines hold
+identical state for identical adds. It runs on the card unless the caller
+asks for the CPU.
+
+`provider` is any provider of embed/provider.py (simeon by default, on the
+engine's device). `self.encoder` is the provider's encoder where it has
+one (neural, hf), else the provider itself: the port's SimeonProvider holds
+what the reference's SimeonEncoder does (config, encode, space_id).
 
 The PQ tier's vector leg is `VectorIndex.search_pq` with the doc mask
 always pushed into the scan (all ones over the used slots when unfiltered),
@@ -33,9 +44,8 @@ The narrow gather tier's trace also carries `topology_route_ms` (the
 reference records it for the masked routes only).
 
 Not ported, and refused loudly (NotImplementedError) rather than skipped:
-sharded serving, late interaction (ColBERT), fragment geometry and
-semantic chunking. The reference's `provider` argument (non-Simeon
-embedders) has no counterpart yet.
+sharded serving (ROADMAP queue 1 item 9) and vector engines other than
+dense, pq and pq4.
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ from ..embed.simeon import tokenize
 from ..index.lexical_index import LexicalIndex
 from ..index.topology import TopologyEngine
 from ..index.vector_index import VectorIndex
+from ..ops.maxsim import maxsim_scores
 from ..ops.scan import routed_gather_topk
 from .config import SearchEngineConfig
 from .fusion import (NEG, W_TEXT, W_VEC, hybrid_fuse_precomputed, hybrid_query,
@@ -113,6 +124,16 @@ def _aggregate_pq_candidates(
     return agg[order], uniq[order].astype(np.int32)
 
 
+def _blend(vals, slots, bm_at, vec_at, weight: float, scores: np.ndarray):
+    """Add weight * clip(scores, -1, 1) to the live candidates' fused values
+    and re-sort every (B, C) array by the blend (stable)."""
+    live = vals > -1e29
+    blended = np.where(live, vals + weight * np.clip(scores, -1, 1), vals)
+    order = np.argsort(-blended, axis=1, kind="stable")
+    return (np.take_along_axis(blended, order, axis=1),
+            *(np.take_along_axis(a, order, axis=1) for a in (slots, bm_at, vec_at)))
+
+
 class SearchEngine:
     def __init__(
         self,
@@ -121,12 +142,15 @@ class SearchEngine:
         vector: VectorIndexConfig | None = None,
         lexical: LexicalIndexConfig | None = None,
         kg_store=None,
+        provider=None,
         *,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
         self.config = config or SearchEngineConfig()
-        self.provider = SimeonProvider(embedding, device=self.device)
+        self.provider = provider or SimeonProvider(embedding, device=self.device)
+        # the provider's encoder (neural, hf), else the provider itself
+        self.encoder = getattr(self.provider, "encoder", None) or self.provider
         vcfg = vector or VectorIndexConfig(dim=self.provider.dim)
         if str(vcfg.engine) not in ("dense", "pq", "pq4"):
             raise NotImplementedError(
@@ -150,6 +174,8 @@ class SearchEngine:
         self.topology = None        # TopologyEngine, built via rebuild_topology()
         self.topology_tuner = None  # TopologyTuner, opt-in (engine-selection MAB)
         self.tuner = None           # SearchTuner, opt-in (the caller sets it)
+        self.token_index = None     # TokenIndex, opt-in (ColBERT rerank tier)
+        self.fragment_index = None  # FragmentIndex, opt-in (fragment geometry)
         self.cross_reranker = None  # optional callable(query, [SearchResult]) -> list
         self.last_trace: dict | None = None
         self._proj_host: np.ndarray | None = None
@@ -198,18 +224,18 @@ class SearchEngine:
                       chunk_strategy: str = "sentence") -> list[int]:
         """Batched indexing: [(doc_id, content, title)] -> #chunks per doc;
         every chunk text is embedded in one provider call."""
-        if chunk_strategy == "semantic":
-            raise NotImplementedError("semantic chunking is not ported")
         all_texts: list[str] = []
         vec_slots: list[int] = []
         counts: list[int] = []
+        embedder = self.provider.encode if chunk_strategy == "semantic" else None
         for doc_id, content, title in docs:
             slot = self._slot_for(doc_id)
             with self._lock:
                 self._titles[doc_id] = title
             self.vector_index.remove_doc(slot)
             self.lexical_index.add_document(slot, content, title)
-            texts = [c.text for c in chunk_document(content, chunk_strategy)]
+            texts = [c.text for c in chunk_document(content, chunk_strategy,
+                                                    embedder=embedder)]
             if title:
                 texts = [title] + texts
             counts.append(len(texts))
@@ -217,17 +243,54 @@ class SearchEngine:
             vec_slots.extend([slot] * len(texts))
         if all_texts:
             self.vector_index.add(self.provider.encode(all_texts), vec_slots)
+        if self.token_index is not None:
+            for doc_id, content, title in docs:
+                self.token_index.set_doc(self._slot_by_doc[doc_id], self.provider.encode_tokens(
+                    (title + " " + content) if title else content,
+                    max_tokens=self.config.late_interaction_max_tokens))
+        if self.fragment_index is not None:
+            for doc_id, content, title in docs:
+                self.fragment_index.set_doc_text(
+                    self._slot_by_doc[doc_id], (title + " " + content) if title else content,
+                    self.provider, n_sentences=self.config.fragment_top_sentences)
         self._stats["documents"] = len(self._slot_by_doc)
         return counts
 
+    def enable_late_interaction(self) -> None:
+        """Turn on the ColBERT-tier MaxSim rerank. Existing docs must be
+        re-added to populate token embeddings."""
+        from ..index.token_index import TokenIndex
+
+        self.token_index = TokenIndex(
+            dim=self.provider.dim,
+            max_tokens=self.config.late_interaction_max_tokens,
+            device=self.device,
+        )
+
+    def enable_fragment_geometry(self) -> None:
+        """Turn on the fragment-geometry rerank arm (opt-in, as in the
+        reference). Existing docs must be re-added to populate sentence
+        embeddings."""
+        from ..index.fragment_index import FragmentIndex
+
+        self.fragment_index = FragmentIndex(
+            dim=self.provider.dim,
+            max_tokens=self.config.fragment_top_sentences,
+            device=self.device,
+        )
+
     def remove_document(self, doc_id: int) -> bool:
-        """Drop a document from both indexes; its slot stays reserved."""
+        """Drop a document from every index; its slot stays reserved."""
         with self._lock:
             slot = self._slot_by_doc.get(doc_id)
         if slot is None:
             return False
         self.vector_index.remove_doc(slot)
         self.lexical_index.remove_document(slot)
+        if self.token_index is not None:
+            self.token_index.remove_doc(slot)
+        if self.fragment_index is not None:
+            self.fragment_index.remove_doc(slot)
         self._titles.pop(doc_id, None)
         return True
 
@@ -781,6 +844,35 @@ class SearchEngine:
             )
         vals, slots, bm_at, vec_at = (
             t[:B_real].cpu().numpy() for t in (vals, slots, bm_at, vec_at))
+
+        # late-interaction rerank (ColBERT tier): MaxSim over the fused
+        # candidates' token embeddings, blended into the fused score
+        if (self.token_index is not None and mode == "hybrid"
+                and self.token_index.doc_count > 0):
+            t_li = time.monotonic()
+            Tq = self.config.late_interaction_max_tokens
+            qt = np.zeros((B_real, Tq, self.provider.dim), np.float32)
+            qm = np.zeros((B_real, Tq), np.float32)
+            for i, q in enumerate(queries):
+                tv = self.provider.encode_tokens(q, max_tokens=Tq)
+                n = min(len(tv), Tq)
+                if n:
+                    qt[i, :n] = tv[:n]
+                    qm[i, :n] = 1.0
+            li = self._maxsim(self.token_index, qt, qm, slots)
+            vals, slots, bm_at, vec_at = _blend(vals, slots, bm_at, vec_at,
+                                                cfg.late_interaction_weight, li)
+            trace["stages"]["late_interaction_ms"] = (time.monotonic() - t_li) * 1e3
+        # fragment-geometry rerank arm: MaxSim over the candidates' SENTENCE
+        # embeddings, blended like the ColBERT tier
+        if (self.fragment_index is not None and mode == "hybrid"
+                and self.fragment_index.doc_count > 0):
+            t_fg = time.monotonic()
+            qv = self.provider.encode(list(queries[:B_real]))[:, None, :]
+            fg = self._maxsim(self.fragment_index, qv, np.ones((B_real, 1), np.float32), slots)
+            vals, slots, bm_at, vec_at = _blend(vals, slots, bm_at, vec_at,
+                                                self.config.fragment_geometry_weight, fg)
+            trace["stages"]["fragment_geometry_ms"] = (time.monotonic() - t_fg) * 1e3
         trace["stages"]["device_ms"] = (time.monotonic() - t_dev) * 1e3
 
         # shadow policy: how often narrow routing would have agreed, and the
@@ -849,6 +941,15 @@ class SearchEngine:
         trace["total_ms"] = (time.monotonic() - t0) * 1e3
         self.last_trace = trace
         return out
+
+    def _maxsim(self, index, q_tok: np.ndarray, q_mask: np.ndarray,
+                slots: np.ndarray) -> np.ndarray:
+        """MaxSim of host query tokens against the candidate slots' rows of a
+        TokenIndex, gathered and scored on the device -> (B, C) host f32."""
+        dev = self.device
+        cand_tok, cand_mask = index.gather(torch.from_numpy(slots).to(dev))
+        return maxsim_scores(torch.from_numpy(q_tok).to(dev), torch.from_numpy(q_mask).to(dev),
+                             cand_tok, cand_mask).cpu().numpy()
 
     # -- knowledge-graph leg -------------------------------------------------------
     def add_entity_vectors(self, node_ids: list[int], labels: list[str]) -> None:

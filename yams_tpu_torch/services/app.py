@@ -19,7 +19,8 @@ only:
   given (`self.sharded` is False, and stats say so).
 - No JIT cache: the CUDA kernels are cached by `_build.py`. The
   YAMS_TPU_DEBUG_NANS tripwire is not ported; it prints one line saying so.
-- An embedding provider other than simeon is not ported (item 5).
+- `embedding.provider` in {mock, neural, hf} builds that provider (with
+  `embedding.checkpoint` when set) on the AppContext's device.
 - The grep, session, download and watch services are not ported (item 3):
   they are attributes that raise NotImplementedError when used.
 """
@@ -78,10 +79,6 @@ class AppContext:
                 "vector.sharded='on': the sharded tier is not ported: "
                 "ROADMAP queue 1 item 9")
         self.sharded = False   # "auto" serves on the one device it was given
-        if self.config.embedding.provider not in ("", "simeon"):
-            raise NotImplementedError(
-                f"embedding provider {self.config.embedding.provider!r} is not "
-                "ported: ROADMAP queue 1 item 5")
         self.config.data_dir.mkdir(parents=True, exist_ok=True)
         self._acquire_lock()
         if os.environ.get("YAMS_TPU_DEBUG_NANS"):
@@ -101,25 +98,35 @@ class AppContext:
         self.metadata = MetadataRepository(self.db)
         self.kg = KnowledgeGraphStore(self.db)
         self.trees = TreeBuilder(self.db)
-        # The stored corpus defines its embedding space: adopt the
-        # registered simeon space on reopen so a default-config process
-        # (daemon, script, CLI) never builds a mismatched engine over an
-        # existing index (reference: space-identity guard,
-        # simeon_embedding_backend.cpp — mixing spaces is refused there).
-        persisted = self.metadata.latest_vector_model()
-        if persisted is not None:
-            _mid, _dim, space = persisted
-            emb = self.config.embedding
-            if space != emb.space_id and space.count("/") >= 3:
-                prof, d, s, seed = space.split("/")[:4]
-                try:
-                    emb.profile = prof
-                    emb.dim = int(d.lstrip("d"))
-                    emb.sketch_dim = int(s.lstrip("s"))
-                    emb.seed = int(seed.removeprefix("seed"), 16)
-                    self.config.vector.dim = emb.dim
-                except ValueError:
-                    pass  # foreign space string: keep configured values
+        provider = None
+        if self.config.embedding.provider not in ("", "simeon"):
+            from ..embed.provider import create_provider
+
+            kw = {}
+            if self.config.embedding.checkpoint:
+                kw["checkpoint"] = self.config.embedding.checkpoint
+            provider = create_provider(self.config.embedding.provider,
+                                       device=self.device, **kw)
+        else:
+            # The stored corpus defines its embedding space: adopt the
+            # registered simeon space on reopen so a default-config process
+            # (daemon, script, CLI) never builds a mismatched engine over an
+            # existing index (reference: space-identity guard,
+            # simeon_embedding_backend.cpp — mixing spaces is refused there).
+            persisted = self.metadata.latest_vector_model()
+            if persisted is not None:
+                _mid, _dim, space = persisted
+                emb = self.config.embedding
+                if space != emb.space_id and space.count("/") >= 3:
+                    prof, d, s, seed = space.split("/")[:4]
+                    try:
+                        emb.profile = prof
+                        emb.dim = int(d.lstrip("d"))
+                        emb.sketch_dim = int(s.lstrip("s"))
+                        emb.seed = int(seed.removeprefix("seed"), 16)
+                        self.config.vector.dim = emb.dim
+                    except ValueError:
+                        pass  # foreign space string: keep configured values
         if str(self.config.vector.engine).startswith("pq"):
             # pq engines imply the PQ search tier (reference: engine select
             # in vector_types.h picks SimeonPqAdc the same way)
@@ -132,10 +139,12 @@ class AppContext:
             vector=self.config.vector,
             lexical=self.config.lexical,
             kg_store=self.kg,
+            provider=provider,
             device=self.device,
         )
         self.metadata.register_vector_model(
-            self.config.embedding.profile,
+            self.config.embedding.profile if provider is None
+            else self.config.embedding.provider,
             self.search_engine.provider.dim,
             self.search_engine.provider.space_id,
         )
