@@ -172,7 +172,38 @@ seconds):
      the daemon on a fresh data dir: add_path of 256 notes and a 48 MiB
      blob with its copy, searches, model_load hf, model_status,
      embed_batch, the CLI's search and model list equal to the daemon's,
-     16 searches equal across a restart.
+     16 searches equal across a restart;
+ 13. the rest of the service layer: (a) a card daemon and a CPU daemon,
+     each trusting the bundled NER plugin (autoloaded, health ok), add 256
+     zipf notes of phase 10's kind and 32 notes naming code identifiers and
+     multiword proper names through async ingest; the card's NER logits
+     within 1e-4 of the CPU module on 64 notes' windows, tags equal but the
+     named near-ties (top-2 margin < 1e-5), extract equal on 16, the KG each
+     daemon wrote equal; one window's forward timed against its bound,
+     with its CUDA launches (torch.profiler) and the windows/s of extract;
+     (b) literal, regex and multi-pattern greps through the daemon equal
+     to the CLI's and to the CPU app's, grep_multi too; (d) session pin,
+     warm and a session-filtered search, card == CPU; a watch pass with a
+     file added, one modified and one deleted, which search then sees;
+     (c) a 48 MiB seeded blob downloaded through the daemon's job API from
+     a file:// URL and from the fake S3 (tests/fixtures/fake_s3.py, the
+     standard library only), each launching gear_hash_cuda and
+     sha256_cuda, with hashlib's digest, its chunk boundaries the host
+     chunker's and its chunk digests hashlib's, read back byte for byte; a
+     .part resumed over HTTP Range from a localhost server; repair's
+     downloads op removing a stale .part; the data dir spilled to a
+     FilesystemBackend with the DR gates green, restored, and 16 searches
+     on the restored dir equal to the same on the original (each from a
+     fresh open: SearchService.search touches the hotzone of its top 3);
+     (f) the MCP server (python -m yams_tpu_torch.mcp on the card)
+     answering initialize and 16 search calls as the in-process app does
+     (the daemon's batcher, which touches no hotzone, answers a sequence
+     otherwise), and auth keygen, token, verify and revoke
+     with traversal names refused; (e) bm25_dense (the reference's per-term
+     scatter) at N 1,048,576, V 65,536, window 1,024, B 64, T 8 on phase
+     4's kind of postings, equal bit for bit to the same call on the CPU,
+     timed against its bytes bound, and LexicalIndex.search on phase 3's
+     index, card == CPU.
 
 The kernel launch counters are zeroed just before each path and read just
 after: the add path (phases 2-3) must launch gear_hash_cuda and
@@ -188,7 +219,10 @@ torch operations only, and its counts are printed with its device
 operations' times and bounds; phase 12's daemon add must launch
 gear_hash_cuda and sha256_cuda (on the blob), and its device operations
 (the BERT forward and layer, MaxSim, the token-index gather, matryoshka)
-are printed with their calls on the path, times, bounds and yardsticks. At
+are printed with their calls on the path, times, bounds and yardsticks;
+phase 13's downloads must launch gear_hash_cuda and sha256_cuda, and its
+device operations (the NER window forward, bm25_dense) are printed with
+their calls, times and bounds. At
 the end no module of
 yams_tpu, jax, jaxlib or flax
 may be loaded. The second-last line is the kernels' JSON record (each with
@@ -201,6 +235,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -3438,6 +3473,655 @@ def phase12_ops(neural: dict) -> list:
     return rows
 
 
+# -- phase 13 -----------------------------------------------------------------
+class RangeServer:
+    """A localhost HTTP server of named payloads that answers a Range
+    request with 206 and the rest of the payload, as a resumed download
+    needs (file:// and the fake S3 ignore Range)."""
+
+    def __init__(self, files: dict[str, bytes]):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.gets: list[str | None] = []
+        gets = self.gets
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                data = files.get(self.path.lstrip("/"))
+                if data is None:
+                    self.send_error(404)
+                    return
+                rng = self.headers.get("Range")
+                gets.append(rng)
+                start = int(rng.removeprefix("bytes=").split("-")[0]) if rng else 0
+                self.send_response(206 if rng else 200)
+                self.send_header("Content-Length", str(len(data) - start))
+                if rng:
+                    self.send_header("Content-Range",
+                                     f"bytes {start}-{len(data) - 1}/{len(data)}")
+                self.end_headers()
+                self.wfile.write(data[start:])
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+IDENTS = ["CacheManager", "ingest_queue_worker", "HttpServer", "parse_config", "TokenStream",
+          "BlockAllocator", "write_ahead_log", "QueryPlanner", "flush_dirty_pages",
+          "RaftLeader", "snapshot_writer", "IndexBuilder"]
+NAMES = ["New York City", "Widget Factory", "Ada Lovelace", "Grace Hopper", "Linus Torvalds",
+         "San Francisco", "Open Source Initiative", "Bell Labs"]
+
+
+def entity_notes(n: int, seed: int) -> dict[str, str]:
+    """Notes that name code identifiers and multiword proper names among
+    plain words (the bundled NER checkpoint's kind of text)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i in range(n):
+        parts = []
+        for _ in range(int(rng.integers(4, 12))):
+            ident, name = IDENTS[rng.integers(len(IDENTS))], NAMES[rng.integers(len(NAMES))]
+            parts.append(f"When the {ident} runs after the {IDENTS[rng.integers(len(IDENTS))]}, "
+                         f"the team in {name} reviews the logs and files a report.")
+        out[f"entities/e{i:03d}.txt"] = " ".join(parts) + "\n"
+    return out
+
+
+def sql_rows(app, query: str) -> list:
+    return [tuple(r) for r in app.db.execute(query).fetchall()]
+
+
+def count_cuda_launches(fn) -> dict:
+    """CUDA work of one fn() call under torch.profiler: the kernels and
+    copies the device ran, and the runtime's launch and copy calls on the
+    host (the two agree when the profiler sees the device)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    runtime = [e for e in events if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                               "cuLaunchKernel", "cudaMemcpyAsync")]
+    return {"device_ops": len(device), "runtime_calls": len(runtime),
+            "kernels": sorted({e.name for e in device})[:40]}
+
+
+def ner_bound(cfg, n_windows: int = 1) -> dict:
+    """One window's forward: the f32 multiply-adds (x2) of the encoder and
+    the label scores, and the bytes of the weights it reads (the rows of
+    the subword table it gathers) with its inputs and logits."""
+    L, D, G, K = cfg.window, cfg.dm, 8, len(cfg.labels)
+    per_layer = 3 * L * D * D + 2 * L * L * D + L * D * D + 2 * L * D * 2 * D
+    flops = 2 * (L * 6 * D + cfg.layers * per_layer + L * D * (2 * K + 1))
+    weights = 4 * (L * G * D + 6 * D + L * D + cfg.layers * (4 * D * D + 4 * D * D + 8 * D)
+                   + 2 * D * D + D)
+    io = L * G * 4 + L * 6 * 4 + L * 4 + L * (2 * K + 1) * 4
+    return bound(n_windows * (weights + io), n_windows * flops, 2 * PEAK_CORE)
+
+
+def ner_windows(texts, window: int):
+    """Every window of the texts as the NER model tags them."""
+    from yams_tpu_torch.embed.ner import featurize, word_tokenize
+
+    rows = []
+    for text in texts:
+        toks = [t for t, _ in word_tokenize(text)]
+        for w0 in range(0, len(toks), window):
+            rows.append(featurize(toks[w0:w0 + window], window))
+    return [np.stack(a) for a in zip(*rows)]
+
+
+def near_ties(probs: np.ndarray, margin: float = 1e-5) -> np.ndarray:
+    """(windows, L) mask of tokens whose top two tag probabilities lie
+    within `margin`."""
+    top2 = np.sort(probs, axis=-1)[..., -2:]
+    return (top2[..., 1] - top2[..., 0]) < margin
+
+
+def phase13_ner(dev, notes: dict, card_d, cpu_d) -> dict:
+    """(a) the NER forward against its CPU twin, and the daemons' KGs."""
+    from yams_tpu_torch.embed import ner
+    from yams_tpu_torch.plugins.neural_ner import _BUNDLED
+
+    card_m = ner.NerModel.load(_BUNDLED, device=dev)
+    cpu_m = ner.NerModel.load(_BUNDLED, device="cpu")
+    W = card_m.cfg.window
+    sample = list(notes.values())[:64]
+    ng, cf, mask = ner_windows(sample, W)
+    with torch.inference_mode():
+        got = card_m.logits(ng, cf, mask)
+        probs_card = torch.softmax(got, -1).cpu().numpy()
+        got = got.cpu().numpy()
+        want = cpu_m.logits(ng, cf, mask)
+        probs_cpu = torch.softmax(want, -1).numpy()
+        want = want.numpy()
+    err = float(np.abs(got - want).max())
+    check(err <= 1e-4, f"card NER logits within 1e-4 of the CPU module ({err:.3g})")
+    live = mask > 0
+    tags_card, tags_cpu = probs_card.argmax(-1), probs_cpu.argmax(-1)
+    ties = near_ties(probs_cpu) & live
+    differ = (tags_card != tags_cpu) & live
+    check(not (differ & ~ties).any(),
+          f"card tags equal the CPU's except near-ties ({int(differ.sum())} differ, "
+          f"{int((differ & ~ties).sum())} of them no tie)")
+    named = [(int(w), int(t)) for w, t in zip(*np.nonzero(ties))]
+    if named:
+        log(f"[phase13 ner] near-ties (window, token; top-2 margin < 1e-5): {named[:20]}")
+    # extract on 16 notes, timed on each device (one window a forward)
+    timed = sample[:16]
+    n_win = len(ner_windows(timed, W)[0])
+    got_ents, secs = {}, {}
+    for name, model in (("card", card_m), ("cpu", cpu_m)):
+        t = time.perf_counter()
+        got_ents[name] = [[x[:2] for x in model.extract(text)] for text in timed]
+        secs[name] = time.perf_counter() - t
+    extract_equal = sum(a == b for a, b in zip(got_ents["card"], got_ents["cpu"]))
+    check(extract_equal == len(timed) or bool(named),
+          f"card extract == CPU extract ({extract_equal} of {len(timed)} notes)")
+    wall, cpu_wall = secs["card"], secs["cpu"]
+    # one window, as the add runs it
+    one = [a[:1] for a in (ng, cf, mask)]
+    fwd_ms = cuda_ms(lambda: card_m.logits(*one), 200)
+    toks = [t for t, _ in ner.word_tokenize(sample[0])][:W]
+    launches = count_cuda_launches(lambda: card_m.tag(toks))
+    b = ner_bound(card_m.cfg)
+    out = {"windows": len(ng), "timed_windows": n_win, "max_abs_err": err, "differ": int(differ.sum()),
+           "near_ties": len(named), "extract_equal": extract_equal,
+           "window_ms": fwd_ms, "windows_per_s": n_win / wall,
+           "cpu_windows_per_s": n_win / cpu_wall, **b, "launches": launches}
+    log(f"[phase13 ner] 64 notes, {len(ng)} windows of {W}: card logits within {err:.3g} of the "
+        f"CPU module; tags equal but {int(differ.sum())} ({len(named)} near-ties named); "
+        f"extract equal on {extract_equal}/16; one window's forward {fwd_ms:.4f} ms against "
+        f"{b['bound_ms']:.6f} ms bound ({b['bound_by']}); extract of 16 notes {n_win / wall:.1f} "
+        f"windows/s on the card, {n_win / cpu_wall:.1f} on the CPU; per window {launches['device_ops']} "
+        f"device ops, {launches['runtime_calls']} runtime launch/copy calls")
+    # the KG each daemon's add wrote
+    q_nodes = "SELECT node_key, label, type FROM kg_nodes ORDER BY node_key"
+    q_links = ("SELECT d.document_id, n.node_key FROM doc_entities d JOIN kg_nodes n "
+               "ON n.id = d.node_id ORDER BY 1, 2")
+    kg = {}
+    for name, d in (("card", card_d), ("cpu", cpu_d)):
+        kg[name] = (sql_rows(d.app, q_nodes), sql_rows(d.app, q_links))
+    diff_docs = sorted({doc for doc, _ in set(kg["card"][1]) ^ set(kg["cpu"][1])})
+    if diff_docs:
+        # a differing document must hold a named near-tie on the card
+        for doc in diff_docs:
+            text = card_d.app.metadata.get_content(doc)
+            ng2, cf2, m2 = ner_windows([text], W)
+            with torch.inference_mode():
+                p = torch.softmax(cpu_m.logits(ng2, cf2, m2), -1).numpy()
+            check((near_ties(p) & (m2 > 0)).any(),
+                  f"the KGs differ on document {doc} only where a tag is a near-tie")
+        log(f"[phase13 ner] KG links differ on documents {diff_docs} (near-ties)")
+    else:
+        check(kg["card"][0] == kg["cpu"][0], "the card daemon's KG nodes equal the CPU's")
+    check(len(kg["card"][0]) >= len(IDENTS), f"the NER wrote the KG ({len(kg['card'][0])} nodes)")
+    out["kg_nodes"] = len(kg["card"][0])
+    out["kg_links"] = len(kg["card"][1])
+    out["kg_equal"] = not diff_docs
+    return out
+
+
+def cli_json(*argv) -> object:
+    """The port's CLI in this process (it routes through a daemon on the
+    storage's socket) -> its --json output."""
+    import contextlib
+    import io
+
+    from yams_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["--json", *argv])
+    check(rc in (0, 1), f"the CLI ran {argv} (rc {rc})")
+    return json.loads(buf.getvalue())
+
+
+GREPS = [("literal", "CacheManager", {}), ("regex", r"w1\d\d w2\d+", {}),
+         ("multi", "CacheManager|ingest_queue_worker|Grace Hopper", {"ignore_case": True})]
+
+
+def phase13_grep(card_d, cpu_d, data_dir) -> dict:
+    """(b) grep through the daemon == the CLI == a CPU AppContext."""
+    out = {}
+    for name, pattern, kw in GREPS:
+        t = time.perf_counter()
+        got = card_d.client.grep(pattern, **kw)
+        ms = (time.perf_counter() - t) * 1e3
+        argv = ["--storage", str(data_dir), "grep", pattern] + (["-i"] if kw else [])
+        cli = cli_json(*argv)
+        want = cpu_d.app.grep.grep(pattern, **kw)
+        rows = [(m["path"], m["line_number"], m["line"]) for m in got["matches"]]
+        check(rows and rows == [(m["path"], m["line_number"], m["line"]) for m in cli["matches"]],
+              f"grep {name}: the CLI printed the daemon's matches")
+        check(rows == [(m.path, m.line_number, m.line) for m in want.matches],
+              f"grep {name}: the card daemon's matches equal a CPU AppContext's")
+        out[name] = {"ms": ms, "matches": len(rows), "files_matched": got["files_matched"]}
+    card_multi = card_d.app.grep.grep_multi(IDENTS[:4])
+    cpu_multi = cpu_d.app.grep.grep_multi(IDENTS[:4])
+    check([dataclasses.astuple(m) for m in card_multi.matches] ==
+          [dataclasses.astuple(m) for m in cpu_multi.matches] and card_multi.matches,
+          "grep_multi (Aho-Corasick) on the card's app equals the CPU's")
+    out["grep_multi_matches"] = len(card_multi.matches)
+    log(f"[phase13 grep] {json.dumps(out)}; daemon == CLI == CPU AppContext")
+    return out
+
+
+def wait_job(client, job: str, timeout: float = 300.0) -> dict:
+    deadline = time.monotonic() + timeout
+    while (st := client.call("download_status", job_id=job))["state"] in ("queued", "running"):
+        check(time.monotonic() < deadline, f"download job {job} finished in time")
+        time.sleep(0.05)
+    return st
+
+
+def phase13_downloads(dev, card_d, root, blobs: list) -> dict:
+    """(c) downloads through the daemon's job API (file:// and the fake S3,
+    a seeded blob each: the store takes a payload it holds already without
+    hashing it on the device), a resumed .part, the repair op's cleanup,
+    and a remote checkpoint."""
+    import importlib.util
+
+    from yams_tpu_torch.ingest.chunker import _boundaries_numpy
+    from yams_tpu_torch.ops import cdc, sha256
+    from yams_tpu_torch.storage.backends import FilesystemBackend, backend_from_url
+    from yams_tpu_torch.storage import remote_checkpoint as rc
+
+    c, app = card_d.client, card_d.app
+    blob = blobs[0]
+    digests = [hashlib.sha256(b).hexdigest() for b in blobs]
+    src = root / "dl" / "blob.bin"
+    src.parent.mkdir(parents=True)
+    src.write_bytes(blob)
+    spec = importlib.util.spec_from_file_location(
+        "fake_s3", pathlib.Path(__file__).resolve().parent / "tests" / "fixtures" / "fake_s3.py")
+    fake_s3 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fake_s3)
+    srv, endpoint, _state = fake_s3.make_server()
+    ranged = RangeServer({"blob.bin": blob})
+    out = {}
+    try:
+        s3 = backend_from_url("s3://bucket/pre", access_key="k", secret_key="s",
+                              endpoint=endpoint)
+        t = time.perf_counter()
+        s3.put("blob.bin", blobs[1])
+        out["s3_put_s"] = time.perf_counter() - t
+        jobs = {}
+        for name, url, payload, digest in (("file", src.as_uri(), blob, digests[0]),
+                                           ("s3", s3._url("blob.bin"), blobs[1], digests[1])):
+            g0, s0 = cdc.gear_hash_cuda.launches, sha256.sha256_cuda.launches
+            t = time.perf_counter()
+            job = c.call("download_start", url=url, tags=["dl", name])["job_id"]
+            st = wait_job(c, job)
+            secs = time.perf_counter() - t
+            gear, sha = cdc.gear_hash_cuda.launches - g0, sha256.sha256_cuda.launches - s0
+            res = st["result"]
+            check(st["state"] == "completed" and res["sha256"] == digest,
+                  f"the {name} download completed with hashlib's digest ({st.get('error')})")
+            check(gear >= 1 and sha >= 1,
+                  f"the {name} download launched gear_hash_cuda ({gear}) and sha256_cuda ({sha})")
+            check(c.cat(res["sha256"]) == payload,
+                  f"the {name} download reads back byte for byte")
+            # K5 and SHA-256 at this path's own size: the stored chunks'
+            # boundaries are the host chunker's, and their digests hashlib's
+            chunks = app.content_store.refcounter.get_manifest(res["sha256"]).chunks
+            cfg = app.content_store.chunker.config
+            check([ch.offset + ch.size for ch in chunks]
+                  == _boundaries_numpy(payload, cfg.min_size, cfg.avg_size, cfg.max_size),
+                  f"the {name} download's {len(chunks)} chunk boundaries == host chunker oracle")
+            check(all(hashlib.sha256(payload[ch.offset:ch.offset + ch.size]).hexdigest()
+                      == ch.hash for ch in chunks),
+                  f"the {name} download's chunk digests == hashlib")
+            jobs[job] = name
+            out[name] = {"s": secs, "mb_per_s": len(blob) / 1e6 / secs,
+                         "gear_hash_launches": gear, "sha256_launches": sha,
+                         "chunks": len(chunks),
+                         "document_id": res["document_id"]}
+        listed = {j["job_id"] for j in c.call("download_list")["jobs"]}
+        check(set(jobs) <= listed, "download_list lists both jobs")
+        # a .part that an interrupted download left, resumed over HTTP Range
+        url = f"{ranged.url}/blob.bin"
+        part, cut = app.downloads._part_path(url), len(blob) * 2 // 5
+        part.write_bytes(blob[:cut])
+        app.downloads._resume_set(url, {"part": str(part), "bytes": cut})
+        res = c.call("download", url=url)
+        check(res["resumed_from"] == cut and res["bytes_downloaded"] == len(blob) - cut
+              and res["sha256"] == digests[0] and ranged.gets == [f"bytes={cut}-"],
+              f"the .part resumed from {cut} bytes ({ {k: res[k] for k in ('resumed_from', 'bytes_downloaded')} })")
+        out["resumed_from"] = res["resumed_from"]
+        # repair's downloads op removes a stale .part
+        (app.downloads.dir / "stale.part").write_bytes(b"left behind")
+        rep = c.repair(["downloads"])["downloads"]
+        check("1 orphan .part removed" in rep and not (app.downloads.dir / "stale.part").exists(),
+              f"repair downloads removed the stale .part ({rep})")
+        out["repair"] = rep
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        ranged.close()
+    # spill the data dir to a FilesystemBackend and restore it
+    c.call("checkpoint")
+    remote = FilesystemBackend(root / "remote")
+    t = time.perf_counter()
+    m = rc.spill_checkpoint(app.config.data_dir, remote, "smoke-1", epoch=1)
+    spill_s = time.perf_counter() - t
+    dr = rc.DRProvider(remote)
+    ready, sample, gate = (dr.is_replication_ready("smoke-1"), dr.verify_sample("smoke-1"),
+                           dr.pointer_gate("smoke-1"))
+    check(ready.ready and sample.passed and gate.allow_advance
+          and rc.latest_pointer(remote) == {"manifest_id": "smoke-1", "epoch": 1},
+          f"the DR gates are green ({ready}, {sample}, {gate})")
+    t = time.perf_counter()
+    rc.restore_checkpoint(remote, root / "restored")
+    out["checkpoint"] = {"files": len(m["files"]), "bytes": sum(f["size"] for f in m["files"]),
+                         "spill_s": spill_s, "restore_s": time.perf_counter() - t}
+    log(f"[phase13 downloads] {json.dumps(out)}")
+    return out
+
+
+def app_searches(dev, data_dir, queries) -> list:
+    """The queries in order through SearchService.search (the path of the
+    CLI's and the MCP server's in-process app) on a freshly opened
+    AppContext. That path touches the hotzone of each answer's top 3, so
+    a later query's scores depend on the earlier ones: compare sequences
+    run from the same fresh state."""
+    from yams_tpu_torch.core.config import load_config
+    from yams_tpu_torch.services.app import AppContext
+
+    app = AppContext(load_config(data_dir=data_dir), device=dev)
+    try:
+        return [hits_of(app.search.search(q, limit=10)) for q in queries]
+    finally:
+        app.close()
+
+
+def phase13_sessions_watch(card_d, cpu_d, root) -> dict:
+    """(d) pin, warm and a session-filtered search (card == CPU); a watch
+    pass with a file added, one modified and one deleted."""
+    out = {}
+    results = {}
+    for name, d in (("card", card_d), ("cpu", cpu_d)):
+        c = d.client
+        c.call("session", op="create", name="work")
+        c.call("session", op="pin", pattern="/d03/*", name="work")
+        c.call("session", op="pin", pattern="/entities/e00*", name="work")
+        warmed = c.call("session", op="warm", name="work")["warmed"]
+        hits = c.call("search", query="w3 w7 CacheManager", limit=10,
+                      filters={"session": "work"})
+        results[name] = (warmed, hits_of(hits), [h["path"] for h in hits["hits"]])
+    check(results["card"][0] == results["cpu"][0] > 0, f"warm counts ({results['card'][0]})")
+    out["session"] = results_agree("session-filtered search", [results["card"][1]],
+                                   [results["cpu"][1]])
+    check(out["session"]["equal"] == 1 and results["card"][2]
+          and all(p.startswith(("/d03/", "/entities/e00")) for p in results["card"][2]),
+          "the session-filtered search answers from the pinned set, card == CPU")
+    out["warmed"] = results["card"][0]
+    w = root / "watched"
+    w.mkdir()
+    (w / "keep.txt").write_text("alpha watchkeep note\n")
+    (w / "change.txt").write_text("beta watchbefore note\n")
+    (w / "gone.txt").write_text("gamma watchgone note\n")
+    c = card_d.client
+    first = c.call("watch", directory=str(w))["events"]
+    check(sorted(e["kind"] for e in first) == ["added"] * 3, f"the first pass added 3 ({first})")
+    (w / "new.txt").write_text("delta watchnew note\n")
+    (w / "change.txt").write_text("beta watchafter note\n")
+    os.utime(w / "change.txt", (1, 1))
+    (w / "gone.txt").unlink()
+    second = c.call("watch", directory=str(w), delete_missing=True)["events"]
+    check(sorted((pathlib.Path(e["path"]).name, e["kind"]) for e in second) ==
+          [("change.txt", "modified"), ("gone.txt", "removed"), ("new.txt", "added")],
+          f"the second pass saw the add, the change and the delete ({second})")
+    found = {word: bool(c.search(word, search_type="keyword")["hits"])
+             for word in ("watchnew", "watchafter", "watchgone", "watchkeep")}
+    check(found == {"watchnew": True, "watchafter": True, "watchgone": False,
+                    "watchkeep": True}, f"search sees the watch pass ({found})")
+    out["watch"] = {"first": len(first), "second": len(second)}
+    log(f"[phase13 sessions and watch] {json.dumps(out)}")
+    return out
+
+
+def dense_postings(dev, N: int, V: int, WIN: int, gen):
+    """Phase 4's postings as CSR for the dense scan: each of V terms holds
+    WIN/2 multiplicative-hash docs of N (unique within a term) in impact
+    order, tf falling as phase 4's impacts do, seeded doc norms, and the
+    idf of a WIN/2-document term."""
+    per_term = WIN // 2
+    tt = torch.arange(V, device=dev, dtype=torch.int64)[:, None]
+    cc = torch.arange(per_term, device=dev, dtype=torch.int64)[None, :]
+    docs = ((((tt * per_term + cc) * 2654435761) & 0xFFFFFFFF) % N).reshape(-1)
+    tf = (0.5 + 4.75 * (1.0 + cc.float()) ** -0.7).expand(V, per_term).reshape(-1)
+    pad = torch.full((WIN,), N, device=dev, dtype=torch.int64)
+    postings_doc = torch.cat([docs, pad]).to(torch.int32)
+    postings_tf = torch.cat([tf, torch.zeros(WIN, device=dev)])
+    offsets = (torch.arange(V, device=dev) * per_term).to(torch.int32)
+    lengths = torch.full((V,), per_term, device=dev, dtype=torch.int32)
+    doc_norm = 0.5 + torch.rand(N, generator=gen, device=dev)
+    idf = torch.full((V,), float(np.log(1.0 + (N - per_term + 0.5) / (per_term + 0.5))),
+                     device=dev)
+    return postings_doc, postings_tf, offsets, lengths, doc_norm, idf
+
+
+def phase13_bm25(dev, eng, cpu, queries, N: int = 1 << 20, V: int = 65536,
+                 WIN: int = 1024, B: int = 64, T: int = 8) -> dict:
+    """(e) bm25_dense at phase 4's scale on the card against the same call on
+    the CPU, and LexicalIndex.search on phase 3's index, card == CPU."""
+    from yams_tpu_torch.ops import bm25
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    arrs = dense_postings(dev, N, V, WIN, gen)
+    rng = np.random.default_rng(SEED + 13)
+    tids = torch.from_numpy((rng.zipf(1.3, (B, T)) % V).astype(np.int32)).to(dev)
+    tmask = torch.from_numpy(rng.choice([0.5, 1.0, 1.0, 1.0], (B, T)).astype(np.float32)).to(dev)
+    kw = dict(window=WIN, num_docs=N)
+    got = bm25.bm25_dense(tids, tmask, *arrs, **kw)
+    host = [x.cpu() for x in (tids, tmask, *arrs)]
+    want = bm25.bm25_dense(*host, **kw)
+    check(torch.equal(got.cpu(), want), "bm25_dense on the card equals the CPU's bit for bit")
+    again = bm25.bm25_dense(tids, tmask, *arrs, **kw)
+    check(torch.equal(got, again), "bm25_dense gives the same scores on every run")
+    ms = cuda_ms(lambda: bm25.bm25_dense(tids, tmask, *arrs, **kw), 20)
+    t = time.perf_counter()
+    for _ in range(3):
+        bm25.bm25_dense(*host, **kw)
+    cpu_ms = (time.perf_counter() - t) / 3 * 1e3
+    per_term = WIN // 2
+    nbytes = (B * T * (4 + 4 + 4 + 4)             # ids, weights; offsets, lengths, idf gathers
+              + B * T * WIN * (4 + 4)             # each window's docs and tfs
+              + B * T * per_term * 4              # the live postings' doc norms
+              + B * N * 4)                        # the dense scores
+    ops = B * T * per_term * 6                   # mul, mul, fma, div, mul, add a posting
+    b = bound(nbytes, ops, PEAK_CORE)
+    out = {"shape": {"N": N, "V": V, "window": WIN, "B": B, "T": T}, "ms": ms,
+           "cpu_ms": cpu_ms, **b, "nonzero": int((got > 0).sum())}
+    lex = []
+    for q in queries[:16]:
+        a = eng.lexical_index.search(q, k=10, device=dev)
+        w = cpu.lexical_index.search(q, k=10, device="cpu")
+        check([i for i, _ in a] == [i for i, _ in w], f"LexicalIndex.search card == CPU ({q!r})")
+        top = max([s for _, s in w] or [1.0])
+        lex.append(max([abs(x - y) for (_, x), (_, y) in zip(a, w)] or [0.0]) / top)
+    out["lexical_search_max_rel_err"] = max(lex)
+    check(out["lexical_search_max_rel_err"] <= 1e-6, "LexicalIndex.search scores card == CPU")
+    log(f"[phase13 bm25_dense] N {N}, V {V}, window {WIN}, B {B}, T {T}: {ms:.4f} ms "
+        f"(the same call on the host CPU {cpu_ms:.2f} ms) against {b['bound_ms']:.4f} ms bound "
+        f"({b['bound_by']}: {nbytes} bytes, {ops} ops); equal to the CPU's; "
+        f"LexicalIndex.search on phase 3's index card == CPU (max rel err "
+        f"{out['lexical_search_max_rel_err']:.3g})")
+    return out
+
+
+def phase13_mcp_auth(dev, data_dir, queries, app_hits) -> dict:
+    """(f) the MCP server over stdio on the stopped daemon's data dir (its
+    searches against the same sequence on a fresh in-process app), and
+    `yams auth`."""
+    from yams_tpu_torch.cli.auth import AuthStore
+
+    msgs = [{"jsonrpc": "2.0", "id": 0, "method": "initialize", "params": {}}]
+    msgs += [{"jsonrpc": "2.0", "id": i + 1, "method": "tools/call",
+              "params": {"name": "search", "arguments": {"query": q, "limit": 10}}}
+             for i, q in enumerate(queries)]
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "yams_tpu_torch.mcp", str(data_dir), "--device", str(dev)],
+        input="\n".join(json.dumps(m) for m in msgs) + "\n", capture_output=True, text=True,
+        timeout=300, cwd=pathlib.Path(__file__).resolve().parent)
+    mcp_s = time.perf_counter() - t
+    check(proc.returncode == 0, f"the MCP server ran ({proc.stderr[-800:]})")
+    replies = {r["id"]: r for r in map(json.loads, proc.stdout.splitlines()) if "id" in r}
+    check(replies[0]["result"]["serverInfo"]["name"] == "yams-tpu", "MCP initialize")
+    got = []
+    for i in range(len(queries)):
+        hits = json.loads(replies[i + 1]["result"]["content"][0]["text"])["hits"]
+        got.append([types.SimpleNamespace(doc_id=h["document_id"], score=h["score"],
+                                          kg_score=h["kg_score"]) for h in hits])
+    agree = results_agree("MCP search vs the app", got, app_hits, atol=1e-5)
+    check(agree["equal"] == len(queries), "16 MCP searches equal the in-process app's")
+    store = AuthStore(data_dir)
+    store.keygen("hmac", name="smoke")
+    tok = store.token("smoke", {"sub": "smoke"}, validity_s=60)
+    check(store.verify_token(tok)["sub"] == "smoke", "auth token verifies")
+    refused = []
+    for bad in ("../x", "..", "a/b"):
+        try:
+            store.keygen("hmac", name=bad)
+        except ValueError:
+            refused.append(bad)
+    check(refused == ["../x", "..", "a/b"] and not (data_dir / "x.secret").exists(),
+          "auth refuses key names outside the keys directory")
+    check(store.revoke("smoke") and store.list_keys()[0]["revoked"], "auth revoke")
+    out = {"mcp_s": mcp_s, "mcp_searches": len(queries), "auth_refused": refused}
+    log(f"[phase13 mcp and auth] initialize + {len(queries)} searches over stdio in "
+        f"{mcp_s:.2f} s == the in-process app's; auth keygen, token, verify, revoke; "
+        f"{refused} refused")
+    return out
+
+
+def phase13_services(dev, card: str, eng, cpu, queries, n_notes: int = 256,
+                     n_entity: int = 32, blob_bytes: int = 48 << 20) -> dict:
+    """Phase 13: the rest of the service layer on the card."""
+    import tempfile
+
+    from yams_tpu_torch.core.config import load_config
+    from yams_tpu_torch.embed import ner
+
+    out: dict = {"card": card}
+    tmp = tempfile.TemporaryDirectory(prefix="ys13")
+    root = pathlib.Path(tmp.name)
+    daemons = []
+    try:
+        vocab, texts, _, _, _ = svc_tree(root / "tree", n_notes, 8, 4096, SEED + 13)
+        notes = {str(pathlib.Path(p).relative_to((root / "tree").resolve())): t
+                 for p, t in texts.items()}
+        notes.update(entity_notes(n_entity, SEED + 14))
+        plugin = pathlib.Path(__file__).resolve().parent / "yams_tpu_torch/plugins/neural_ner.py"
+        windows = {"n": 0}
+        orig_logits = ner.NerModel.logits
+
+        def counted(self, *a):
+            if self.device.type == "cuda":
+                windows["n"] += a[0].shape[0]
+            return orig_logits(self, *a)
+
+        ner.NerModel.logits = counted
+        try:
+            for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+                cfg = load_config(data_dir=root / name)
+                cfg.data_dir.mkdir(parents=True)
+                (cfg.data_dir / "plugins_trust.txt").write_text(f"{plugin}\n")
+                d = ThreadDaemon(cfg, device)
+                daemons.append(d)
+                health = d.client.call("plugins", op="list")["health"]
+                check(health == {"neural_ner": {"status": "ok", "labels": ["entity"]}},
+                      f"the {name} daemon autoloaded the NER plugin ({health})")
+            # both daemons' post-ingest workers run at once
+            t = time.perf_counter()
+            for d in daemons:
+                for path, text in notes.items():
+                    d.client.add_bytes(text.encode(), path, async_ingest=True)
+            for name, d in zip(("card", "cpu"), daemons):
+                q = d.client.call("queue", op="wait_idle", timeout=600.0)
+                check(q["idle"] and all(s["failed"] == 0 for s in q["stages"].values()),
+                      f"the {name} daemon's post-ingest drained ({q['stages']})")
+                out[f"{name}_add"] = {"s": time.perf_counter() - t, "docs": len(notes)}
+            out["card_add"]["ner_windows_on_card"] = windows["n"]
+        finally:
+            ner.NerModel.logits = orig_logits
+        card_d, cpu_d = daemons
+        check(out["card_add"]["ner_windows_on_card"] > 0,
+              "the card daemon's adds ran the NER forward on the card")
+        log(f"[phase13] {len(notes)} notes added through each daemon with the NER plugin, "
+            f"both at once: the card's drained in {out['card_add']['s']:.2f} s "
+            f"({out['card_add']['ner_windows_on_card']} windows on the card), the CPU's in "
+            f"{out['cpu_add']['s']:.2f} s")
+        seconds = out["seconds"] = {"adds": out["cpu_add"]["s"]}
+
+        def sub(name, fn, *args):
+            t = time.perf_counter()
+            out[name] = fn(*args)
+            seconds[name] = time.perf_counter() - t
+
+        sub("ner", phase13_ner, dev, notes, card_d, cpu_d)
+        sub("grep", phase13_grep, card_d, cpu_d, root / "card")
+        sub("sessions_watch", phase13_sessions_watch, card_d, cpu_d, root)
+        blobs = [np.random.default_rng(SEED + 15 + i).bytes(blob_bytes) for i in range(2)]
+        rng = np.random.default_rng(SEED + 16)
+        svc_queries = [" ".join(vocab[rng.zipf(1.3, size=int(rng.integers(2, 4))) % 512])
+                       for _ in range(12)] + ["CacheManager logs", "Grace Hopper report",
+                                              "ingest_queue_worker", "watchnew note"]
+        sub("downloads", phase13_downloads, dev, card_d, root, blobs)
+        for d in daemons:
+            d.stop()
+        daemons.clear()
+        t = time.perf_counter()
+        want = app_searches(dev, root / "card", svc_queries)
+        out["restore"] = results_agree("search after the restore",
+                                       app_searches(dev, root / "restored", svc_queries), want,
+                                       atol=1e-5)
+        check(out["restore"]["equal"] == len(svc_queries),
+              "16 searches on the restored data dir equal those on the original")
+        seconds["restore"] = time.perf_counter() - t
+        sub("mcp_auth", phase13_mcp_auth, dev, root / "card", svc_queries, want)
+        sub("bm25", phase13_bm25, dev, eng, cpu, queries)
+        log(f"[phase13] seconds {json.dumps(seconds)}")
+        return out
+    finally:
+        for d in daemons:
+            if d.thread.is_alive():
+                try:
+                    d.stop()
+                except Exception:       # noqa: BLE001  (the phase already failed)
+                    pass
+        tmp.cleanup()
+
+
+def phase13_ops(services: dict) -> list:
+    """The device operations of phase 13 with their times and bounds."""
+    ner_, bm = services["ner"], services["bm25"]
+    return [{"name": "ner_window_forward", "calls_on_path": services["card_add"]["ner_windows_on_card"],
+             "ms": ner_["window_ms"], "bound_ms": ner_["bound_ms"], "bound_by": ner_["bound_by"],
+             "device_ops_per_window": ner_["launches"]["device_ops"],
+             "runtime_calls_per_window": ner_["launches"]["runtime_calls"],
+             "windows_per_s": ner_["windows_per_s"], "cpu_windows_per_s": ner_["cpu_windows_per_s"]},
+            {"name": "bm25_dense", "ms": bm["ms"], "cpu_ms": bm["cpu_ms"],
+             "bound_ms": bm["bound_ms"], "bound_by": bm["bound_by"],
+             "bound_bytes": bm["bound_bytes"]}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; nothing was run", file=sys.stderr)
@@ -3552,10 +4236,19 @@ def main() -> int:
         check(neural_launches[name] >= 1, f"{name} launched on the hf daemon's add")
     log("[phase12] device operations " + json.dumps(phase12_ops(neural)))
 
+    zero()
+    services13 = phase("phase13", phase13_services, dev, card, eng, cpu, queries)
+    svc13_launches = read()
+    log(f"[rest of the service layer path] kernel launches {svc13_launches} (the NER "
+        "forward, the identity projection, bm25_dense and the hotzone are torch operations)")
+    for name in ("gear_hash_cuda", "sha256_cuda"):
+        check(svc13_launches[name] >= 1, f"{name} launched on phase 13's downloads")
+    log("[phase13] device operations " + json.dumps(phase13_ops(services13)))
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("yams_tpu", "jax", "jaxlib", "flax"))
     check(not loaded, f"no module of yams_tpu, jax, jaxlib or flax loaded (found {loaded})")
-    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'neural': neural, 'torch': torch.__version__})}")
+    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'neural': neural, 'services13': services13, 'torch': torch.__version__})}")
 
     sources = {
         "gear_hash_cuda": ("yams_tpu_torch/csrc/gear_hash.cu", "yams_tpu/ops/cdc.py:65",
@@ -3587,6 +4280,7 @@ def main() -> int:
         if name in ("gear_hash_cuda", "sha256_cuda"):
             records[-1]["launches_phase10"] = svc_launches[name]
         records[-1]["launches_phase12"] = neural_launches[name]
+        records[-1]["launches_phase13"] = svc13_launches[name]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,10 @@
   `search`, `get`, `cat`, `list` and `delete` print what the reference's
   CLI prints for the same tree (the CSR lexical leg, set in the config
   file both read: same ids, scores within 1e-4).
-- Every command whose service the port lacks exits 3 with "not ported:
-  ROADMAP queue 1 item N"; repair, doctor, restore, dedupe and tune print
-  what the reference's CLI prints for the same tree, apart from the repair
+- grep, session, watch, download, plugin, auth and serve (which exited 3
+  until their services were ported) print, beside the port's daemon, what
+  the daemon answers; repair, doctor, restore, dedupe and tune print what
+  the reference's CLI prints for the same tree, apart from the repair
   service's named departures.
 - A daemon on the socket whose ping lacks "backend": "torch" (a daemon of
   the JAX package) is refused: exit 2 with a message, never served by.
@@ -15,6 +16,7 @@
   CLI's device.
 """
 
+import hashlib
 import json
 import pathlib
 import shutil
@@ -109,15 +111,12 @@ def test_in_process_commands_match_the_reference(env, capsys):
     assert _strip(p["after"]) == _strip(r["after"]) and len(p["after"]) == 71
 
 
+# the commands that exited 3 ("not ported: ROADMAP queue 1 item 3") until
+# their services were ported
 NOT_PORTED = [("grep", ["grep", "x"], 3), ("session", ["session", "list"], 3),
               ("watch", ["watch", "."], 3), ("download", ["download", "file:///x"], 3),
               ("plugin", ["plugin", "list"], 3), ("auth", ["auth", "list-keys"], 3),
               ("serve", ["serve"], 3)]
-
-# the repair service's departures from the reference, by op
-# (yams_tpu_torch/services/repair_service.py)
-DOWNLOADS_WAIT = ("0 url-docs normalized, .part/resume cleanup skipped: the "
-                  "download service waits for ROADMAP queue 1 item 3")
 
 
 def _ported_argv(name, snapshot, target):
@@ -130,8 +129,7 @@ def _ported_argv(name, snapshot, target):
 def test_ported_commands_match_the_reference(env, capsys, name):
     """The commands that exited 3 until the repair service was ported print
     what the reference's CLI prints for the same tree, apart from the
-    departures the repair service names: the downloads op's cleanup step
-    waits for item 3, the embeddings op does not re-queue the binary
+    departures the repair service names: the embeddings op does not re-queue the binary
     ('skipped') document, and doctor's device and native lines name the
     port's own."""
     tree = make_tree(env / "tree", n_notes=30)
@@ -148,8 +146,7 @@ def test_ported_commands_match_the_reference(env, capsys, name):
     assert prc == rrc == 0
     if name == "repair":
         assert set(p) == set(r) and not any(v.startswith("failed") for v in p.values())
-        assert p.pop("downloads") == DOWNLOADS_WAIT
-        assert r.pop("downloads").startswith("0 url-docs normalized, 0 orphan")
+        assert p["downloads"].startswith("0 url-docs normalized, 0 orphan")
         assert p.pop("embeddings") == "0 documents embedded"
         assert r.pop("embeddings") == "0 documents embedded (1 re-queued from lost index)"
         assert p == r and "clusters over" in p["topology"]
@@ -172,11 +169,92 @@ def test_ported_commands_match_the_reference(env, capsys, name):
 
 
 @pytest.mark.parametrize("name,argv,item", NOT_PORTED, ids=[n[0] for n in NOT_PORTED])
-def test_unported_commands_exit_with_their_roadmap_item(env, capsys, name, argv, item):
-    rc, out, err = run(port_main, capsys, *port(env / "s", *argv))
-    assert rc == 3 and not out
-    assert f"yams {name}: not ported: ROADMAP queue 1 item {item}" in err
-    assert not (env / "s").exists()              # nothing was opened
+def test_unported_commands_exit_with_their_roadmap_item(env, capsys, short_dir, monkeypatch,
+                                                        name, argv, item):
+    """Each command that exited 3 naming ROADMAP queue 1 item 3 now runs
+    beside the port's daemon and prints what the daemon answers for the
+    same request: grep's matches; a session's pin, warm and list; a watch
+    pass (indexed through the daemon); a download (stored through it); the
+    daemon's plugins; auth's keys (a file store beside the data dir: the
+    keys the CLI wrote are the ones listed, and a traversal name is
+    refused); and `serve`, whose MCP search equals the daemon's search."""
+    import io
+
+    import numpy as np
+
+    del argv, item
+    cfg = load_config(data_dir=short_dir)
+    d = ThreadDaemon(cfg, torch.device("cpu"), timeout=120)
+    tree = make_tree(env / "tree", n_notes=20)
+
+    def cli(*args):
+        return run(port_main, capsys, "--storage", str(short_dir), "--device", "cpu", *args)
+
+    try:
+        d.client.add_path(str(tree))
+        c = d.client
+        if name == "grep":
+            rc, out, _ = cli("--json", "grep", "w3", "-C", "1")
+            want = c.grep("w3", ignore_case=False, literal=None, path_glob=None, tags=None,
+                          max_matches=1000, context=1, word_boundary=False, filters=None,
+                          semantic_limit=0)
+            assert rc == 0 and json.loads(out)["matches"] == want["matches"] and want["matches"]
+        elif name == "session":
+            assert cli("session", "create", "s1")[:2] == (0, "created session s1\n")
+            assert cli("session", "pin", "*/d1/*", "--name", "s1")[0] == 0
+            rc, out, _ = cli("session", "warm", "--name", "s1")
+            n = len(d.app.sessions.pinned_doc_ids("s1"))
+            assert rc == 0 and out == f"warmed {n} documents\n" and n
+            rc, out, _ = cli("--json", "session", "list")
+            assert rc == 0 and json.loads(out) == c.call("session", op="list")["sessions"] == \
+                ["s1"]
+        elif name == "watch":
+            w = env / "watched"
+            w.mkdir()
+            (w / "a.txt").write_text("watched zeta note")
+            (w / "b.txt").write_text("watched eta note")
+            before = d.app.metadata.document_count()
+            rc, out, _ = cli("watch", str(w), "--once")
+            assert rc == 0 and sorted(out.splitlines()[1:]) == \
+                [f"added: {w.resolve() / 'a.txt'}", f"added: {w.resolve() / 'b.txt'}"]
+            assert d.app.metadata.document_count() == before + 2
+            assert c.call("watch", directory=str(w.resolve()))["events"] == []
+        elif name == "download":
+            blob = np.random.default_rng(2).bytes(50_000)
+            (env / "blob.bin").write_bytes(blob)
+            rc, out, _ = cli("--json", "download", (env / "blob.bin").as_uri())
+            res = json.loads(out)
+            assert rc == 0 and res["sha256"] == hashlib.sha256(blob).hexdigest()
+            assert c.get(res["sha256"])["id"] == res["document_id"] > 0
+            assert c.cat(res["sha256"]) == blob
+        elif name == "plugin":
+            ner = pathlib.Path(__file__).resolve().parents[1] / "yams_tpu_torch/plugins/neural_ner.py"
+            assert cli("plugin", "trust", str(ner))[:2] == (0, f"trusted {ner}\n")
+            assert cli("plugin", "load", str(ner))[:2] == (0, "loaded neural_ner v1.0\n")
+            rc, out, _ = cli("--json", "plugin", "list")
+            assert rc == 0 and json.loads(out) == c.call("plugins", op="list")["plugins"]
+            assert [p["name"] for p in json.loads(out)] == ["neural_ner"]
+        elif name == "auth":
+            assert cli("auth", "keygen", "--type", "hmac", "--name", "k1")[0] == 0
+            assert cli("auth", "keygen", "--type", "hmac", "--name", "../k2")[0] == 1
+            rc, out, _ = cli("--json", "auth", "list-keys")
+            assert rc == 0 and [k["key_id"] for k in json.loads(out)["keys"]] == ["k1"]
+            assert sorted(p.name for p in (short_dir / "keys").iterdir()) == \
+                ["k1.secret", "keys.json"]
+        else:
+            msgs = [{"jsonrpc": "2.0", "id": 1, "method": "initialize", "params": {}},
+                    {"jsonrpc": "2.0", "id": 2, "method": "tools/call",
+                     "params": {"name": "search", "arguments": {"query": "w3 w5", "limit": 5}}}]
+            c.call("checkpoint")          # serve opens its own app on the data dir
+            monkeypatch.setattr("sys.stdin", io.StringIO("\n".join(map(json.dumps, msgs))))
+            rc, out, _ = cli("serve")
+            replies = [json.loads(x) for x in out.splitlines()]
+            hits = json.loads(replies[1]["result"]["content"][0]["text"])["hits"]
+            want = c.search("w3 w5", limit=5)["hits"]
+            assert rc == 0 and [(h["document_id"], h["score"]) for h in hits] == \
+                [(h["document_id"], h["score"]) for h in want] and want
+    finally:
+        d.stop()
 
 
 def _fake_daemon(sock_path: pathlib.Path, stop: threading.Event):

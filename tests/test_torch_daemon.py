@@ -10,13 +10,14 @@ socket (as tests/test_interfaces.py runs the reference's):
 - `queue wait_idle` returns as soon as the post-ingest worker drains, while
   that worker needs the state lock (the reference holds the lock across the
   wait), and a batch envelope refuses it;
-- `feedback` with no id answers InvalidArgument; the handlers of services
-  the port lacks answer UNSUPPORTED naming their ROADMAP item; `model_load`,
+- `feedback` with no id answers InvalidArgument; the grep, session,
+  download-job and plugin handlers (UNSUPPORTED until their services were
+  ported) answer what their services answer in-process; `model_load`,
   `model_status` and `embed_batch` with a loaded model answer as the
   reference's providers; `repair`
   (with and without dry_run) and `doctor` answer as the reference's
-  RepairService on the same tree; trusted plugins are reported as not
-  loaded;
+  RepairService on the same tree; trusted plugins (the bundled NER plugin)
+  autoload, and one that fails to load starts the daemon DEGRADED;
 - `spawn_daemon` and `python -m yams_tpu_torch.daemon` run the port's
   daemon on the device they are given.
 
@@ -193,16 +194,64 @@ def test_feedback_needs_an_id(daemon):
     assert c.call("feedback", hash=res["content_hash"])["doc_id"] == res["document_id"]
 
 
+def _blob_url(tmp_path):
+    src = tmp_path / "dl.txt"
+    src.write_text("downloaded raft consensus payload body")
+    return src.as_uri()
+
+
 @pytest.mark.parametrize("rtype,fields,item", [
-    ("grep", {"pattern": "x"}, 3), ("session", {"op": "list"}, 3),
-    ("download", {"url": "file:///x"}, 3),
-    ("download_start", {"url": "file:///x"}, 3), ("download_list", {}, 3),
-    ("cancel", {"job_id": "j"}, 3), ("plugins", {}, 3), ("plugin_scan", {}, 3),
+    ("grep", {"pattern": "raft"}, 3), ("session", {"op": "list"}, 3),
+    ("download", {"url": None}, 3),
+    ("download_start", {"url": None}, 3), ("download_list", {}, 3),
+    ("cancel", {"job_id": None}, 3), ("plugins", {}, 3), ("plugin_scan", {}, 3),
     ("plugin_trust_list", {}, 3)])
-def test_unported_handlers_answer_unsupported(daemon, rtype, fields, item):
-    with pytest.raises(YamsError, match=f"not ported: ROADMAP queue 1 item {item}") as e:
-        daemon.client.call(rtype, **fields)
-    assert e.value.code == ErrorCode.UNSUPPORTED
+def test_unported_handlers_answer_unsupported(daemon, tmp_path, rtype, fields, item):
+    """The handlers that answered UNSUPPORTED (ROADMAP queue 1 item 3) until
+    their services were ported answer what the services answer in-process:
+    the daemon's own app (grep, session, the download jobs) or a
+    PluginManager on the same trust file."""
+    from yams_tpu_torch.plugins.manager import PluginManager
+
+    c, app = daemon.client, daemon.app
+    _add_tagged(c)
+    url = _blob_url(tmp_path)
+    fields = {k: (url if k == "url" else v) for k, v in fields.items()}
+    if rtype == "cancel":
+        fields["job_id"] = c.call("download_start", url=url)["job_id"]
+    got = c.call(rtype, **fields)
+    if rtype == "grep":
+        want = app.grep.grep("raft")
+        assert [(m["document_id"], m["line"]) for m in got["matches"]] == \
+            [(m.document_id, m.line) for m in want.matches] and want.matches
+    elif rtype == "session":
+        app.sessions.create("s1")
+        assert got == {"sessions": []} and c.call(rtype, **fields) == {"sessions": ["s1"]}
+    elif rtype == "download":
+        assert got["sha256"] == app.content_store.store_bytes(
+            b"downloaded raft consensus payload body").content_hash
+        assert got["document_id"] > 0 and got["url"] == url
+        hits = c.search("downloaded payload", search_type="keyword")["hits"]
+        assert hits and hits[0]["document_id"] == got["document_id"]
+    elif rtype in ("download_start", "cancel"):
+        job = got["job_id"]
+        deadline = time.monotonic() + 60
+        while (st := c.call("download_status", job_id=job))["state"] in ("queued", "running"):
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        assert st == app.downloads.job_status(job)
+        assert st["state"] in (("completed",) if rtype == "download_start"
+                               else ("completed", "cancelled"))
+    elif rtype == "download_list":
+        assert got == {"jobs": []}
+        job = c.call("download_start", url=url)["job_id"]
+        assert [j["job_id"] for j in c.call(rtype)["jobs"]] == [job]
+    else:
+        pm = PluginManager(app, trust_file=app.config.data_dir / "plugins_trust.txt")
+        want = {"plugins": {"plugins": pm.list(), "health": pm.health()},
+                "plugin_scan": {"found": pm.scan(), "plugins": pm.list()},
+                "plugin_trust_list": {"trusted": []}}[rtype]
+        assert got == want
 
 
 @pytest.mark.parametrize("model,options", [("mock", {"dim": 32}),
@@ -238,9 +287,9 @@ def test_model_load_status_and_embed_batch(daemon, model, options):
 def test_repair_and_doctor_answer_as_the_reference(daemon, tree, tmp_path, rtype):
     """`repair` (with and without dry_run) and `doctor` through the socket
     answer as the reference's RepairService on an AppContext over the same
-    tree, apart from the repair service's named departures (the downloads
-    op's cleanup waits for item 3; the binary, 'skipped', document is not
-    re-queued; doctor's device and native lines are the port's own)."""
+    tree, apart from the repair service's named departures (the binary,
+    'skipped', document is not re-queued; doctor's device and native lines
+    are the port's own)."""
     from test_torch_services import ref_config_for
     from yams_tpu.services.app import AppContext as RefApp
     from yams_tpu.services.repair_service import RepairService as RefRepair
@@ -254,8 +303,6 @@ def test_repair_and_doctor_answer_as_the_reference(daemon, tree, tmp_path, rtype
         if rtype == "repair":
             got, want = daemon.client.repair(), svc.run()
             assert not any(v.startswith("failed") for v in got.values())
-            assert got.pop("downloads").endswith("waits for ROADMAP queue 1 item 3")
-            want.pop("downloads")
             assert got.pop("embeddings") == "0 documents embedded"
             assert want.pop("embeddings").endswith("(1 re-queued from lost index)")
             assert got == want and "clusters over" in got["topology"]
@@ -281,20 +328,67 @@ def test_repair_and_doctor_answer_as_the_reference(daemon, tree, tmp_path, rtype
 
 
 def test_a_session_filter_answers_unsupported(daemon):
-    with pytest.raises(YamsError, match="session service is not ported") as e:
-        daemon.client.call("search", query="raft", search_type="fts",
-                           filters={"session": "s"})
-    assert e.value.code == ErrorCode.UNSUPPORTED
+    """The `session` search filter, UNSUPPORTED until the session service was
+    ported, restricts a search through the socket to the pinned documents,
+    as it does in-process."""
+    c = daemon.client
+    _add_tagged(c)
+    assert c.call("session", op="pin", pattern="*t[1-3].txt", name="s") == {"ok": True}
+    assert c.call("session", op="warm", name="s") == {"warmed": 3}
+    got = c.call("search", query="raft", search_type="fts", filters={"session": "s"})
+    want = daemon.app.search.search("raft", search_type="fts", filters={"session": "s"})
+    assert [(h["document_id"], h["path"]) for h in got["hits"]] == \
+        [(h.document_id, h.path) for h in want.hits]
+    assert sorted(h["name"] for h in got["hits"]) == ["t1.txt", "t2.txt", "t3.txt"]
 
 
 def test_trusted_plugins_are_reported_not_loaded(tmp_path, short_dir):
+    """Trusted plugins autoload at start (they were reported as not loaded
+    until plugins were ported): the bundled NER plugin loads by its path on
+    the daemon's device and reports ok, the daemon is not degraded by it,
+    and the graph service's entities are then the NER model's. A trusted
+    path that does not exist is skipped."""
+    ner = REPO / "yams_tpu_torch" / "plugins" / "neural_ner.py"
     cfg = daemon_config(tmp_path / "data", short_dir)
     cfg.data_dir.mkdir(parents=True)
-    (cfg.data_dir / "plugins_trust.txt").write_text("plugins/ner.so\n")
+    (cfg.data_dir / "plugins_trust.txt").write_text(f"{ner}\n{tmp_path / 'missing.py'}\n")
     d = ThreadDaemon(cfg, CPU, timeout=120)
     try:
         st = d.client.status()
-        assert st["state"] == "degraded" and "not ported" in st["degraded"]["plugins"]
+        assert not any(k.startswith("plugin") for k in st.get("degraded", {}))
+        got = d.client.call("plugins", op="list")
+        assert got["health"] == {"neural_ner": {"status": "ok", "labels": ["entity"]}}
+        assert [p["name"] for p in got["plugins"]] == ["neural_ner"]
+        assert [e for e, _ in d.app.graph.extract_entities(
+            "When the CacheManager runs the ingest_queue_worker")] == \
+            ["CacheManager", "ingest_queue_worker"]
+        assert d.daemon.plugins.trusted_paths() == [ner, tmp_path / "missing.py"]
+    finally:
+        d.stop()
+
+
+def test_a_trusted_plugin_that_fails_to_load_degrades_the_daemon(tmp_path, short_dir):
+    """A trusted plugin whose init raises is not loaded, and the daemon
+    starts DEGRADED naming it with the error, instead of serving as READY
+    with the graph stage quietly back on the heuristic extractor."""
+    bad = tmp_path / "yams_plugin_broken.py"
+    bad.write_text(
+        "from yams_tpu_torch.plugins.spec import ABI_VERSION, PluginManifest\n"
+        "def init(config):\n"
+        "    raise RuntimeError('no card for the tagger')\n"
+        "def yams_plugin():\n"
+        "    return PluginManifest(name='broken', version='1', abi_version=ABI_VERSION,\n"
+        "                          init=init)\n")
+    cfg = daemon_config(tmp_path / "data", short_dir)
+    cfg.data_dir.mkdir(parents=True)
+    (cfg.data_dir / "plugins_trust.txt").write_text(f"{bad}\n")
+    d = ThreadDaemon(cfg, CPU, timeout=120)
+    try:
+        st = d.client.status()
+        assert st["state"] == "degraded"
+        assert st["degraded"]["plugin:yams_plugin_broken"] == \
+            "RuntimeError: no card for the tagger"
+        assert d.client.call("plugins", op="list")["health"] == {}
     finally:
         d.stop()
 

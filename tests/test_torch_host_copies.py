@@ -351,13 +351,22 @@ def test_query_module_is_the_reference_code():
     "daemon.protocol", "daemon.client", "daemon.aclient", "embed.batcher",
     "daemon.components",
     # the repair service's host modules
-    "utils.tda", "storage.compression_recovery"])
+    "utils.tda", "storage.compression_recovery",
+    # grep, sessions, watch, downloads and their object backends, the plugin
+    # host and MCP
+    "utils.ahocorasick", "services.grep_service", "services.session_service",
+    "services.watch_service", "services.download_service", "storage.backends",
+    "storage.remote_checkpoint", "plugins.spec", "plugins.host", "plugins.graph_adapter",
+    "plugins.pdf_extract", "plugins.native_host"])
 def test_copied_module_is_the_reference_code(name):
     """The SQLite store, the knowledge graph, the search tuner, the configs
     and the service layer's host modules (metadata, detection and
     extraction, the document, symbol, graph, indexing and search services,
-    the daemon's protocol, clients and components): past the module
-    docstring each copy is the original, line for line."""
+    the daemon's protocol, clients and components, the grep, session,
+    watch and download services, the object backends and remote
+    checkpoints, the plugin host's spec, subprocess and native hosts, graph
+    adapter and PDF extractor): past the module docstring each copy is the
+    original, line for line."""
     import ast
     import importlib
     import inspect
@@ -475,3 +484,68 @@ def test_top_sentences_match_reference():
         doc = "\n\n".join(text for _ in range(int(rng.integers(1, 4)))) + "\n# heading line here"
         for n in (1, 3, 6):
             assert top_sentences(doc, n=n) == ref_top(doc, n=n)
+
+
+# the definitions each ported module keeps from the reference: all of them
+# except the named departures (the module docstrings list them)
+KEPT = {
+    "embed.ner": ["_WORD_RE", "word_tokenize", "_ngram_ids", "_case_feats", "featurize",
+                  "identifier_shape", "ambiguous_shape", "NerConfig", "NerModel.num_tags",
+                  "NerModel.extract", "NeuralEntityExtractor"],
+    "plugins.manager": ["PluginManager.trusted_paths", "PluginManager.trust",
+                        "PluginManager.untrust", "PluginManager.scan",
+                        "PluginManager.load_module", "PluginManager.load_trusted",
+                        "PluginManager.unload", "PluginManager.health", "PluginManager.list"],
+    "cli.auth": ["_b64url", "_b64url_dec", "AuthStore.__init__", "AuthStore._load",
+                 "AuthStore._save", "AuthStore.list_keys", "AuthStore.revoke",
+                 "AuthStore.token", "AuthStore.verify_token", "AuthStore.api_key",
+                 "AuthStore.verify_api_key", "cmd_auth"],
+    "plugins.neural_ner": [],
+    "mcp.server": [],
+}
+
+
+def _defs_and_assigns(mod, names):
+    """_defs, with module-level assignments (`_WORD_RE = ...`) too."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(mod))
+    assigns = {t.id: ast.dump(node) for node in tree.body if isinstance(node, ast.Assign)
+               for t in node.targets if isinstance(t, ast.Name)}
+    defs = _defs(mod, [n for n in names if n not in assigns])
+    return {n: assigns.get(n, defs.get(n)) for n in names}
+
+
+@pytest.mark.parametrize("name", list(KEPT))
+def test_ported_modules_keep_the_reference_code(name):
+    """NER's host half and its output assembly, the plugin manager's trust
+    list, discovery and introspection, and `yams auth` (all but keygen)
+    are the reference's, definition for definition; the bundled NER
+    plugin's body differs only in its device key and its description, and
+    the MCP server only in the package whose provider registry it lists."""
+    import importlib
+
+    port = importlib.import_module(f"yams_tpu_torch.{name}")
+    ref = importlib.import_module(f"yams_tpu.{name}")
+    if KEPT[name]:
+        assert _defs_and_assigns(port, KEPT[name]) == _defs_and_assigns(ref, KEPT[name])
+    elif name == "mcp.server":
+        import ast
+        import inspect
+
+        def body(src):
+            tree = ast.parse(src)
+            tree.body = tree.body[1:]                 # the docstring
+            return ast.dump(tree)
+
+        want = inspect.getsource(ref).replace('"yams_tpu.embed.provider"',
+                                              '"yams_tpu_torch.embed.provider"')
+        assert body(inspect.getsource(port)) == body(want)
+    else:
+        import inspect
+
+        got = inspect.getsource(port.yams_plugin).replace(
+            'NerModel.load(path, device=cfg.get("device", "cuda"))', "NerModel.load(path)")
+        want = inspect.getsource(ref.yams_plugin).replace("(flax label", "(torch label")
+        assert got == want

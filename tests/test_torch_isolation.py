@@ -19,7 +19,11 @@
   which raises here, where torch sees no card; with device="cpu" each runs.
   The entry points: SearchEngine, ContentStore, VectorIndex, SimeonProvider,
   AppContext, YamsDaemon, the CLI, TopologyEngine, the hf, neural and mock
-  providers and TokenIndex.
+  providers, TokenIndex, NerModel, LexicalIndex.search and
+  `python -m yams_tpu_torch.mcp`.
+- The service slice (grep, sessions, watch, downloads and a remote
+  checkpoint, the NER plugin with its pickle, MCP, auth and the standalone
+  BM25 scan) runs on the CPU with the reference refused.
 """
 
 import ast
@@ -193,6 +197,66 @@ def test_repair_then_shadow_search_with_the_reference_refused(tmp_path):
     assert "clusters over" in out and out.strip().endswith("[]")
 
 
+def test_the_service_slice_runs_with_the_reference_refused(tmp_path):
+    """Grep, sessions, watch, downloads with a remote checkpoint, the NER
+    plugin (its pickle loaded), MCP, auth and the standalone BM25 scan in a
+    fresh interpreter that refuses yams_tpu, jax, jaxlib and flax."""
+    out = _run_guarded(f"""
+        import io, json, pathlib
+        import torch
+        from yams_tpu_torch.cli.auth import AuthStore
+        from yams_tpu_torch.core.config import load_config
+        from yams_tpu_torch.embed.ner import NerModel
+        from yams_tpu_torch.mcp.server import run_stdio_server
+        from yams_tpu_torch.ops.bm25 import bm25_dense
+        from yams_tpu_torch.plugins.manager import PluginManager
+        from yams_tpu_torch.services.app import AppContext
+        from yams_tpu_torch.storage.backends import FilesystemBackend
+        from yams_tpu_torch.storage.remote_checkpoint import (DRProvider, restore_checkpoint,
+                                                              spill_checkpoint)
+        root = pathlib.Path({str(tmp_path)!r})
+        app = AppContext(load_config(data_dir=root / "app"), device="cpu")
+        pm = PluginManager(app, trust_file=root / "app" / "plugins_trust.txt")
+        pm.trust(pathlib.Path("yams_tpu_torch/plugins/neural_ner.py").resolve())
+        assert pm.load_trusted() == 1 and pm.health()["neural_ner"]["status"] == "ok"
+        (root / "w").mkdir()
+        (root / "w" / "a.txt").write_text("the CacheManager runs a scheduler")
+        assert [e.kind for e in app.watch.run_once(root / "w")] == ["added"]
+        assert app.grep.grep("scheduler").matches
+        app.sessions.pin("*/w/*", "s")
+        assert app.sessions.warm("s") == 1
+        (root / "blob.bin").write_bytes(b"downloaded bytes " * 100)
+        assert app.downloads.download((root / "blob.bin").as_uri()).document_id > 0
+        assert app.search.search("scheduler", filters={{"session": "s"}}).hits
+        hits = app.search_engine.lexical_index.search("scheduler", device="cpu")
+        assert hits
+        app.checkpoint()
+        b = FilesystemBackend(root / "remote")
+        spill_checkpoint(app.config.data_dir, b, "ck", epoch=1)
+        assert DRProvider(b).verify_sample("ck").passed
+        restore_checkpoint(b, root / "restored")
+        out = io.StringIO()
+        run_stdio_server(app, stdin=io.StringIO(json.dumps({{"jsonrpc": "2.0", "id": 1,
+            "method": "tools/call", "params": {{"name": "grep",
+            "arguments": {{"pattern": "CacheManager"}}}}}}) + "\\n"), stdout=out)
+        assert "CacheManager" in out.getvalue()
+        AuthStore(root / "app").keygen("hmac", name="k")
+        app.close()
+        ner = NerModel.load("yams_tpu_torch/plugins/data/ner_default.pkl", device="cpu")
+        assert [e for e, *_ in ner.extract("the CacheManager runs")] == ["CacheManager"]
+        t = lambda *a: [torch.tensor(x) for x in a]
+        args = t([[1, 0]], [[1.0, 1.0]], [0, 1, 2, 1, 3, 3], [1.0, 2.0, 1.0, 1.0, 0.0, 0.0],
+                 [0, 1], [1, 3], [1.0, 0.9, 1.1], [0.5, 1.5])
+        a = bm25_dense(*args, window=2, num_docs=3)
+        part = lambda idf, tf, dn: idf * tf * 2.2 / (tf + 1.2 * dn)
+        want = [part(0.5, 1.0, 1.0), part(1.5, 2.0, 0.9), part(1.5, 1.0, 1.1)]
+        assert torch.allclose(a, torch.tensor([want]))
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in {REFUSED!r})
+        print(loaded)
+    """)
+    assert out.strip() == "[]"
+
+
 def test_the_guard_refuses_the_reference():
     """The finder above does refuse: importing yams_tpu through it fails."""
     proc = subprocess.run([sys.executable, "-c", _GUARD + "import yams_tpu.core.config"],
@@ -333,13 +397,51 @@ def _topology_engine(device):
     return eng.device
 
 
+def _ner_model(device):
+    from yams_tpu_torch.embed.ner import NerConfig, NerModel
+    m = NerModel(NerConfig(window=8)) if device is None else \
+        NerModel(NerConfig(window=8), device=device)
+    assert m.tag(["a", "B"])[0].shape == (2,)
+    return m.device
+
+
+def _lexical_search(device):
+    from yams_tpu_torch.index.lexical_index import LexicalIndex
+    idx = LexicalIndex()
+    idx.add_document(0, "thread scheduler")
+    hits = idx.search("scheduler") if device is None else idx.search("scheduler", device=device)
+    assert hits[0][0] == 0
+    return torch.device(device or "cuda")
+
+
+def _mcp_module(device, root):
+    import contextlib
+    import io
+    import json
+    import sys as _sys
+    from yams_tpu_torch.mcp.__main__ import main
+    argv = [str(root)] + ([] if device is None else ["--device", device])
+    old, _sys.stdin = _sys.stdin, io.StringIO(json.dumps(
+        {"jsonrpc": "2.0", "id": 1, "method": "tools/call",
+         "params": {"name": "status", "arguments": {}}}) + "\n")
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            assert main(argv) == 0
+    finally:
+        _sys.stdin = old
+    assert json.loads(out.getvalue())["id"] == 1
+    return torch.device(device or "cuda")
+
+
 _ENTRY_POINTS = {"SearchEngine": _search_engine, "ContentStore": _content_store,
                  "VectorIndex": _vector_index, "SimeonProvider": _provider,
                  "AppContext": _app_context, "YamsDaemon": _daemon, "cli": _cli,
                  "TopologyEngine": _topology_engine, "HFProvider": _hf_provider,
                  "NeuralProvider": _neural_provider, "MockProvider": _mock_provider,
-                 "TokenIndex": _token_index}
-_TAKE_A_DIR = ("ContentStore", "AppContext", "YamsDaemon", "cli")
+                 "TokenIndex": _token_index, "NerModel": _ner_model,
+                 "LexicalIndex.search": _lexical_search, "mcp": _mcp_module}
+_TAKE_A_DIR = ("ContentStore", "AppContext", "YamsDaemon", "cli", "mcp")
 
 
 @pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))

@@ -13,8 +13,6 @@ pinned here by a test of its own:
 - `topology` resets the engine's route-risk calibration and its
   persistence stat for the new construction (the reference keeps the old
   construction's shadow evidence);
-- `downloads` normalizes URL-named documents and says its .part/resume
-  cleanup waits for ROADMAP queue 1 item 3;
 - `orphans` keeps the blocks a live manifest lists (the reference's full
   repair deletes every block once the refcount table is lost);
 - `doctor`'s device line reads torch on the app's device.
@@ -47,7 +45,6 @@ DOCS = {
     "https://example.com/files/report.txt": "a downloaded report on raft logs",
 }
 BLOB = bytes(range(256)) * 20
-DOWNLOADS_WAIT = "the download service waits for ROADMAP queue 1 item 3"
 
 
 @pytest.fixture(scope="module")
@@ -144,9 +141,7 @@ def test_fault_battery_reports_match_the_reference(apps, fault):
     assert not any(v.startswith("failed") for v in got.values()), got
     # the named departures
     if "downloads" in got:
-        assert got.pop("downloads") == \
-            f"1 url-docs normalized, .part/resume cleanup skipped: {DOWNLOADS_WAIT}"
-        assert want.pop("downloads").startswith("1 url-docs normalized, 0 orphan")
+        assert got["downloads"].startswith("1 url-docs normalized, 0 orphan")
     if fault == "full":       # the refcount table was lost: see test_orphans_*
         assert got.pop("orphans") == "0 orphan blocks removed, 0 GC'd"
         assert want.pop("orphans") == "11 orphan blocks removed, 0 GC'd"
@@ -238,17 +233,26 @@ def test_calibration_resets_on_repair(apps):
 
 
 def test_downloads_wait_for_item_3(apps):
+    """The downloads op (whose .part/resume cleanup waited for item 3 until
+    the download service was ported) answers as the reference's: it
+    normalizes the URL-named document, removes an orphan .part and clears a
+    stale resume entry."""
     port, ref = apps
+    for app in (port, ref):
+        (app.downloads.dir / "orphan.part").write_bytes(b"stale")
+        app.downloads._resume_set("https://h/gone", {"part": "/nowhere.part", "bytes": 1})
     got = RepairService(port).repair_downloads()
     want = RefRepair(ref).repair_downloads()
-    assert got == f"1 url-docs normalized, .part/resume cleanup skipped: {DOWNLOADS_WAIT}"
-    assert want.startswith("1 url-docs normalized, 0 orphan")
+    assert got == want == ("1 url-docs normalized, 1 orphan .part removed, "
+                           "1 stale resume entries cleared")
     for app in (port, ref):
         row = app.db.execute("SELECT id, file_path FROM documents"
                              " WHERE file_name='report.txt'").fetchone()
         assert row["file_path"] == "report.txt"
         assert {"downloaded", "host:example.com", "scheme:https"} <= \
             set(app.metadata.get_tags(row["id"]))
+        assert not (app.downloads.dir / "orphan.part").exists()
+        assert app.downloads._load_resume() == {}
 
 
 def test_doctor_device_line(apps):

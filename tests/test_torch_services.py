@@ -16,11 +16,13 @@ dir, at small widths (dim 64):
   a swapped near-tie into up to ~4e-3, ROADMAP §3);
 - each package's AppContext opens the other's data dir and answers as the
   writer did;
+- the grep, session, download and watch services (and the `session`
+  search filter) answer as the reference's;
 - the port's departures: int8 reopens as int8; a checkpoint that fails to
   parse is quarantined, while a RuntimeError from `VectorIndex.load`
   propagates and leaves the files in place; the entity side index is saved
-  and reopened; sharding "on" and the unported services raise
-  NotImplementedError, and an unknown provider the reference's ValueError;
+  and reopened; sharding "on" raises NotImplementedError, and an unknown
+  provider the reference's ValueError;
   `YAMS_TPU_DEBUG_NANS` prints that it is not ported; stats list the CPU
   device.
 """
@@ -338,24 +340,61 @@ def test_an_unported_provider_raises(tmp_path):
 
 
 @pytest.mark.parametrize("service,call", [
-    ("grep", lambda s: s.grep("x")), ("sessions", lambda s: s.list()),
-    ("downloads", lambda s: s.download("file:///x")), ("watch", lambda s: s.run_once("."))])
+    ("grep", lambda s, tree: s.grep("w3", context=1)),
+    ("sessions", lambda s, tree: (s.pin("*/d1/*", "s1"), s.warm("s1"), s.list())),
+    ("downloads", lambda s, tree: s.download((tree / "d2" / "note002.txt").as_uri())),
+    ("watch", lambda s, tree: s.run_once(tree / "src"))])
 def test_unported_services_raise_when_used(tmp_path, service, call):
+    """The grep, session, download and watch services, which raised
+    NotImplementedError until they were ported, answer as the reference's
+    on the same tree."""
+    tree = make_tree(tmp_path / "tree", n_notes=24)
     app = AppContext(port_config_for(tmp_path / "d"), device="cpu")
+    ref = RefApp(ref_config_for(tmp_path / "r"))
     try:
-        with pytest.raises(NotImplementedError, match="not ported: ROADMAP queue 1 item 3"):
-            call(getattr(app, service))
+        for a in (app, ref):
+            populate(a, tree)
+        got = call(getattr(app, service), tree)
+        want = call(getattr(ref, service), tree)
+        norm = lambda x: json_norm(x, ("duration_ms", "path"))  # noqa: E731
+        assert norm(got) == norm(want) and got
     finally:
         app.close()
+        ref.close()
+
+
+def json_norm(obj, drop=()):
+    """Dataclasses and tuples as plain lists and dicts, minus the `drop`
+    keys (timings, per-data-dir paths)."""
+    if dataclasses.is_dataclass(obj):
+        obj = dataclasses.asdict(obj)
+    if isinstance(obj, dict):
+        return {k: json_norm(v, drop) for k, v in obj.items() if k not in drop}
+    if isinstance(obj, (list, tuple)):
+        return [json_norm(x, drop) for x in obj]
+    return obj
 
 
 def test_a_session_filter_raises_rather_than_answering_empty(tmp_path):
-    app = _small_app(tmp_path / "d")
+    """The `session` search filter, refused until the session service was
+    ported, restricts a search to the session's pinned documents, as in the
+    reference."""
+    app = AppContext(port_config_for(tmp_path / "d"), device="cpu")
+    ref = RefApp(ref_config_for(tmp_path / "r"))
     try:
-        with pytest.raises(NotImplementedError, match="session service"):
-            app.search.search("raft", filters={"session": "s1"})
+        for a in (app, ref):
+            for name, text, tags, coll in TAGGED:
+                a.documents.add_bytes(text.encode(), name, tags=tags, collection=coll)
+            a.sessions.pin("*t[1-3].txt", "s1")
+        got = app.search.search("raft", filters={"session": "s1"})
+        want = ref.search.search("raft", filters={"session": "s1"})
+        assert [(h.document_id, h.path) for h in got.hits] == \
+            [(h.document_id, h.path) for h in want.hits]
+        assert sorted(h.name for h in got.hits) == ["t1.txt", "t2.txt", "t3.txt"]
+        assert max(abs(a.score - b.score) for a, b in zip(got.hits, want.hits)) <= 1e-4
     finally:
         app.close()
+        ref.close()
 
 
 def test_debug_nans_prints_that_it_is_not_ported(tmp_path, monkeypatch, capsys):

@@ -21,9 +21,11 @@ from the reference in these ways only:
   from the metadata database alone (read-only) instead of opening a
   second AppContext on the daemon's data dir; `model download` converts
   with the port's `yams_tpu_torch/scripts/convert_hf_encoder.py`;
-- the commands whose services the port lacks (grep, session, watch,
-  download, plugin, auth, serve) exit 3 with "not ported: ROADMAP queue 1
-  item N".
+- `session`, `watch`, `download` and `plugin` go to a running daemon (as
+  every mutation does), else run in-process; the reference's run in-process
+  always. A watch pass through the daemon is its `watch` request (the
+  port's daemon adds it); `plugin` sends the daemon's `plugins` ops;
+- `auth keygen` refuses a key name that is not a file name (cli/auth.py).
 """
 
 from __future__ import annotations
@@ -46,10 +48,6 @@ import sys
 from ..core.config import load_config
 from ..core.errors import ErrorCode, YamsError
 
-# commands of the reference whose services are not ported yet -> ROADMAP
-# queue 1 item that ports them
-NOT_PORTED = {"grep": 3, "session": 3, "watch": 3, "download": 3, "plugin": 3,
-              "auth": 3, "serve": 3}
 
 
 def _fmt_size(n: float) -> str:
@@ -464,6 +462,69 @@ def cmd_search(cli: Cli):
     return 0
 
 
+def cmd_grep(cli: Cli):
+    a = cli.args
+    f: dict = {}
+    if a.match_all_tags:
+        f["match_all_tags"] = True
+    if a.session:
+        f["session"] = a.session
+    globs = list(a.include or [])
+    if a.path:
+        globs.append(a.path)
+    kw = dict(
+        ignore_case=a.ignore_case,
+        literal=True if a.fixed_strings else None,
+        path_glob=(globs[0] if len(globs) == 1 else globs) or None,
+        tags=a.tags.split(",") if a.tags else None,
+        max_matches=a.max_count, context=a.context,
+        word_boundary=a.word_regexp, filters=f or None,
+        semantic_limit=a.semantic_limit,
+    )
+    client = cli.client_or_none()
+    if client:
+        resp = client.grep(a.pattern, **kw)
+    else:
+        r = cli.app.grep.grep(a.pattern, **kw)
+        resp = {"matches": [_asdict(m) for m in r.matches],
+                "files_searched": r.files_searched,
+                "files_matched": r.files_matched, "truncated": r.truncated}
+    matches = resp["matches"]
+    if a.files_with_matches and not cli.args.json:
+        for p in dict.fromkeys(m["path"] for m in matches):
+            print(p)
+        return 0 if matches else 1
+    if a.count and not cli.args.json:
+        counts: dict[str, int] = {}
+        for m in matches:
+            if not m.get("semantic"):
+                counts[m["path"]] = counts.get(m["path"], 0) + 1
+        for p, n in counts.items():
+            print(f"{p}:{n}")
+        return 0 if matches else 1
+
+    def text(o):
+        for m in matches:
+            prefix = "" if a.no_filename else f"{m['path']}:"
+            if m.get("semantic"):
+                print(f"{prefix}(semantic) {m['line']}")
+                continue
+            before, after = m.get("before", []), m.get("after", [])
+            for i, b in enumerate(before):
+                print(f"{prefix}{m['line_number'] - len(before) + i}-{b}")
+            print(f"{prefix}{m['line_number']}:{m['line']}")
+            for i, aft in enumerate(after):
+                print(f"{prefix}{m['line_number'] + 1 + i}-{aft}")
+        if resp.get("truncated"):
+            print("... (truncated)", file=sys.stderr)
+    cli.out(
+        {"matches": matches, "files_searched": resp["files_searched"],
+         "files_matched": resp["files_matched"]},
+        text,
+    )
+    return 0 if matches else 1
+
+
 def cmd_get_by_hash(cli: Cli, prefix: str):
     client = cli.client_or_none()
     doc = (client.get(prefix) if client
@@ -574,6 +635,43 @@ def cmd_snapshots(cli: Cli):
     return 0
 
 
+def cmd_session(cli: Cli):
+    a = cli.args
+    client = cli.client_or_none()
+
+    def call(op, **kw):
+        if client:
+            return client.call("session", op=op, **kw)
+        s = cli.app.sessions
+        if op == "list":
+            return {"sessions": s.list()}
+        if op == "warm":
+            return {"warmed": s.warm(kw.get("name"))}
+        fn = {"create": s.create, "delete": s.delete}.get(op)
+        if fn:
+            fn(kw["name"])
+        else:
+            getattr(s, op)(kw["pattern"], kw.get("name"))
+        return {"ok": True}
+
+    if a.session_cmd == "list":
+        cli.out(call("list")["sessions"], lambda o: [print(x) for x in o])
+    elif a.session_cmd == "create":
+        call("create", name=a.name)
+        print(f"created session {a.name}")
+    elif a.session_cmd == "pin":
+        call("pin", pattern=a.pattern, name=a.name)
+        print(f"pinned {a.pattern}")
+    elif a.session_cmd == "unpin":
+        call("unpin", pattern=a.pattern, name=a.name)
+    elif a.session_cmd == "warm":
+        n = call("warm", name=a.name)["warmed"]
+        print(f"warmed {n} documents")
+    elif a.session_cmd == "delete":
+        call("delete", name=a.name)
+    return 0
+
+
 def cmd_config(cli: Cli):
     import dataclasses
 
@@ -663,6 +761,80 @@ def cmd_tune(cli: Cli):
     return 0
 
 
+def cmd_plugin(cli: Cli):
+    a = cli.args
+    client = cli.client_or_none()
+    if client:       # the daemon loaded its trusted plugins at start
+        listed = client.call("plugins", op=a.plugin_cmd,
+                             path=getattr(a, "path", None))["plugins"]
+        m = [x for x in listed if "error" not in x][-1] if a.plugin_cmd == "load" else None
+    else:
+        from ..plugins.manager import PluginManager
+
+        pm = PluginManager(cli.app, trust_file=cli.config.data_dir / "plugins_trust.txt")
+        if a.plugin_cmd == "list":
+            pm.load_trusted()
+        elif a.plugin_cmd == "trust":
+            pm.trust(a.path)
+        else:
+            man = pm.load_file(a.path)
+            if man is None:
+                print(f"failed: {pm.errors}", file=sys.stderr)
+                return 1
+            m = {"name": man.name, "version": man.version}
+        listed = pm.list()
+    if a.plugin_cmd == "list":
+        cli.out(listed, lambda o: [print(f"{x.get('name')}  {x.get('version','')}  "
+                                         f"{','.join(x.get('interfaces', []))}"
+                                         + (f"  ERROR: {x['error']}" if 'error' in x else ''))
+                                   for x in o])
+    elif a.plugin_cmd == "trust":
+        print(f"trusted {a.path}")
+    else:
+        print(f"loaded {m['name']} v{m['version']}")
+    return 0
+
+
+def cmd_watch(cli: Cli):
+    import time as _time
+
+    client = cli.client_or_none()
+    kw = dict(include=cli.args.include.split(",") if cli.args.include else None,
+              tags=cli.args.tags.split(",") if cli.args.tags else None,
+              delete_missing=cli.args.delete_missing)
+    directory = str(pathlib.Path(cli.args.directory).resolve()) if client \
+        else cli.args.directory
+    print(f"watching {cli.args.directory} (interval {cli.args.interval}s, ^C to stop)")
+    try:
+        while True:
+            if client:
+                events = client.call("watch", directory=directory, **kw)["events"]
+            else:
+                events = [_asdict(ev) for ev in cli.app.watch.run_once(directory, **kw)]
+            for ev in events:
+                print(f"{ev['kind']}: {ev['path']}")
+            if cli.args.once:
+                break
+            _time.sleep(cli.args.interval)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def cmd_download(cli: Cli):
+    kw = dict(expected_sha256=cli.args.sha256 or "", store=not cli.args.no_store,
+              tags=cli.args.tags.split(",") if cli.args.tags else None)
+    client = cli.client_or_none()
+    if client:
+        res = client.call("download", url=cli.args.url, **kw)
+    else:
+        res = _asdict(cli.app.downloads.download(cli.args.url, **kw))
+    cli.out(res, lambda o: print(
+        f"downloaded {o['url']} -> {o['sha256'][:16]} "
+        f"({o['bytes_downloaded']} bytes, doc={o['document_id']})"))
+    return 0
+
+
 def cmd_model(cli: Cli):
     op = getattr(cli.args, "model_cmd", "list")
     if op == "download":
@@ -705,13 +877,6 @@ def cmd_model(cli: Cli):
     return 0
 
 
-def cmd_not_ported(cli: Cli):
-    cmd = cli.args.command
-    print(f"error: yams {cmd}: not ported: ROADMAP queue 1 item {NOT_PORTED[cmd]}",
-          file=sys.stderr)
-    return 3
-
-
 def cmd_daemon(cli: Cli):
     from ..daemon.client import DaemonClient
     from ..daemon.server import run_daemon, spawn_daemon
@@ -748,6 +913,13 @@ def cmd_daemon(cli: Cli):
         print(f"daemon started (pid {pid})")
         return 0
     return 1
+
+
+def cmd_serve(cli: Cli):
+    from ..mcp.server import run_stdio_server
+
+    run_stdio_server(cli.app)
+    return 0
 
 
 def cmd_completion(cli: Cli):
@@ -908,7 +1080,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--no-filename", action="store_true")
     sp.add_argument("--semantic-limit", type=int, default=0, metavar="N",
                     help="append up to N semantic matches")
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_grep)
 
     sp = sub.add_parser("status", help="system status")
     sp.add_argument("-d", "--detailed", action="store_true")
@@ -934,7 +1106,7 @@ def build_parser() -> argparse.ArgumentParser:
     s = ssub.add_parser("unpin"); s.add_argument("pattern"); s.add_argument("--name")
     s = ssub.add_parser("warm"); s.add_argument("--name")
     s = ssub.add_parser("delete"); s.add_argument("name")
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_session)
 
     sp = sub.add_parser("tree", help="path tree browse")
     sp.add_argument("prefix", nargs="?")
@@ -956,7 +1128,7 @@ def build_parser() -> argparse.ArgumentParser:
     psub.add_parser("list")
     pp = psub.add_parser("trust"); pp.add_argument("path")
     pp = psub.add_parser("load"); pp.add_argument("path")
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_plugin)
 
     sp = sub.add_parser("restore", help="restore a tree snapshot from the CAS")
     sp.add_argument("snapshot_id")
@@ -971,7 +1143,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--tags")
     sp.add_argument("--delete-missing", action="store_true")
     sp.add_argument("--once", action="store_true")
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_watch)
 
     sp = sub.add_parser("dedupe", help="find near-duplicate documents")
     sp.add_argument("--threshold", type=float, default=0.8)
@@ -982,13 +1154,15 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--sha256", help="expected content hash")
     sp.add_argument("--tags")
     sp.add_argument("--no-store", action="store_true")
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_download)
 
     sub.add_parser(
         "tune", help="show runtime tuning profile + tuner stats"
     ).set_defaults(fn=cmd_tune)
 
     sub.add_parser("config", help="show effective config").set_defaults(fn=cmd_config)
+
+    from .auth import cmd_auth
 
     sp = sub.add_parser(
         "auth", help="signing keys, API keys, JWT tokens "
@@ -1010,7 +1184,7 @@ def build_parser() -> argparse.ArgumentParser:
     ak.add_argument("--expires", default="never", help="ISO 8601 or 'never'")
     v = asub.add_parser("verify", help="verify a JWT or API key")
     v.add_argument("token")
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_auth)
     sp = sub.add_parser("model", help="embedding models")
     sp.add_argument("model_cmd", nargs="?", default="list",
                     choices=["list", "download"])
@@ -1024,7 +1198,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--foreground", action="store_true")
     sp.set_defaults(fn=cmd_daemon)
 
-    sub.add_parser("serve", help="MCP server over stdio").set_defaults(fn=cmd_not_ported)
+    sub.add_parser("serve", help="MCP server over stdio").set_defaults(fn=cmd_serve)
 
     sp = sub.add_parser("completion", help="shell completion")
     sp.add_argument("shell", choices=["bash", "zsh"])

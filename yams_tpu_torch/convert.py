@@ -26,7 +26,9 @@ Model weights: `hf_state_from_npz(path)` reads a converted BERT checkpoint
 port's `embed.hf_encoder.BertEncoder` (the same names with "." for "/"),
 and `neural_state_from_flax(params)` turns the reference `NeuralEncoder`'s
 flax parameter tree, as NumPy arrays, into the state dict of the port's
-`embed.encoder.NeuralEncoderModule`.
+`embed.encoder.NeuralEncoderModule`; `ner_state_from_flax(params)` and
+`ner_flax_from_state(state)` carry the reference NER tagger's flax tree to
+the port's `embed.ner.Tagger` and back.
 """
 
 from __future__ import annotations
@@ -314,3 +316,29 @@ def neural_state_from_flax(params) -> dict[str, torch.Tensor]:
             raise KeyError(f"unknown NeuralEncoder parameter {'/'.join(path)}")
         out[key] = torch.from_numpy(np.ascontiguousarray(a))
     return out
+
+
+def ner_state_from_flax(params) -> dict[str, torch.Tensor]:
+    """The reference NER Tagger's flax tree (with or without its "params"
+    level; NumPy leaves) -> the state dict of `embed.ner.Tagger`. The
+    module keeps the flax names and shapes, so this only joins the path
+    with "." (`encoder/attn0/query/kernel` (64, 4, 16) is
+    `encoder.attn0.query.kernel`)."""
+    if "params" in params:
+        params = params["params"]
+    return {".".join(path): torch.from_numpy(np.array(value, np.float32))
+            for path, value in _flat(params)}
+
+
+def ner_flax_from_state(state: dict[str, torch.Tensor]) -> dict:
+    """`ner_state_from_flax` backwards: the Tagger's state dict -> the flax
+    tree {"params": {...}} of NumPy f32 arrays that the reference's
+    NerModel.save writes."""
+    tree: dict = {}
+    for key, value in state.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value.detach().to("cpu", torch.float32).numpy().copy()
+    return {"params": tree}

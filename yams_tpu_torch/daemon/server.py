@@ -21,15 +21,19 @@ from the reference in these ways only:
   drained before the timeout).
 - `feedback` with neither `doc_id` nor `hash` answers InvalidArgumentError.
 - `ping` and `status` add "backend": "torch" and the device.
-- Plugins are not loaded (no PluginManager in the port): if
-  plugins_trust.txt lists any, `degraded["plugins"]` says so.
-  `degraded["native"]` follows the port's own native libraries, and
-  `degraded["compression"]` says when zstandard is missing.
+- Trusted plugins autoload as in the reference, on the daemon's device
+  (the port's PluginManager). A trusted plugin that fails to load is put
+  in `degraded` as `plugin:<name>` with its error, so the daemon starts
+  DEGRADED (the reference's degraded reads only the loaded plugins'
+  health). `degraded["native"]` follows the port's own native libraries,
+  and `degraded["compression"]` says when zstandard is missing.
 - `model_load` builds the provider on the daemon's device.
-- A request for a service the port lacks answers UNSUPPORTED naming the
-  ROADMAP item that ports it: any NotImplementedError a handler raises
-  (AppContext's grep, session, download and watch services and the
-  daemon's `plugins` raise it when used). `repair` and `doctor` run the port's
+- A `watch` request (which the reference's daemon lacks) runs one
+  WatchService pass over a directory, so `yams watch` beside a daemon
+  indexes through it.
+- A request for a feature the port lacks answers UNSUPPORTED naming the
+  ROADMAP item that ports it: any NotImplementedError a handler raises.
+  `repair` and `doctor` run the port's
   RepairService on the mutator worker under the write side of
   `state_lock`, as every mutation does.
 """
@@ -71,7 +75,6 @@ import torch
 from ..core.config import Config
 from ..core.errors import ErrorCode, InvalidArgumentError, YamsError
 from ..device import resolve_device
-from ..services.app import NotPorted
 from .protocol import FrameError, async_read_frame, async_write_frame
 
 CHECKPOINT_INTERVAL_S = 300.0  # reference: CheckpointManager.h:38-63
@@ -338,7 +341,13 @@ class YamsDaemon:
                                            state_lock=self.state_lock)
         self.governor.add_queue_source(self.post_ingest.depth_fraction)
         self.post_ingest.start()
-        self.plugins = NotPorted("plugins", 3)
+        # autoload trusted plugins (reference: daemon plugin autoload)
+        from ..plugins.manager import PluginManager
+
+        self.plugins = PluginManager(
+            self.app, trust_file=self.config.data_dir / "plugins_trust.txt"
+        )
+        await loop.run_in_executor(self._pool, self.plugins.load_trusted)
         sock = self.config.socket_path
         sock.parent.mkdir(parents=True, exist_ok=True)
         if sock.exists():
@@ -370,11 +379,14 @@ class YamsDaemon:
         if not zstd_available():
             self.degraded["compression"] = (
                 "zstandard not installed: blocks are stored uncompressed")
-        trust = self.config.data_dir / "plugins_trust.txt"
-        if trust.exists() and trust.read_text().split():
-            self.degraded["plugins"] = (
-                "trusted plugins not loaded: plugins are not ported "
-                "(ROADMAP queue 1 item 3)")
+        for name, h in self.plugins.health().items():
+            if isinstance(h, dict) and h.get("status") not in (None, "ok"):
+                self.degraded[f"plugin:{name}"] = str(
+                    h.get("reason") or h.get("status"))
+        # a trusted plugin that failed to load is reported too (the
+        # reference's health covers loaded plugins only)
+        for name, err in self.plugins.errors.items():
+            self.degraded[f"plugin:{name}"] = err
         self.state = DaemonState.DEGRADED if self.degraded else DaemonState.READY
         self.events.publish("lifecycle", {"state": str(self.state),
                                           "degraded": dict(self.degraded),
@@ -818,6 +830,17 @@ class YamsDaemon:
         return {"context": self.app.search.suggest_context(
             req["query"], limit=req.get("limit", 5),
             max_chars=req.get("max_chars", 4000))}
+
+    def handle_watch(self, req):
+        """One watch pass over a directory (WatchService.run_once) on the
+        mutator worker; the daemon's service keeps the fingerprints between
+        passes."""
+        events = self.app.watch.run_once(
+            req["directory"], include=req.get("include"),
+            exclude=req.get("exclude"), tags=req.get("tags"),
+            delete_missing=req.get("delete_missing", False),
+        )
+        return {"events": [_asdict(ev) for ev in events]}
 
     def handle_download(self, req):
         res = self.app.downloads.download(

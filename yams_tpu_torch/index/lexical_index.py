@@ -18,12 +18,13 @@ vectors and the per-query arm router. What the port adds:
 
 `save`, `load`, `df_view` and the concept miner (`mine_concepts`,
 `docs_with_bigram`, which the repair service's `concepts` op runs) are the
-reference's. The dense BM25 oracle `search` is not copied: nothing in the
-port reaches it.
+reference's. The standalone BM25 `search` runs `ops.bm25.bm25_dense_from`
+on an explicit device (the card by default).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import pickle
@@ -499,6 +500,33 @@ class LexicalIndex:
             if dfs and all(df <= max(4, n_docs // 20) for df in dfs):
                 return "lead_field"
         return "bm25"
+
+    def search(self, query: str, k: int = 10,
+               device: str | torch.device = "cuda") -> list[tuple[int, float]]:
+        """Standalone BM25 search -> [(doc_slot, score)] (the dense scan on
+        `device`). The shared view holds only what the engine's lexical leg
+        reads; the scan's term frequencies, doc norms and idf are uploaded
+        here, for this call alone."""
+        from ..device import resolve_device
+        from ..ops.bm25 import bm25_dense_from
+
+        if not self._docs:
+            return []
+        dev = resolve_device(device)
+        with self._lock:
+            view = self.device_arrays(None, dev)
+            host = self._arrays               # what `view` was built from
+        arrays = dataclasses.replace(
+            view, **{name: torch.from_numpy(host[name]).to(dev, copy=True)
+                     for name in ("postings_tf", "doc_norm", "idf")})
+        ids, mask = self.query_term_ids(query)
+        scores = bm25_dense_from(
+            arrays, torch.from_numpy(ids[None]).to(dev),
+            torch.from_numpy(mask[None]).to(dev),
+            window=self.config.postings_window, k1=self.config.k1,
+        )[0].cpu().numpy()
+        order = np.argsort(-scores, kind="stable")[:k]
+        return [(int(i), float(scores[i])) for i in order if scores[i] > 0]
 
     # -- persistence -----------------------------------------------------------------
     def save(self, directory: str | pathlib.Path) -> None:

@@ -4,8 +4,8 @@ Copied from yams_tpu/native/__init__.py, with the sources copied under
 `native/src/`, and split in two so that each builds where it can:
 
   - the sketch library, from `yams_native.cpp` alone: the gear table,
-    FastCDC boundaries and the batched n-gram sketch
-    (`ytn_sketch_batch`). It needs only a C++ compiler.
+    FastCDC boundaries, the batched n-gram sketch (`ytn_sketch_batch`) and
+    the literal substring scan of `grep` (`ytn_find_all`). It needs only a C++ compiler.
   - the ingest library, from `yams_native.cpp` + `ingest_pipeline.cpp`: one
     pass of FastCDC, SHA-256 and zstd over a payload. It links the system
     zstd and needs `<zstd.h>`.
@@ -45,6 +45,8 @@ _LIBS = {
         "ytn_fastcdc": (_size, [ctypes.c_char_p, _size, _size, _size, _size,
                                 _P(_u64), _size]),
         "ytn_gear_table": (None, [_P(_u32)]),
+        "ytn_find_all": (_size, [ctypes.c_char_p, _size, ctypes.c_char_p, _size,
+                                 _P(_u64), _size]),
         "ytn_sketch_batch": (_size, [ctypes.c_char_p, _P(_u64), _size, _u32, _u32,
                                      _P(_u32), _size, _P(_u32), _size,
                                      _P(ctypes.c_float), _P(_u8)]),
@@ -143,6 +145,17 @@ def fastcdc_boundaries(
         out = (ctypes.c_uint64 * n)()
         n = lib.ytn_fastcdc(data, len(data), min_size, avg_size, max_size, out, n)
     return [int(out[i]) for i in range(n)]
+
+
+def find_all(haystack: bytes, needle: bytes, max_hits: int = 1 << 20) -> list[int] | None:
+    """Byte offsets of every (overlapping) occurrence of `needle`, at most
+    `max_hits`, or None when the library is unavailable."""
+    lib = sketch_library()
+    if lib is None:
+        return None
+    out = (ctypes.c_uint64 * max_hits)()
+    n = lib.ytn_find_all(haystack, len(haystack), needle, len(needle), out, max_hits)
+    return [int(out[i]) for i in range(min(n, max_hits))]
 
 
 def sketch_batch(

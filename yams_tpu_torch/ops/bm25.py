@@ -10,6 +10,17 @@ copied from the reference (whose module imports jax).
 
 Sentinels are the reference's: empty candidates carry id `num_docs`, and the
 packed sink key is `num_docs << qbits`.
+
+`bm25_dense` / `bm25_dense_from` (the standalone scan behind
+`LexicalIndex.search`) give dense (B, N) scores the reference's way, on the
+card and the CPU alike: each term's window scatter-added into the scores,
+term after term. On the card `scatter_add_` adds with atomics, so the scores
+are the same on every run wherever no window names a doc twice (the sink row
+aside, which is dropped). LexicalIndex's postings never do: each doc has one
+posting per term, and `window` sink entries pad the end, so no window is
+clipped into the term before it. A caller's own postings with a doc repeated
+inside a term, or unpadded postings whose last window is clipped, can give
+run-dependent ulps on the card there.
 """
 
 from __future__ import annotations
@@ -26,7 +37,9 @@ from .select import prefix_sum, top_k
 class Bm25Arrays:
     """Device lexical index arrays (one segment); see the reference's
     Bm25Arrays. `packed`/`impact_scale` are present when V*window fits the
-    configured budget; otherwise queries take the CSR path."""
+    configured budget; otherwise queries take the CSR path. `postings_tf`,
+    `doc_norm` and `idf` feed the standalone scan (`bm25_dense_from`);
+    `LexicalIndex.search` fills them for its own call only."""
 
     postings_doc: torch.Tensor     # (P + window,) i32
     postings_impact: torch.Tensor  # (P + window,) f32
@@ -35,6 +48,64 @@ class Bm25Arrays:
     num_docs: int
     packed: torch.Tensor | None = None        # (V, window) i32
     impact_scale: torch.Tensor | None = None  # () f32
+    postings_tf: torch.Tensor | None = None   # (P + window,) f32
+    doc_norm: torch.Tensor | None = None      # (N,) f32
+    idf: torch.Tensor | None = None           # (V,) f32
+
+
+def _dense_windows(term_ids, term_mask, postings_doc, postings_tf, term_offsets,
+                   term_lengths, doc_norm, idf, window: int, num_docs: int, k1: float):
+    """Each query term's window of postings -> (docs (B, T, W) i64 with
+    masked or out-of-range slots at the sink N, contributions (B, T, W)
+    f32), computed as the reference computes them: the window's start
+    clipped to len(postings) - window, the term mask a weight."""
+    N = num_docs
+    tid = term_ids.long()
+    m = term_mask[:, :, None]
+    P = postings_doc.shape[0]
+    off = term_offsets.long()[tid].clamp(0, P - window)          # (B, T)
+    ln = term_lengths.long()[tid]
+    pos = torch.arange(window, device=tid.device)
+    idx = off[:, :, None] + pos                                  # (B, T, W)
+    docs = postings_doc.long()[idx]
+    tfs = postings_tf[idx]
+    pmask = (pos < ln[:, :, None]) & (m > 0)
+    dn = doc_norm[docs.clamp(0, N - 1)]                          # XLA clamps a gather
+    # XLA contracts tf + k1 * doc_norm into one FMA (a single rounding); the
+    # f64 sum of the exact f32 product, rounded once to f32, gives its value
+    den = (tfs.double() + float(np.float32(k1)) * dn.double()).float()
+    contrib = idf[tid][:, :, None] * tfs * (k1 + 1.0) / den
+    contrib = torch.where(pmask, contrib * m, 0.0)
+    # masked slots -> the sink row; ids past it are dropped (mode="drop")
+    docs = torch.where(pmask & (docs >= 0) & (docs <= N), docs, N)
+    return docs, contrib
+
+
+def bm25_dense(term_ids, term_mask, postings_doc, postings_tf, term_offsets,
+               term_lengths, doc_norm, idf, *, window: int, num_docs: int,
+               k1: float = 1.2) -> torch.Tensor:
+    """Dense BM25 scores (B, N) f32 for (B, T) term ids and weights: each
+    term's window scatter-added into (B, N+1) scores in query order; row N
+    is the sink."""
+    docs, contrib = _dense_windows(term_ids, term_mask, postings_doc, postings_tf,
+                                   term_offsets, term_lengths, doc_norm, idf,
+                                   window, num_docs, k1)
+    scores = torch.zeros((docs.shape[0], num_docs + 1), dtype=torch.float32,
+                         device=docs.device)
+    for t in range(docs.shape[1]):
+        scores.scatter_add_(1, docs[:, t], contrib[:, t])
+    return scores[:, :num_docs]
+
+
+def bm25_dense_from(arrays: Bm25Arrays, term_ids, term_mask, window: int,
+                    k1: float = 1.2) -> torch.Tensor:
+    return bm25_dense(
+        term_ids, term_mask,
+        arrays.postings_doc, arrays.postings_tf,
+        arrays.term_offsets, arrays.term_lengths,
+        arrays.doc_norm, arrays.idf,
+        window=window, num_docs=arrays.num_docs, k1=k1,
+    )
 
 
 def packed_qbits(num_docs: int) -> int:

@@ -21,8 +21,6 @@ only:
   YAMS_TPU_DEBUG_NANS tripwire is not ported; it prints one line saying so.
 - `embedding.provider` in {mock, neural, hf} builds that provider (with
   `embedding.checkpoint` when set) on the AppContext's device.
-- The grep, session, download and watch services are not ported (item 3):
-  they are attributes that raise NotImplementedError when used.
 """
 
 from __future__ import annotations
@@ -52,17 +50,6 @@ ENTITIES = "entities"
 # what a checkpoint that fails to parse raises; anything else propagates
 UNREADABLE_CHECKPOINT = (zipfile.BadZipFile, EOFError, pickle.UnpicklingError,
                          json.JSONDecodeError, ValueError, KeyError)
-
-
-class NotPorted:
-    """A service of the reference that the port does not have yet: any use
-    raises NotImplementedError naming its ROADMAP item."""
-
-    def __init__(self, name: str, item: int):
-        self._what = f"{name} is not ported: ROADMAP queue 1 item {item}"
-
-    def __getattr__(self, attr):
-        raise NotImplementedError(self._what)
 
 
 class AppContext:
@@ -159,21 +146,25 @@ class AppContext:
 
         # services (lazy circular-free wiring)
         from .document_service import DocumentService
+        from .download_service import DownloadService
         from .graph_service import GraphService
+        from .grep_service import GrepService
         from .indexing_service import IndexingService
         from .search_service import SearchService
+        from .session_service import SessionService
         from .stats_service import StatsService
         from .symbol_service import SymbolService
+        from .watch_service import WatchService
 
         self.documents = DocumentService(self)
         self.search = SearchService(self)
         self.indexing = IndexingService(self)
-        self.grep = NotPorted("the grep service", 3)
+        self.grep = GrepService(self)
         self.graph = GraphService(self)
-        self.sessions = NotPorted("the session service", 3)
+        self.sessions = SessionService(self)
         self.stats = StatsService(self)
-        self.downloads = NotPorted("the download service", 3)
-        self.watch = NotPorted("the watch service", 3)
+        self.downloads = DownloadService(self)
+        self.watch = WatchService(self)
         self.symbols = SymbolService(self)
 
     def _acquire_lock(self) -> None:

@@ -30,9 +30,6 @@ tests/test_torch_repair.py):
   `run()` takes `orphans` before `block_references`: after the refcount
   table is lost, a full repair deletes every block and leaves every
   document unreadable.
-- `repair_downloads` normalizes URL-named documents as the reference does;
-  while the download service is not ported (ROADMAP queue 1 item 3) its
-  `.part`/resume cleanup step is skipped and the report says so.
 """
 
 from __future__ import annotations
@@ -41,8 +38,6 @@ import pathlib
 import urllib.parse
 
 import torch
-
-from .app import NotPorted
 
 
 def device_check(device: torch.device) -> tuple[bool, str]:
@@ -363,10 +358,6 @@ class RepairService:
         # stale .part / resume entries — under the store lock so concurrent
         # job threads can't register a partial between our read and unlink
         dl = app.downloads
-        if isinstance(dl, NotPorted):
-            return (f"{fixed} url-docs normalized, .part/resume cleanup "
-                    "skipped: the download service waits for ROADMAP queue 1 "
-                    "item 3")
         with dl._resume_lock:
             state = dl._load_resume()
             live_parts = {v.get("part") for v in state.values()
