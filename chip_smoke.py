@@ -203,7 +203,33 @@ seconds):
      scatter) at N 1,048,576, V 65,536, window 1,024, B 64, T 8 on phase
      4's kind of postings, equal bit for bit to the same call on the CPU,
      timed against its bytes bound, and LexicalIndex.search on phase 3's
-     index, card == CPU.
+     index, card == CPU;
+ 14. training and real-text evaluation: (a) a stand-in real-text root
+     (scripts/realtext.py assemble_root: the repository's markdown and a
+     seeded selection of the installed torch package's headers, linked;
+     the files, chunks and heading and symbol queries of its
+     realtext-BEIR dataset printed); (b) train_ner_default's corpus and
+     configuration through NerModel.fit for 300 steps on the card (twice:
+     its run-to-run spread) and on the CPU from the card model's weights:
+     losses within 1e-5 relative over the first 20 steps and 0.02
+     absolute over all, the step where the two trajectories part, both
+     falling; a 50-step fit on each device (within the horizon they
+     share) with probabilities within 1e-3 and tags and extract on 16
+     notes equal but named near-ties; step ms and steps/s on each device,
+     the device operations a step and the step's bound; the real-text
+     span F1 (eval_ner_realtext) of the bundled and the fitted models on
+     both devices, the fitted ones within 0.02; (c)
+     train_encoder_realtext at the in-repo realtext_bert_d192's width
+     (D 192, 3 layers, 6 heads, FFN 384, T 16 / 128) for 300 steps on
+     the stand-in root: the loss every 50 steps (it must fall), host
+     batch prep and device step ms, the device operations a step and the
+     step's bound, the first 5 steps within 1e-4 relative of the CPU's,
+     and the written .npz through the hf provider on both devices within
+     1e-4; (d) eval_beir_scale.run_eval with realtext_bert_d192: the
+     whole root on the card (bf16, hybrid and hybrid + ColBERT, chunk and
+     file level), and a 300-file cut at f32 on the CSR leg on the card
+     and the CPU, every metric within 0.005 and the top-10 equal on >=
+     98% of queries, the rest named.
 
 The kernel launch counters are zeroed just before each path and read just
 after: the add path (phases 2-3) must launch gear_hash_cuda and
@@ -222,7 +248,9 @@ gear_hash_cuda and sha256_cuda (on the blob), and its device operations
 are printed with their calls on the path, times, bounds and yardsticks;
 phase 13's downloads must launch gear_hash_cuda and sha256_cuda, and its
 device operations (the NER window forward, bm25_dense) are printed with
-their calls, times and bounds. At
+their calls, times and bounds; phase 14's path runs torch operations only
+(no chunk of its adds reaches K5's 32 MiB), and its counts are printed with
+each training step's time, device operations and bound. At
 the end no module of
 yams_tpu, jax, jaxlib or flax
 may be loaded. The second-last line is the kernels' JSON record (each with
@@ -2943,9 +2971,6 @@ def phase11_topology(dev, card: str, eng, cpu, queries, keep: dict) -> dict:
 
 
 # -- phase 12 -----------------------------------------------------------------
-HF_SHAPE = {"layers": 3, "dim": 192, "heads": 6, "intermediate": 768}
-
-
 class CallCounts:
     """Calls of phase 12's device operations on the card while installed:
     each target (module or class, attribute) is wrapped to count the calls
@@ -2981,13 +3006,13 @@ class CallCounts:
             self.paused = False
 
 
-def bert_flops(tokens: int, T: int, layers: int = 3, D: int = 192, inter: int = 768) -> float:
+def bert_flops(tokens: int, T: int, layers: int = 3, D: int = 192, inter: int = 384) -> float:
     """Multiply-adds x 2 of the BERT layers: q, k, v, o (4 D^2), the MLP
     (2 D I) and the attention's two products (2 T D), a token a layer."""
     return 2.0 * tokens * layers * (4 * D * D + 2 * D * inter + 2 * T * D)
 
 
-def bert_weight_bytes(layers: int = 3, D: int = 192, inter: int = 768) -> float:
+def bert_weight_bytes(layers: int = 3, D: int = 192, inter: int = 384) -> float:
     return 4.0 * layers * (4 * D * D + 2 * D * inter + 10 * D + inter)
 
 
@@ -4122,6 +4147,321 @@ def phase13_ops(services: dict) -> list:
              "bound_bytes": bm["bound_bytes"]}]
 
 
+# -- phase 14 -----------------------------------------------------------------
+NER_FIT_STEPS = 300       # of train_ner_default's 1,200 (the phase's time budget)
+NER_SHARED_STEPS = 50     # within the horizon the card and CPU trajectories share
+ENC_FIT_STEPS = 300       # of train_encoder_realtext's 1,500
+ENC_MATCH_STEPS = 5       # steps held card against CPU at full width
+EVAL_CUT_FILES = 300      # of the stand-in root's 900 files for the card == CPU eval
+
+
+def launches_per_step(run) -> dict:
+    """The device operations of one training step: those of run(4) less
+    those of run(2), over 2 (so the set-up both share cancels)."""
+    four, two = count_cuda_launches(lambda: run(4)), count_cuda_launches(lambda: run(2))
+    return {"device_ops": (four["device_ops"] - two["device_ops"]) / 2,
+            "runtime_calls": (four["runtime_calls"] - two["runtime_calls"]) / 2,
+            "kernels": four["kernels"]}
+
+
+def adam_bytes(n_params: int) -> float:
+    """An AdamW step's bytes: each parameter, its gradient and both moments
+    read, and the parameter and the moments written, in f32."""
+    return 4.0 * 7 * n_params
+
+
+def phase14_root(tmp) -> dict:
+    """(a) the stand-in real-text root and its realtext-BEIR dataset."""
+    from yams_tpu_torch.scripts import realtext
+
+    info = realtext.assemble_root(pathlib.Path(tmp) / "root")
+    ds = realtext.realtext_beir(root=info["root"])
+    kinds = list(ds.kinds.values())
+    out = {"root": info["root"], "ds": ds, "markdown": info["markdown"],
+           "headers": info["headers"], "headers_available": info["headers_available"],
+           "files": len({d.rsplit("#", 1)[0] for d in ds.corpus}), "chunks": len(ds.corpus),
+           "heading_queries": kinds.count("heading"), "symbol_queries": kinds.count("symbol")}
+    log(f"[phase14 root] {out['markdown']} markdown files and {out['headers']} of "
+        f"{out['headers_available']} torch headers linked; realtext_beir: {out['files']} files, "
+        f"{out['chunks']} chunks, {out['heading_queries']} heading and {out['symbol_queries']} "
+        "symbol queries")
+    return out
+
+
+def phase14_ner(dev, root) -> dict:
+    """(b) train_ner_default's corpus and configuration through NerModel.fit
+    on the card and on the CPU from the same weights, twice on the card (its
+    run-to-run spread), then extract and the real-text span F1."""
+    from yams_tpu_torch.embed.ner import NerModel
+    from yams_tpu_torch.plugins.neural_ner import _BUNDLED
+    from yams_tpu_torch.scripts import eval_ner_realtext as enr
+    from yams_tpu_torch.scripts import train_ner_default as tnd
+
+    cfg = tnd.CONFIG
+    train, held, n_real = tnd.training_set(cfg)
+    models, losses, step_ms, init = {}, {}, {}, None
+    for name, device in (("card", dev), ("card_again", dev), ("cpu", torch.device("cpu"))):
+        m = NerModel(cfg, seed=0, device=device)
+        if init is None:
+            init = {k: v.detach().cpu().clone() for k, v in m.model.state_dict().items()}
+        else:                     # the card model's weights, carried over
+            m.model.load_state_dict(init)
+        got = []
+        t = time.perf_counter()
+        m.fit(train, steps=NER_FIT_STEPS, lr=tnd.LR, batch=tnd.BATCH, losses=got)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        step_ms[name] = (time.perf_counter() - t) * 1e3 / NER_FIT_STEPS
+        models[name], losses[name] = m, np.array([float(x) for x in got])
+    card, cpu = losses["card"], losses["cpu"]
+    gap = np.abs(card - cpu)
+    rel = gap / np.abs(cpu)
+    spread = np.abs(card - losses["card_again"]) / np.abs(card)
+    # the step from which the two devices' trajectories part by more than x
+    # (the same arithmetic in another order: Adam amplifies the rounding as
+    # the gradients shrink)
+    parts = {f"{x:g}": int(np.argmax(rel > x)) if (rel > x).any() else None
+             for x in (1e-5, 1e-4, 1e-3, 1e-2)}
+    log(f"[phase14 ner] {len(train)} windows ({n_real} real-text), {NER_FIT_STEPS} steps of "
+        f"batch {tnd.BATCH}: loss card / CPU "
+        + ", ".join(f"{s}: {card[s]:.5f} / {cpu[s]:.5f}" for s in range(0, NER_FIT_STEPS, 50))
+        + f", {NER_FIT_STEPS - 1}: {card[-1]:.5f} / {cpu[-1]:.5f}; card vs CPU relative max "
+        f"{rel[:20].max():.3g} over the first 20 steps, absolute max {gap.max():.3g} over all; "
+        f"first step relative past 1e-5/1e-4/1e-3/1e-2: {parts}; the card's run-to-run "
+        f"spread max {spread.max():.3g}")
+    check(rel[:20].max() <= 1e-5,
+          f"NER losses card == CPU within 1e-5 relative over 20 steps ({rel[:20].max():.3g})")
+    check(gap.max() <= 2e-2, f"NER losses card == CPU within 0.02 absolute over "
+          f"{NER_FIT_STEPS} steps ({gap.max():.3g}; step 0's loss {cpu[0]:.3f})")
+    for name, curve in (("card", card), ("CPU", cpu)):
+        check(curve[-20:].mean() < 0.1 * curve[:20].mean(), f"the NER loss falls on the {name}")
+    # The fitted models on 16 notes of entities. Past the step where the
+    # two trajectories part the models differ (reported, with the span F1
+    # below); within the shared horizon their probabilities agree, and
+    # their tags and extract are held equal but for named near-ties.
+    notes = list(entity_notes(16, SEED + 14).values())
+    ng, cf, mask = ner_windows(notes, cfg.window)
+    live = mask > 0
+
+    def agree(a, b) -> dict:
+        with torch.inference_mode():
+            pa = torch.softmax(a.logits(ng, cf, mask), -1).cpu().numpy()
+            pb = torch.softmax(b.logits(ng, cf, mask), -1).cpu().numpy()
+        ents = [[[x[:2] for x in m.extract(t)] for t in notes] for m in (a, b)]
+        return {"prob_diff": float(np.abs(pa - pb)[live].max()), "probs": pb,
+                "differ": (pa.argmax(-1) != pb.argmax(-1)) & live,
+                "extract_equal": sum(x == y for x, y in zip(*ents))}
+
+    after = agree(models["card"], models["cpu"])
+    short = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        short[name] = NerModel(cfg, seed=0, device=device)
+        short[name].model.load_state_dict(init)
+        short[name].fit(train, steps=NER_SHARED_STEPS, lr=tnd.LR, batch=tnd.BATCH)
+    within = agree(short["card"], short["cpu"])
+    ties = near_ties(within["probs"], 1e-4) & live
+    named = [(int(w), int(t)) for w, t in zip(*np.nonzero(ties))]
+    check(within["prob_diff"] <= 1e-3, f"NER probabilities card == CPU within 1e-3 after "
+          f"{NER_SHARED_STEPS} steps ({within['prob_diff']:.3g})")
+    check(not (within["differ"] & ~ties).any(), f"NER tags card == CPU after "
+          f"{NER_SHARED_STEPS} steps but near-ties ({int(within['differ'].sum())} differ)")
+    check(within["extract_equal"] == len(notes) or bool(named), f"NER extract card == CPU "
+          f"after {NER_SHARED_STEPS} steps ({within['extract_equal']} of {len(notes)} notes)")
+    if named:
+        log(f"[phase14 ner] near-ties after {NER_SHARED_STEPS} steps (window, token; top-2 "
+            f"margin < 1e-4): {named[:20]}")
+    # the launches of one step, and the step's bound
+    scratch = NerModel(cfg, seed=0, device=dev)
+    per_step = launches_per_step(lambda k: scratch.fit(train[:64], steps=k, lr=tnd.LR,
+                                                       batch=tnd.BATCH))
+    n_params = sum(p.numel() for p in scratch.model.parameters())
+    fwd = ner_bound(cfg, tnd.BATCH + len(cfg.labels))["bound_ops"]
+    b = bound(adam_bytes(n_params) + tnd.BATCH * cfg.window * (8 * 4 + 6 * 4 + 4 + 8),
+              3 * fwd, 2 * PEAK_CORE)
+    # the real-text span F1 of the shipped checkpoint and of the fitted one
+    sentences = enr.mine_sentences(enr.doc_roots(root))
+    f1 = {"bundled_card": enr.evaluate(NerModel.load(_BUNDLED, device=dev), sentences),
+          "bundled_cpu": enr.evaluate(NerModel.load(_BUNDLED, device="cpu"), sentences),
+          "fitted_card": enr.evaluate(models["card"], sentences),
+          "fitted_cpu": enr.evaluate(models["cpu"], sentences)}
+    check(abs(f1["fitted_card"]["span_f1"] - f1["fitted_cpu"]["span_f1"]) <= 0.02,
+          "the fitted models' real-text span F1 card == CPU within 0.02")
+    log(f"[phase14 ner] step {step_ms['card']:.3f} ms on the card ({1e3 / step_ms['card']:.1f} "
+        f"steps/s), {step_ms['cpu']:.3f} ms on the CPU ({1e3 / step_ms['cpu']:.1f} steps/s); "
+        f"{per_step['device_ops']:.0f} device ops a step; bound {b['bound_ms']:.6f} ms "
+        f"({b['bound_by']}); after {NER_SHARED_STEPS} steps probabilities within "
+        f"{within['prob_diff']:.3g}, extract equal on {within['extract_equal']}/16; after "
+        f"{NER_FIT_STEPS} steps within {after['prob_diff']:.3g}, extract equal on "
+        f"{after['extract_equal']}/16")
+    log(f"[phase14 ner] real-text span F1 on {len(sentences)} sentences: " + json.dumps(f1))
+    return {"windows": len(train), "real_windows": n_real, "steps": NER_FIT_STEPS,
+            "loss_card": card[::50].tolist() + [card[-1]], "loss_cpu": cpu[::50].tolist() + [cpu[-1]],
+            "gap_max": float(gap.max()), "rel_20": float(rel[:20].max()), "parts_at": parts,
+            "card_spread": float(spread.max()), "step_ms": step_ms["card"],
+            "cpu_step_ms": step_ms["cpu"], "launches": per_step, "n_params": n_params,
+            **b, "shared_steps": NER_SHARED_STEPS,
+            "prob_diff_shared": within["prob_diff"], "near_ties": len(named),
+            "extract_equal_shared": within["extract_equal"], "prob_diff": after["prob_diff"],
+            "extract_equal": after["extract_equal"], "f1": f1}
+
+
+def encoder_step_bound(shape: dict, n_params: int, B: int, qt: int, dt: int) -> dict:
+    """One contrastive step at `shape`: the forward's f32 multiply-adds (x2)
+    of both towers' layers, tripled for the backward, and the AdamW bytes
+    of every parameter with the batch's ids and masks."""
+    D, L, inter = shape["dim"], shape["layers"], shape["intermediate"]
+    flops = 3 * (bert_flops(B * qt, qt, L, D, inter) + bert_flops(B * dt, dt, L, D, inter))
+    return {**bound(adam_bytes(n_params) + B * (qt + dt) * 12, flops, 2 * PEAK_CORE),
+            "n_params": n_params}
+
+
+def phase14_encoder(dev, ds) -> dict:
+    """(c) train_encoder_realtext at the in-repo realtext_bert_d192's width
+    and depth on the stand-in root: the card's steps split into host batch
+    prep and device step, its first steps held against the CPU's, and the
+    written checkpoint reloaded by the hf provider on both devices."""
+    import tempfile
+
+    from yams_tpu_torch.embed.provider import DEFAULT_HF_CHECKPOINT, HFProvider
+    from yams_tpu_torch.scripts import train_encoder_realtext as ter
+
+    z = np.load(DEFAULT_HF_CHECKPOINT)
+    shape = {k: int(z[f"cfg/{k}"]) for k in ("dim", "layers", "heads", "intermediate")}
+    data = ter.RealtextData(ds=ds)
+    trainer = ter.make_trainer(data, ENC_FIT_STEPS, shape, dev)
+    batches = data.batches(np.random.default_rng(3))
+    losses, prep, step = [], [], []
+    for _ in range(ENC_FIT_STEPS):
+        t0 = time.perf_counter()
+        batch = next(batches)
+        t1 = time.perf_counter()
+        losses.append(trainer.step(batch))
+        torch.cuda.synchronize()
+        prep.append(t1 - t0)
+        step.append(time.perf_counter() - t1)
+    losses = np.array([float(x) for x in losses])
+    # the first steps again on the CPU, from the same weights and batches
+    cpu = ter.make_trainer(data, ENC_FIT_STEPS, shape, "cpu")
+    again = data.batches(np.random.default_rng(3))
+    cpu_losses = np.array([float(cpu.step(next(again))) for _ in range(ENC_MATCH_STEPS)])
+    rel = np.abs(losses[:ENC_MATCH_STEPS] - cpu_losses) / np.abs(cpu_losses)
+    check(rel.max() <= 1e-4, f"encoder losses card == CPU within 1e-4 relative over "
+          f"{ENC_MATCH_STEPS} steps ({rel.max():.3g})")
+    check(losses[-20:].mean() < losses[:20].mean(), "the encoder loss falls on the card")
+    # the written checkpoint through the port's hf provider on both devices
+    with tempfile.TemporaryDirectory(prefix="yenc") as tmp:
+        path = str(pathlib.Path(tmp) / "realtext_trained.npz")
+        trainer.save(path, data.vocab)
+        texts = list(ds.queries.values())[:64]
+        card_v = HFProvider(path, compute_dtype="float32", device=dev).encode(texts)
+        cpu_v = HFProvider(path, compute_dtype="float32", device="cpu").encode(texts)
+    vec_err = float(np.abs(card_v - cpu_v).max())
+    check(vec_err <= 1e-4, f"the trained checkpoint's vectors card == CPU within 1e-4 ({vec_err:.3g})")
+    scratch = ter.make_trainer(data, ENC_FIT_STEPS, shape, dev)
+    one = next(data.batches(np.random.default_rng(5)))
+    per_step = launches_per_step(lambda k: [scratch.step(one) for _ in range(k)])
+    b = encoder_step_bound(shape, sum(p.numel() for p in trainer.leaves), ter.B, ter.QT, ter.DT)
+    step_ms, prep_ms = float(np.median(step) * 1e3), float(np.median(prep) * 1e3)
+    log(f"[phase14 encoder] D {shape['dim']}, {shape['layers']} layers, {shape['heads']} heads, "
+        f"FFN {shape['intermediate']}, vocabulary {len(data.vocab)}: loss "
+        + ", ".join(f"{s}: {losses[s]:.4f}" for s in range(0, ENC_FIT_STEPS, 50))
+        + f", {ENC_FIT_STEPS - 1}: {losses[-1]:.4f}; first {ENC_MATCH_STEPS} steps card vs CPU "
+        f"relative max {rel.max():.3g}; step median {prep_ms:.3f} ms host batch prep + "
+        f"{step_ms:.3f} ms device forward + backward + update; {per_step['device_ops']:.0f} "
+        f"device ops a step; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+        f"{b['bound_ops'] / 1e9:.2f} GFLOP, {b['bound_bytes'] / 1e6:.1f} MB); checkpoint "
+        f"vectors card vs CPU {vec_err:.3g}")
+    return {"shape": shape, "vocab": len(data.vocab), "steps": ENC_FIT_STEPS,
+            "loss": {str(s): float(losses[s]) for s in list(range(0, ENC_FIT_STEPS, 50))
+                     + [ENC_FIT_STEPS - 1]},
+            "cpu_rel_max": float(rel.max()), "prep_ms": prep_ms, "step_ms": step_ms,
+            "launches": per_step, "vec_err": vec_err, **b}
+
+
+def eval_summary(res: dict) -> dict:
+    return {mode: {lvl: {k: round(r[lvl][k], 4) for k in ("mrr", "ndcg", "recall")}
+                   for lvl in ("all", "file_level")} for mode, r in res.items()}
+
+
+def phase14_retrieval(dev, ds, root) -> dict:
+    """(d) eval_beir_scale.run_eval with the in-repo realtext_bert_d192: the
+    whole stand-in root on the card (the provider's bf16, as served), then a
+    cut of it on the card and on the CPU at f32 on the CSR leg, held equal."""
+    from yams_tpu_torch.scripts import eval_beir_scale as ebs
+    from yams_tpu_torch.scripts.realtext import realtext_beir
+
+    modes = ("hybrid", ebs.COLBERT)
+    t = time.perf_counter()
+    full = ebs.run_eval("hf", modes=modes, quiet=True, ds=ds, device=dev)
+    full_s = time.perf_counter() - t
+    cut = realtext_beir(max_files=EVAL_CUT_FILES, root=root)
+    runs, secs = {}, {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        t = time.perf_counter()
+        runs[name] = ebs.run_eval("hf", modes=modes, quiet=True, ds=cut, device=device,
+                                  compute_dtype="float32", packed_max_entries=0)
+        secs[name] = time.perf_counter() - t
+    differ = {}
+    for mode in modes:
+        a, b = runs["card"][mode], runs["cpu"][mode]
+        for lvl in ("all", "file_level"):
+            for k in ("mrr", "ndcg", "recall"):
+                check(abs(a[lvl][k] - b[lvl][k]) <= 0.005,
+                      f"{mode} {lvl} {k} card == CPU within 0.005 ({a[lvl][k]:.4f} vs "
+                      f"{b[lvl][k]:.4f})")
+        differ[mode] = [q for q in cut.queries if a["ranked"][q] != b["ranked"][q]]
+        check(len(differ[mode]) <= 0.02 * len(cut.queries),
+              f"{mode} top-10 card == CPU on >= 98% of queries ({len(differ[mode])} differ)")
+        if differ[mode]:
+            log(f"[phase14 retrieval] {mode}: top-10 differs card vs CPU on "
+                + json.dumps([(q, cut.queries[q]) for q in differ[mode]]))
+    out = {"full": eval_summary(full), "full_s": full_s, "chunks": len(ds.corpus),
+           "queries": len(ds.queries), "cut_chunks": len(cut.corpus),
+           "cut_queries": len(cut.queries), "cut_card": eval_summary(runs["card"]),
+           "cut_cpu": eval_summary(runs["cpu"]), "cut_s": secs,
+           "differ": {m: len(v) for m, v in differ.items()}}
+    log(f"[phase14 retrieval] {len(ds.corpus)} chunks, {len(ds.queries)} queries, card bf16 "
+        f"({full_s:.1f} s): " + json.dumps(out["full"]))
+    log(f"[phase14 retrieval] cut of {EVAL_CUT_FILES} files ({len(cut.corpus)} chunks, "
+        f"{len(cut.queries)} queries) at f32 on the CSR leg, card ({secs['card']:.1f} s) "
+        f"vs CPU ({secs['cpu']:.1f} s): card {json.dumps(out['cut_card'])}; CPU "
+        f"{json.dumps(out['cut_cpu'])}; top-10 differs on {out['differ']}")
+    return out
+
+
+def phase14_training(dev, card: str) -> dict:
+    """Phase 14: (a) the stand-in root, (b) NER training, (c) encoder
+    training at full width, (d) real-text retrieval."""
+    import tempfile
+
+    out = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="yrt") as tmp:
+        root = phase14_root(tmp)
+        for name, fn, args in (("ner", phase14_ner, (dev, root["root"])),
+                               ("encoder", phase14_encoder, (dev, root["ds"])),
+                               ("retrieval", phase14_retrieval, (dev, root["ds"], root["root"]))):
+            t = time.perf_counter()
+            out[name] = fn(*args)
+            out[name + "_s"] = time.perf_counter() - t
+            log(f"[phase14 {name}] {out[name + '_s']:.2f} s")
+            torch.cuda.empty_cache()
+        out["root"] = {k: v for k, v in root.items() if k not in ("ds", "root")}
+    return out
+
+
+def phase14_ops(training: dict) -> list:
+    """Phase 14's device work: a training step of each trainer, its time,
+    launches and bound."""
+    ner, enc = training["ner"], training["encoder"]
+    return [{"name": "ner_fit_step", "steps_on_path": 2 * ner["steps"], "ms": ner["step_ms"],
+             "cpu_ms": ner["cpu_step_ms"], "device_ops_per_step": ner["launches"]["device_ops"],
+             "bound_ms": ner["bound_ms"], "bound_by": ner["bound_by"]},
+            {"name": "encoder_fit_step", "steps_on_path": enc["steps"], "ms": enc["step_ms"],
+             "host_prep_ms": enc["prep_ms"], "device_ops_per_step": enc["launches"]["device_ops"],
+             "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
+             "bound_gflop": enc["bound_ops"] / 1e9, "bound_mb": enc["bound_bytes"] / 1e6}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; nothing was run", file=sys.stderr)
@@ -4245,10 +4585,18 @@ def main() -> int:
         check(svc13_launches[name] >= 1, f"{name} launched on phase 13's downloads")
     log("[phase13] device operations " + json.dumps(phase13_ops(services13)))
 
+    zero()
+    training = phase("phase14", phase14_training, dev, card)
+    train_launches = read()
+    log(f"[training and real-text path] kernel launches {train_launches} (the trainers' "
+        "forward, backward and AdamW and the real-text adds and searches are torch "
+        "operations; no chunk reaches K5's 32 MiB)")
+    log("[phase14] device operations " + json.dumps(phase14_ops(training)))
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("yams_tpu", "jax", "jaxlib", "flax"))
     check(not loaded, f"no module of yams_tpu, jax, jaxlib or flax loaded (found {loaded})")
-    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'neural': neural, 'services13': services13, 'torch': torch.__version__})}")
+    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'neural': neural, 'services13': services13, 'training': training, 'torch': torch.__version__})}")
 
     sources = {
         "gear_hash_cuda": ("yams_tpu_torch/csrc/gear_hash.cu", "yams_tpu/ops/cdc.py:65",
@@ -4281,6 +4629,7 @@ def main() -> int:
             records[-1]["launches_phase10"] = svc_launches[name]
         records[-1]["launches_phase12"] = neural_launches[name]
         records[-1]["launches_phase13"] = svc13_launches[name]
+        records[-1]["launches_phase14"] = train_launches[name]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -357,7 +357,9 @@ def test_query_module_is_the_reference_code():
     "utils.ahocorasick", "services.grep_service", "services.session_service",
     "services.watch_service", "services.download_service", "storage.backends",
     "storage.remote_checkpoint", "plugins.spec", "plugins.host", "plugins.graph_adapter",
-    "plugins.pdf_extract", "plugins.native_host"])
+    "plugins.pdf_extract", "plugins.native_host",
+    # the retrieval metrics and the BEIR datasets of the trainers and evals
+    "utils.metrics", "utils.beir"])
 def test_copied_module_is_the_reference_code(name):
     """The SQLite store, the knowledge graph, the search tuner, the configs
     and the service layer's host modules (metadata, detection and
@@ -365,8 +367,8 @@ def test_copied_module_is_the_reference_code(name):
     the daemon's protocol, clients and components, the grep, session,
     watch and download services, the object backends and remote
     checkpoints, the plugin host's spec, subprocess and native hosts, graph
-    adapter and PDF extractor): past the module docstring each copy is the
-    original, line for line."""
+    adapter and PDF extractor, the retrieval metrics and BEIR datasets):
+    past the module docstring each copy is the original, line for line."""
     import ast
     import importlib
     import inspect
@@ -495,7 +497,7 @@ KEPT = {
     "plugins.manager": ["PluginManager.trusted_paths", "PluginManager.trust",
                         "PluginManager.untrust", "PluginManager.scan",
                         "PluginManager.load_module", "PluginManager.load_trusted",
-                        "PluginManager.unload", "PluginManager.health", "PluginManager.list"],
+                        "PluginManager.health", "PluginManager.list"],
     "cli.auth": ["_b64url", "_b64url_dec", "AuthStore.__init__", "AuthStore._load",
                  "AuthStore._save", "AuthStore.list_keys", "AuthStore.revoke",
                  "AuthStore.token", "AuthStore.verify_token", "AuthStore.api_key",
@@ -520,7 +522,8 @@ def _defs_and_assigns(mod, names):
 @pytest.mark.parametrize("name", list(KEPT))
 def test_ported_modules_keep_the_reference_code(name):
     """NER's host half and its output assembly, the plugin manager's trust
-    list, discovery and introspection, and `yams auth` (all but keygen)
+    list, discovery and introspection (its `unload` also removes the
+    plugin's provider: a departure), and `yams auth` (all but keygen)
     are the reference's, definition for definition; the bundled NER
     plugin's body differs only in its device key and its description, and
     the MCP server only in the package whose provider registry it lists."""
@@ -549,3 +552,69 @@ def test_ported_modules_keep_the_reference_code(name):
             'NerModel.load(path, device=cfg.get("device", "cuda"))', "NerModel.load(path)")
         want = inspect.getsource(ref.yams_plugin).replace("(flax label", "(torch label")
         assert got == want
+
+
+def _module_from(path):
+    """A reference script or helper, imported from its file (once)."""
+    import importlib.util
+    import pathlib
+    import sys
+
+    path = pathlib.Path(__file__).resolve().parents[1] / path
+    name = f"ref_{path.stem}"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, path)
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
+
+
+# the port's copies of the reference's real-text helper and training and
+# evaluation scripts: the definitions each keeps unchanged (the module
+# docstrings list the departures: the root, device and output arguments)
+SCRIPT_KEPT = {
+    ("scripts.realtext", "tests/benchmarks/realtext.py"): [
+        "MAX_DOC_CHARS", "MAX_DOCS", "_HEADING_RE", "_SYMBOL_RE", "_CAMEL_RE",
+        "RealTextEval", "camel_split", "_chunk_text"],
+    ("scripts.train_ner_default", "scripts/train_ner_default.py"): [
+        "CTX", "HARD_STARTS", "CAMEL_PARTS", "SNAKE_PARTS", "PROPER_PARTS", "_entity",
+        "synth_example", "f1"],
+    ("scripts.eval_ner_realtext", "scripts/eval_ner_realtext.py"): [
+        "MAX_SENTENCES", "SEED", "_FENCE_RE", "_INLINE_CODE_RE", "_MD_NOISE_RE",
+        "_SENT_SPLIT_RE", "_TOKEN_RE", "evaluate"],
+    ("scripts.train_encoder", "scripts/train_encoder.py"): [
+        "SUFFIX_PIECES", "build_vocab"],
+    ("scripts.train_encoder_realtext", "scripts/train_encoder_realtext.py"): [
+        "MAX_LEN", "SUFFIX_PIECES", "VOCAB_CAP", "build_vocab"],
+}
+
+
+@pytest.mark.parametrize("port_name,original", list(SCRIPT_KEPT), ids=lambda x: x)
+def test_ported_scripts_keep_the_reference_code(port_name, original):
+    """The real-text helper's dataset code, the default NER script's
+    generator and token F1, the real-text NER eval's regexes and scoring,
+    and the encoder scripts' vocabularies are the reference's, definition
+    for definition."""
+    import importlib
+
+    port = importlib.import_module(f"yams_tpu_torch.{port_name}")
+    names = SCRIPT_KEPT[(port_name, original)]
+    assert _defs_and_assigns(port, names) == _defs_and_assigns(_module_from(original), names)
+
+
+def test_ported_scripts_keep_the_reference_constants():
+    """The encoder scripts' shapes and the trainers' hyperparameters."""
+    from yams_tpu_torch.scripts import train_encoder, train_encoder_realtext, train_ner_default
+
+    ref = _module_from("scripts/train_encoder.py")
+    assert (train_encoder.DIM, train_encoder.LAYERS, train_encoder.HEADS,
+            train_encoder.INTERMEDIATE, train_encoder.MAX_LEN) == \
+        (ref.DIM, ref.LAYERS, ref.HEADS, ref.INTERMEDIATE, ref.MAX_LEN)
+    rt = _module_from("scripts/train_encoder_realtext.py")
+    assert (train_encoder_realtext.QT, train_encoder_realtext.DT) == (rt.QT, rt.DT)
+    assert train_encoder_realtext.shape_from_env() == {
+        "dim": rt.DIM, "layers": rt.LAYERS, "heads": rt.HEADS, "intermediate": rt.INTERMEDIATE}
+    cfg = train_ner_default.CONFIG
+    assert (cfg.dm, cfg.heads, cfg.layers, cfg.window, cfg.labels) == (64, 4, 2, 32, ("entity",))
+    assert (train_ner_default.STEPS, train_ner_default.LR, train_ner_default.BATCH) == \
+        (1200, 3e-3, 32)

@@ -1,7 +1,7 @@
 """The port stands alone: yams_tpu_torch imports nothing of yams_tpu.
 
 - In a fresh interpreter whose import system refuses `yams_tpu`, `jax`,
-  `jaxlib` and `flax` (a `sys.meta_path` finder that raises
+  `jaxlib`, `flax` and `optax` (a `sys.meta_path` finder that raises
   ModuleNotFoundError for them and their submodules), every module of
   yams_tpu_torch (the package walked), `chip_smoke` and the two experiment
   modules import, and a tiny add -> search runs on the CPU: device
@@ -19,11 +19,16 @@
   which raises here, where torch sees no card; with device="cpu" each runs.
   The entry points: SearchEngine, ContentStore, VectorIndex, SimeonProvider,
   AppContext, YamsDaemon, the CLI, TopologyEngine, the hf, neural and mock
-  providers, TokenIndex, NerModel, LexicalIndex.search and
-  `python -m yams_tpu_torch.mcp`.
+  providers, TokenIndex, NerModel (and its fit), LexicalIndex.search,
+  `python -m yams_tpu_torch.mcp`, the encoders' ContrastiveTrainer and the
+  real-text `run_eval`.
 - The service slice (grep, sessions, watch, downloads and a remote
   checkpoint, the NER plugin with its pickle, MCP, auth and the standalone
   BM25 scan) runs on the CPU with the reference refused.
+- The training and real-text slice (the stand-in root, the real-text
+  dataset, `NerModel.fit`, the contrastive trainer, the `.npz` writer and
+  the scripts' `main`s at a tiny size) runs on the CPU with the reference
+  and optax refused.
 """
 
 import ast
@@ -38,7 +43,7 @@ import pytest
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-REFUSED = ("yams_tpu", "jax", "jaxlib", "flax")
+REFUSED = ("yams_tpu", "jax", "jaxlib", "flax", "optax")
 
 _GUARD = f"""
 import sys
@@ -257,6 +262,54 @@ def test_the_service_slice_runs_with_the_reference_refused(tmp_path):
     assert out.strip() == "[]"
 
 
+def test_the_training_slice_runs_with_the_reference_refused(tmp_path):
+    """Every module and script of the training and real-text slice, and the
+    scripts' mains at a tiny size on the CPU (train_encoder's trainer
+    through train_encoder_realtext's: its own main needs more steps than
+    its 50-step warmup), with yams_tpu, jax, jaxlib, flax and optax
+    refused."""
+    out = _run_guarded(f"""
+        import contextlib, importlib, io, os, pathlib
+        import numpy as np
+        import torch
+        torch.set_num_threads(2)    # this interpreter only: the suite runs in parallel
+        for name in ("utils.metrics", "utils.beir", "utils.optim", "scripts.realtext",
+                     "scripts.train_ner_default", "scripts.eval_ner_realtext",
+                     "scripts.train_encoder", "scripts.train_encoder_realtext",
+                     "scripts.eval_beir_scale"):
+            importlib.import_module("yams_tpu_torch." + name)
+        from yams_tpu_torch.embed.ner import NerConfig, NerModel
+        from yams_tpu_torch.embed.provider import HFProvider
+        from yams_tpu_torch.scripts import (eval_beir_scale, eval_ner_realtext, realtext,
+                                            train_encoder, train_encoder_realtext,
+                                            train_ner_default)
+        tmp = pathlib.Path({str(tmp_path)!r})
+        root = realtext.assemble_root(tmp / "root", 12)["root"]
+        ds = realtext.realtext_beir(root=root)
+        assert ds.queries and set(ds.kinds.values()) == {{"heading", "symbol"}}
+        m = NerModel(NerConfig(dm=16, heads=2, layers=1, window=8), device="cpu")
+        losses = []
+        m.fit([(["the", "CacheManager", "runs"], [0, 1, 0])] * 4, steps=3, losses=losses)
+        assert len(losses) == 3
+        sink = io.StringIO()
+        with contextlib.redirect_stdout(sink):
+            train_ner_default.main([str(tmp / "ner.pkl"), "2", "--device", "cpu"])
+            eval_ner_realtext.main(["--root", str(root), "--checkpoint", str(tmp / "ner.pkl"),
+                                    "--device", "cpu"])
+            os.environ.update(ENC_DIM="16", ENC_LAYERS="1", ENC_HEADS="2")
+            train_encoder_realtext.main([str(tmp / "rt.npz"), "2", "--root", str(root),
+                                         "--device", "cpu"])
+            eval_beir_scale.main(["hf", str(tmp / "rt.npz"), "--root", str(root),
+                                  "--modes", "hybrid,hybrid+colbert", "--device", "cpu"])
+        text = sink.getvalue()
+        assert "span_f1" in text and "saved" in text and '"hybrid+colbert"' in text, text
+        assert HFProvider(str(tmp / "rt.npz"), device="cpu").dim == 16
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in {REFUSED!r})
+        print(loaded)
+    """)
+    assert out.strip().endswith("[]")
+
+
 def test_the_guard_refuses_the_reference():
     """The finder above does refuse: importing yams_tpu through it fails."""
     proc = subprocess.run([sys.executable, "-c", _GUARD + "import yams_tpu.core.config"],
@@ -405,6 +458,39 @@ def _ner_model(device):
     return m.device
 
 
+def _ner_fit(device):
+    from yams_tpu_torch.embed.ner import NerConfig, NerModel
+    m = NerModel(NerConfig(dm=8, heads=2, layers=1, window=4)) if device is None else \
+        NerModel(NerConfig(dm=8, heads=2, layers=1, window=4), device=device)
+    assert np.isfinite(m.fit([(["a", "B"], [0, 1])], steps=1))
+    return m.device
+
+
+def _contrastive_trainer(device):
+    from yams_tpu_torch.embed.hf_encoder import init_params
+    from yams_tpu_torch.scripts.train_encoder import ContrastiveTrainer
+    p = init_params(np.random.default_rng(0), 8, dim=8, layers=1, intermediate=8, max_len=4)
+    kw = {"heads": 2, "steps": 2, "warmup": 1}
+    t = ContrastiveTrainer(p, **kw) if device is None else \
+        ContrastiveTrainer(p, **kw, device=device)
+    ids = np.array([[2, 5, 3, 0], [2, 6, 3, 0]])
+    attn = (ids > 0).astype(np.float32)
+    assert torch.isfinite(t.step((ids, attn, ids, attn)))
+    return t.device
+
+
+def _run_eval(device):
+    from yams_tpu_torch.scripts.eval_beir_scale import run_eval
+    from yams_tpu_torch.utils.beir import BeirDataset
+    ds = BeirDataset("t", {"a.md#0": {"title": "", "text": "thread scheduler preempts"}},
+                     {"q0": "thread scheduler"}, {"q0": {"a.md#0": 1}})
+    ds.kinds = {"q0": "heading"}
+    out = run_eval(modes=("hybrid",), quiet=True, ds=ds) if device is None else \
+        run_eval(modes=("hybrid",), quiet=True, ds=ds, device=device)
+    assert out["hybrid"]["all"]["mrr"] == 1.0
+    return torch.device(device)
+
+
 def _lexical_search(device):
     from yams_tpu_torch.index.lexical_index import LexicalIndex
     idx = LexicalIndex()
@@ -440,6 +526,8 @@ _ENTRY_POINTS = {"SearchEngine": _search_engine, "ContentStore": _content_store,
                  "TopologyEngine": _topology_engine, "HFProvider": _hf_provider,
                  "NeuralProvider": _neural_provider, "MockProvider": _mock_provider,
                  "TokenIndex": _token_index, "NerModel": _ner_model,
+                 "NerModel.fit": _ner_fit, "ContrastiveTrainer": _contrastive_trainer,
+                 "run_eval": _run_eval,
                  "LexicalIndex.search": _lexical_search, "mcp": _mcp_module}
 _TAKE_A_DIR = ("ContentStore", "AppContext", "YamsDaemon", "cli", "mcp")
 

@@ -10,8 +10,8 @@
   `neural_ner` plugin's entities equal the reference's.
 - `save` writes the reference's format (each package loads the other's
   file); `load` admits no global but NumPy's array builders, and loads in
-  an interpreter where flax, jax and yams_tpu are refused; `fit` raises
-  NotImplementedError naming ROADMAP item 8.
+  an interpreter where flax, jax and yams_tpu are refused. `fit` is held
+  to the reference's in tests/test_torch_train_ner.py.
 """
 
 import functools
@@ -212,11 +212,6 @@ def test_load_needs_no_flax():
                           timeout=240)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "['CacheManager', 'ingest_queue_worker']"
-
-
-def test_fit_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        ner.NerModel(device="cpu").fit([(["A"], [1])])
 
 
 def test_seeded_weights_are_the_ports_own():

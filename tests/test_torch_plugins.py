@@ -7,6 +7,11 @@
   registries and graph service; the trust list, a bad plugin, unload, the
   daemon's trust gate; the bundled `neural_ner.py` loads from its path
   (the reference's manager cannot import it that way) on the app's device.
+- `unload` takes the plugin's model provider out of the registry (the
+  reference leaves it there), for the Python and the native plugin, and
+  only the one it registered; every test here unloads what it loaded, and
+  the registry is checked to be back to the built-in providers after each
+  test, and then through a daemon's `model_status` in the same process.
 - `host.SubprocessPlugin`: the JSON-RPC fixture plugin's interfaces.
 - `native_host`: a C plugin built here against the port's copy of the ABI
   header (into this process's own temporary directory), loaded, and each
@@ -24,6 +29,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -56,6 +62,35 @@ PORT_ROOT = pathlib.Path(__file__).resolve().parents[1] / "yams_tpu_torch"
 NER_PLUGIN = PORT_ROOT / "plugins" / "neural_ner.py"
 
 
+BUILT_IN = ["hf", "mock", "neural", "simeon"]
+
+
+@pytest.fixture(autouse=True)
+def registry_is_clean_after():
+    """Each test here leaves the provider registry as it found it."""
+    yield
+    from yams_tpu_torch.embed.provider import list_providers
+
+    assert list_providers() == BUILT_IN
+
+
+@pytest.fixture()
+def managers():
+    """PluginManager(...) whose plugins are unloaded when the test ends
+    (named before `app`, so the app closes first: its ingest worker may
+    still call a plugin's extractor)."""
+    made = []
+
+    def make(*a, **kw):
+        made.append(PluginManager(*a, **kw))
+        return made[-1]
+
+    yield make
+    for pm in made:
+        for name in list(pm.plugins):
+            pm.unload(name)
+
+
 @pytest.fixture()
 def app(tmp_path):
     a = AppContext(port_config_for(tmp_path / "data"), device="cpu")
@@ -63,10 +98,10 @@ def app(tmp_path):
     a.close()
 
 
-def test_mock_plugin_loads_as_in_the_reference(app, tmp_path):
+def test_mock_plugin_loads_as_in_the_reference(managers, app, tmp_path):
     ref_app = RefApp(ref_config_for(tmp_path / "ref"))
     try:
-        pm = PluginManager(app, trust_file=tmp_path / "trust")
+        pm = managers(app, trust_file=tmp_path / "trust")
         rm = RefManager(ref_app, trust_file=tmp_path / "ref_trust")
         m = pm.load_file(MOCK, config={"k": "v"})
         r = rm.load_file(MOCK, config={"k": "v"})
@@ -78,10 +113,10 @@ def test_mock_plugin_loads_as_in_the_reference(app, tmp_path):
         ref_app.close()
 
 
-def test_model_provider_adapter(app):
+def test_model_provider_adapter(managers, app):
     from yams_tpu_torch.embed.provider import create_provider
 
-    PluginManager(app).load_file(MOCK)
+    managers(app).load_file(MOCK)
     p = create_provider("mockplug", device="cpu")
     v = p.encode(["abc", "defg"])
     assert v.shape == (2, 16)
@@ -93,10 +128,10 @@ def test_model_provider_adapter(app):
     assert p.space_id.startswith("plugin/mockplug/")
 
 
-def test_content_and_entity_extractor_adapters(app):
+def test_content_and_entity_extractor_adapters(managers, app):
     from yams_tpu_torch.services.extraction import extract_text
 
-    PluginManager(app).load_file(MOCK)
+    managers(app).load_file(MOCK)
     assert extract_text(b"hello plug", "application/x-mocktype") == ("HELLO PLUG", "MOCK TITLE")
     ents = app.graph.extract_entities("alpha beta gamma delta")
     assert [e[0] for e in ents] == ["alpha", "beta", "gamma"]
@@ -117,14 +152,14 @@ def test_trust_list_bad_plugin_and_unload(app, tmp_path):
     assert pm.unload("mockplug") and not pm.unload("mockplug")
 
 
-def test_the_daemons_load_requires_trust(app, tmp_path):
+def test_the_daemons_load_requires_trust(managers, app, tmp_path):
     from yams_tpu_torch.daemon.server import YamsDaemon
 
     class _Daemon:
         handle_plugins = YamsDaemon.handle_plugins
 
     d = _Daemon()
-    d.plugins = PluginManager(app, trust_file=tmp_path / "trust")
+    d.plugins = managers(app, trust_file=tmp_path / "trust")
     with pytest.raises(YamsError, match="not trusted"):
         d.handle_plugins({"op": "load", "path": str(MOCK)})
     d.handle_plugins({"op": "trust", "path": str(MOCK)})
@@ -198,12 +233,82 @@ def test_native_plugin_interfaces(plugin_so, tmp_path):
     assert mgr.unload("rot13_demo")
 
 
-def test_native_plugin_wires_into_ingestion(plugin_so, app, tmp_path):
-    assert PluginManager(app, trust_file=tmp_path / "t").load_file(plugin_so) is not None
+def test_native_plugin_wires_into_ingestion(plugin_so, managers, app, tmp_path):
+    assert managers(app, trust_file=tmp_path / "t").load_file(plugin_so) is not None
     res = app.documents.add_bytes(b"frperg cnffjbeq vafvqr", "docs/x.rot13",
                                   mime_type="application/x-rot13")
     assert res.document_id > 0
     assert "secret password inside" in app.documents.get_text("docs/x.rot13")
+
+
+@pytest.mark.parametrize("kind", ["python", "native"])
+def test_unload_removes_the_plugins_provider(kind, plugin_so, tmp_path):
+    """The registry gains the plugin's provider on load and is back to the
+    built-in providers after unload; the reference's keeps it."""
+    from yams_tpu_torch.embed.provider import create_provider, list_providers
+
+    path, name = (MOCK, "mockplug") if kind == "python" else (plugin_so, "rot13_demo")
+    mgr = PluginManager(trust_file=tmp_path / "trust.txt")
+    assert mgr.load_file(path) is not None
+    assert list_providers() == sorted(BUILT_IN + [name])
+    assert create_provider(name, device="cpu").dim in (16, 4)
+    assert mgr.unload(name) and list_providers() == BUILT_IN
+    with pytest.raises(ValueError, match="unknown embedding provider"):
+        create_provider(name, device="cpu")
+    if kind == "python":
+        from yams_tpu.embed.provider import _REGISTRY as ref_registry
+        from yams_tpu.embed.provider import list_providers as ref_list
+
+        prior = ref_registry.pop("mockplug", None)
+        ref = RefManager(None)
+        try:
+            assert ref.load_file(MOCK) is not None and ref.unload("mockplug")
+            assert "mockplug" in ref_list()        # the reference's leak
+        finally:
+            ref_registry.pop("mockplug", None)
+            if prior is not None:
+                ref_registry["mockplug"] = prior
+
+
+def test_unload_removes_only_what_the_plugin_registered(tmp_path):
+    """A provider registered under the plugin's name after its load is not
+    the plugin's: unload leaves it."""
+    from yams_tpu_torch.embed.provider import (list_providers, register_provider,
+                                               unregister_provider)
+
+    mgr = PluginManager(trust_file=tmp_path / "trust.txt")
+    assert mgr.load_file(MOCK) is not None
+
+    def other(device="cuda", **kw):
+        raise AssertionError("not built here")
+
+    register_provider("mockplug", other)
+    try:
+        assert mgr.unload("mockplug") and "mockplug" in list_providers()
+        assert not unregister_provider("mockplug", lambda **kw: None)
+    finally:
+        assert unregister_provider("mockplug", other)
+
+
+def test_plugins_unloaded_then_the_daemons_model_status(plugin_so, tmp_path):
+    """Both plugins loaded and unloaded, then a daemon in the same process
+    lists only the built-in providers (tests/test_torch_daemon.py's strict
+    list, whatever ran before it in its worker)."""
+    from chip_smoke import ThreadDaemon
+    from test_torch_daemon import daemon_config
+
+    mgr = PluginManager(trust_file=tmp_path / "trust.txt")
+    for path in (MOCK, plugin_so):
+        assert mgr.load_file(path) is not None
+    assert mgr.unload("mockplug") and mgr.unload("rot13_demo")
+    sock = pathlib.Path(tempfile.mkdtemp(prefix="yp"))
+    d = ThreadDaemon(daemon_config(tmp_path / "data", sock), torch.device("cpu"), timeout=120)
+    try:
+        assert d.client.call("model_status")["registry"] == BUILT_IN
+    finally:
+        if d.thread.is_alive():
+            d.stop()
+        shutil.rmtree(sock, ignore_errors=True)
 
 
 def test_native_abi_mismatch_is_refused(tmp_path):

@@ -18,6 +18,15 @@ the format the reference's module docstring lists).
   caller asks for the CPU) with the reference's `space_id` (the
   checkpoint's SHA-256), power-of-two buckets, `encode_ids`, `encode` and
   `encode_tokens`.
+- The trainable route (the reference's training scripts differentiate its
+  `bert_forward` with JAX): `bert_forward` takes any state dict, so on
+  leaves that require grad, outside `inference_mode` (only `forward_rows`
+  carries it), it builds the graph; `init_params` is the scripts' NumPy
+  init (scripts/train_encoder.py `init_params`), the same weights bit for
+  bit from the same generator; `trainable_state` puts them on a device as
+  leaves, and `save_npz` writes the checkpoint format above (the
+  "/"-keyed leaves, `cfg/*`, `vocab`), which both packages' `hf`
+  providers load.
 
 It departs from the reference in one way: `encode_ids` runs the forward
 over slices of at most `ROWS_TOKENS` padded tokens (rows are independent,
@@ -206,6 +215,63 @@ class BertEncoder(nn.Module):
         return bert_forward(dict(self.named_parameters()), ids, attn,
                             num_layers=self.num_layers, num_heads=self.num_heads,
                             compute_dtype=self.compute_dtype, per_token=per_token)
+
+
+def init_params(rng: np.random.Generator, vocab_size: int, *, dim: int, layers: int,
+                intermediate: int, max_len: int) -> dict[str, np.ndarray]:
+    """The reference training scripts' init: N(0, 0.02) embeddings and
+    dense kernels, zero biases and token types, unit LayerNorm scales, drawn
+    from `rng` in the scripts' order -> the checkpoint's "/"-keyed f32 leaves."""
+    def dense(i, o):
+        return (rng.normal(0, 0.02, (i, o)).astype(np.float32),
+                np.zeros(o, np.float32))
+
+    p: dict[str, np.ndarray] = {
+        "embeddings/word": rng.normal(0, 0.02, (vocab_size, dim)).astype(np.float32),
+        "embeddings/position": rng.normal(0, 0.02, (max_len, dim)).astype(np.float32),
+        "embeddings/token_type": np.zeros((2, dim), np.float32),
+        "embeddings/ln/scale": np.ones(dim, np.float32),
+        "embeddings/ln/bias": np.zeros(dim, np.float32),
+    }
+    for i in range(layers):
+        for name, (fi, fo) in (("attn/q", (dim, dim)), ("attn/k", (dim, dim)),
+                               ("attn/v", (dim, dim)), ("attn/o", (dim, dim)),
+                               ("mlp/fc1", (dim, intermediate)),
+                               ("mlp/fc2", (intermediate, dim))):
+            k, b = dense(fi, fo)
+            p[f"layer{i}/{name}/kernel"] = k
+            p[f"layer{i}/{name}/bias"] = b
+        for name in ("attn_ln", "mlp_ln"):
+            p[f"layer{i}/{name}/scale"] = np.ones(dim, np.float32)
+            p[f"layer{i}/{name}/bias"] = np.zeros(dim, np.float32)
+    return p
+
+
+def trainable_state(params: dict[str, np.ndarray],
+                    device: torch.device) -> dict[str, torch.Tensor]:
+    """"/"-keyed checkpoint leaves -> bert_forward's state dict on `device`,
+    each an f32 leaf that requires grad."""
+    return {k.replace("/", "."): torch.tensor(v, dtype=torch.float32, device=device,
+                                              requires_grad=True)
+            for k, v in params.items()}
+
+
+def save_npz(path, state: dict[str, torch.Tensor], vocab: list[str], *, heads: int) -> None:
+    """Write a checkpoint in the reference's format: the state's leaves under
+    their "/" names, cfg/{dim,layers,heads,max_len,vocab_size,intermediate}
+    (the sizes read off the leaves) and the vocabulary."""
+    flat = {k.replace(".", "/"): v.detach().to("cpu", torch.float32).numpy()
+            for k, v in state.items()}
+    layers = len({k.split("/")[0] for k in flat if k.startswith("layer")})
+    flat.update({
+        "cfg/dim": np.int64(flat["embeddings/word"].shape[1]),
+        "cfg/layers": np.int64(layers), "cfg/heads": np.int64(heads),
+        "cfg/max_len": np.int64(flat["embeddings/position"].shape[0]),
+        "cfg/vocab_size": np.int64(len(vocab)),
+        "cfg/intermediate": np.int64(flat["layer0/mlp/fc1/kernel"].shape[1]),
+        "vocab": np.array(vocab),
+    })
+    np.savez_compressed(path, **flat)
 
 
 def pad_batch(batches: list[list[int]], T: int, pad_id: int) -> tuple[np.ndarray, np.ndarray]:

@@ -19,15 +19,21 @@ It departs from the reference in these ways only:
   draws its parameters from `jax.random.PRNGKey(seed)`, which torch cannot
   reproduce; the port draws its own from a torch generator seeded with
   `seed` (flax's initializers' distributions).
-- The label names go through the encoder once per set of weights (they do
-  not depend on the window); the reference runs them in every forward. The
-  values are the same.
+- Inference runs the label names through the encoder once per set of
+  weights (they do not depend on the window); the reference runs them in
+  every forward. The values are the same. `fit` runs them in every step's
+  graph, as the reference does, so their gradient reaches the encoder, and
+  drops the cached vectors when it ends.
 - `load` reads the pickle with an unpickler that admits only
   `numpy.ndarray`, `numpy.dtype` and numpy's `_reconstruct`, so loading a
   checkpoint runs no other code and needs no flax. `save` writes the
   reference's format (the flax tree of NumPy arrays).
-- `fit` (training, optax in the reference) is not ported: ROADMAP queue 1
-  item 8.
+- `fit` is the reference's (the same featurization, batches drawn by
+  `np.random.default_rng(seed).integers`, the masked mean cross entropy,
+  `optax.adamw(lr)` as `utils.optim.AdamW`) on the model's device; it puts
+  the module in train mode while it runs, and with `losses=` a list it
+  appends each step's loss (a 0-dim tensor on the device, so no step waits
+  for the device).
 """
 
 from __future__ import annotations
@@ -343,9 +349,40 @@ class NerModel:
 
     # -- training ---------------------------------------------------------------
     def fit(self, examples, steps: int = 300, lr: float = 3e-3,
-            batch: int = 16, seed: int = 0) -> float:
-        raise NotImplementedError(
-            "NerModel.fit (training) is not ported: ROADMAP queue 1 item 8")
+            batch: int = 16, seed: int = 0, *, losses: list | None = None) -> float:
+        """examples: list of (tokens list[str], tags list[int]) with tags in
+        BIO ids (0=O, 1+k=B_label_k, 1+K+k=I_label_k). Returns final loss."""
+        from ..utils.optim import AdamW, masked_token_ce
+
+        L = self.cfg.window
+        NG, CF, MK, TG = [], [], [], []
+        for toks, tags in examples:
+            ng, cf, mask = featurize(toks, L)
+            t = np.zeros(L, np.int64)
+            t[: min(len(tags), L)] = tags[:L]
+            NG.append(ng); CF.append(cf); MK.append(mask); TG.append(t)
+        NG, CF, MK, TG = (torch.from_numpy(np.stack(a)).to(self.device)
+                          for a in (NG, CF, MK, TG))
+
+        params = list(self.model.parameters())
+        opt = AdamW(params, lr)
+        rng = np.random.default_rng(seed)
+        n = len(examples)
+        loss = torch.zeros(())
+        self.model.train()
+        try:
+            for _ in range(steps):
+                idx = torch.from_numpy(rng.integers(0, n, size=min(batch, n))).to(self.device)
+                # the label vectors are recomputed in the graph at each step
+                logits = self.model(NG[idx], CF[idx], MK[idx], self._lab_ng, self._lab_cf)
+                loss = masked_token_ce(logits, TG[idx], MK[idx])
+                opt.step(torch.autograd.grad(loss, params))
+                if losses is not None:
+                    losses.append(loss.detach())
+        finally:
+            self.model.eval()
+            self._labels = None
+        return loss.item()
 
     # -- inference --------------------------------------------------------------
     @torch.inference_mode()

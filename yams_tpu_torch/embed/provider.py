@@ -16,6 +16,9 @@ passes it through.
   checkpoint is the repository's `yams_tpu/embed/checkpoints/
   realtext_bert_d192.npz`, read by path as a data file.
 - `register_provider`, `create_provider`, `list_providers`: the registry.
+  `unregister_provider` is the port's own: the plugin manager removes the
+  provider of a plugin it unloads (the reference never removes one, so a
+  model of an unloaded plugin stays creatable).
 
 `SimeonProvider` is the port of the reference's with the pieces of
 yams_tpu/embed/simeon.py `SimeonEncoder` it runs. Tokenization and the
@@ -238,6 +241,15 @@ _REGISTRY: dict[str, Callable] = {
 
 def register_provider(name: str, factory: Callable) -> None:
     _REGISTRY[name] = factory
+
+
+def unregister_provider(name: str, factory: Callable | None = None) -> bool:
+    """Remove `name` from the registry; with `factory`, only while `name`
+    still maps to that factory. True if it was removed."""
+    if name not in _REGISTRY or (factory is not None and _REGISTRY[name] is not factory):
+        return False
+    del _REGISTRY[name]
+    return True
 
 
 def create_provider(name: str, **kw):

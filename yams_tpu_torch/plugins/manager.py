@@ -20,6 +20,10 @@ these ways only:
   `plugins/neural_ner.py`) imports it as that module, so its relative
   imports resolve; the reference imports it as a top-level module, where
   they fail, so it cannot load its bundled plugins from the trust list.
+- `unload` removes the model providers that `_wire` registered for that
+  plugin, and only those (a name that a later registration took over stays
+  registered); the reference leaves them in the provider registry, so a
+  model of an unloaded plugin stays creatable.
 """
 
 from __future__ import annotations
@@ -65,6 +69,8 @@ class PluginManager:
         self.trust_file = pathlib.Path(trust_file) if trust_file else None
         self.plugins: dict[str, PluginManifest] = {}
         self.errors: dict[str, str] = {}
+        # plugin name -> the provider factory _wire registered under it
+        self._providers: dict[str, object] = {}
 
     # -- trust list ----------------------------------------------------------
     def trusted_paths(self) -> list[pathlib.Path]:
@@ -178,6 +184,10 @@ class PluginManager:
                 m.shutdown()
             except Exception:
                 pass
+        if name in self._providers:
+            from ..embed.provider import unregister_provider
+
+            unregister_provider(name, self._providers.pop(name))
         return True
 
     # -- adapter wiring (abi_*.cpp analogs) -----------------------------------------
@@ -211,8 +221,11 @@ class PluginManager:
                     return self.encode(texts), torch.eye(
                         self.dim, dtype=torch.bfloat16, device=self.device)
 
-            register_provider(manifest.name,
-                              lambda device="cuda", **kw: _PluginProvider(device))
+            def factory(device="cuda", **kw):
+                return _PluginProvider(device)
+
+            register_provider(manifest.name, factory)
+            self._providers[manifest.name] = factory
 
         ce = manifest.get_interface(IFACE_CONTENT_EXTRACTOR)
         if ce is not None:

@@ -1,1 +1,1 @@
-"""The port's experiments: `python -m yams_tpu_torch.scripts.<name>`."""
+"""The port's experiments, trainers and evaluations: `python -m yams_tpu_torch.scripts.<name>`."""

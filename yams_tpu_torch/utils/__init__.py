@@ -1,1 +1,2 @@
-"""Host utilities the services run: TextRank keyphrases and MinHash."""
+"""Host utilities: TextRank keyphrases, MinHash, the retrieval metrics, BEIR
+datasets and the optimizer of the trainers."""
