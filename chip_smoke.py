@@ -158,7 +158,7 @@ seconds):
      s): add_documents split into tokenizer, forward and index,
      search_batch(64) first and steady, and card == CPU (results_agree,
      ties named) on 2,048-document engines at f32 compute, 16 queries;
-     (c) the ColBERT tier and the fragment arm on 16,384 documents (one
+     (c) the ColBERT tier and the fragment arm on 8,192 documents (one
      forward a document for its tokens and one for its sentences, as in
      the reference): search_batch(64) steady with late_interaction_ms,
      then with fragment_geometry_ms; a doc holding the query's exact
@@ -174,7 +174,7 @@ seconds):
      embed_batch, the CLI's search and model list equal to the daemon's,
      16 searches equal across a restart;
  13. the rest of the service layer: (a) a card daemon and a CPU daemon,
-     each trusting the bundled NER plugin (autoloaded, health ok), add 256
+     each trusting the bundled NER plugin (autoloaded, health ok), add 128
      zipf notes of phase 10's kind and 32 notes naming code identifiers and
      multiword proper names through async ingest; the card's NER logits
      within 1e-4 of the CPU module on 64 notes' windows, tags equal but the
@@ -229,7 +229,31 @@ seconds):
      whole root on the card (bf16, hybrid and hybrid + ColBERT, chunk and
      file level), and a 300-file cut at f32 on the CSR leg on the card
      and the CPU, every metric within 0.005 and the top-10 equal on >=
-     98% of queries, the rest named.
+     98% of queries, the rest named;
+ 15. scale-out on a mesh of cards driven from one process (every shard on
+     its own card where enough are visible, else a virtual mesh of shards
+     on the one card): (a) sharded_hybrid_query at the reference's config
+     4 width, a 10,485,760 x 768 int8 corpus with row scales (8.05 GB, made
+     on the card in blocks), phase 4's packed postings, rows_are_docs, B
+     64, C 32, k 10 over 8 shards, against the single-device
+     hybrid_query(int8_corpus=True) on the same arrays (values within 2e-3
+     at every rank, top-10 id overlap >= 0.9, each differing id a near-tie
+     within 1e-4); the same at 4,194,304 x 768 bf16 (phase 8's generator)
+     over 2, 4 and 8 shards and the 2 x 4 ("dcn", "ici") mesh;
+     sharded_int8_topk, sharded_topk and sharded_pq_topk (PQ4 codes of a
+     1,048,576 x 768 clustered corpus, m 48, group 1 and 64) against
+     int8_topk_scan, exact_topk_scan and pq_adc_topk; each timed (CUDA
+     events) beside its single-device program, with the local scans, the
+     merge and the rest split; (b) phase 3's card engine armed over 4
+     shards against itself unarmed (trace sharded_devices 4, results
+     within 2e-2 with near-ties named), 64 documents added and 8 deleted
+     searchable at once with the bytes re-placed, and chunk_agg "sum" and
+     the PQ tier served on one device; (c) AppContext: "auto" arms over
+     every card when more than one is visible, else stays on the card, and
+     "on" raises the reference's error with one; (d) (b)'s sharded arrays
+     saved at epoch 3 over 4 shards and restored onto 2 and 8 shards and
+     one device bit-equal, min_epoch 4 refused, save and restore MB/s;
+     (e) scripts/dryrun_multichip over 8 shards.
 
 The kernel launch counters are zeroed just before each path and read just
 after: the add path (phases 2-3) must launch gear_hash_cuda and
@@ -250,7 +274,9 @@ phase 13's downloads must launch gear_hash_cuda and sha256_cuda, and its
 device operations (the NER window forward, bm25_dense) are printed with
 their calls, times and bounds; phase 14's path runs torch operations only
 (no chunk of its adds reaches K5's 32 MiB), and its counts are printed with
-each training step's time, device operations and bound. At
+each training step's time, device operations and bound; phase 15's path
+runs torch operations only (the shards' scans, the merge, the fusion), and
+its counts are printed. At
 the end no module of
 yams_tpu, jax, jaxlib or flax
 may be loaded. The second-last line is the kernels' JSON record (each with
@@ -3226,8 +3252,9 @@ def phase12_engine(dev, docs, queries, subs, n_docs: int = 70_000) -> dict:
 EXACT_DOC = (900_000, "gradient descent optimizer converges", "")
 
 
-def phase12_tiers(dev, docs, queries, subs, counts: CallCounts, n_docs: int = 16_384) -> dict:
-    """(c) the ColBERT tier and the fragment arm over 16,384 documents."""
+def phase12_tiers(dev, docs, queries, subs, counts: CallCounts, n_docs: int = 8_192) -> dict:
+    """(c) the ColBERT tier and the fragment arm over 8,192 documents (cut
+    from 16,384 to keep the whole smoke well inside its time limit)."""
     from yams_tpu_torch.embed.provider import create_provider
     from yams_tpu_torch.search.engine import SearchEngine
 
@@ -4036,7 +4063,7 @@ def phase13_mcp_auth(dev, data_dir, queries, app_hits) -> dict:
     return out
 
 
-def phase13_services(dev, card: str, eng, cpu, queries, n_notes: int = 256,
+def phase13_services(dev, card: str, eng, cpu, queries, n_notes: int = 128,
                      n_entity: int = 32, blob_bytes: int = 48 << 20) -> dict:
     """Phase 13: the rest of the service layer on the card."""
     import tempfile
@@ -4155,6 +4182,26 @@ ENC_MATCH_STEPS = 5       # steps held card against CPU at full width
 EVAL_CUT_FILES = 300      # of the stand-in root's 900 files for the card == CPU eval
 
 
+class one_cpu_thread:
+    """Runs the block on one intra-op CPU thread when `device` is the CPU.
+    A fit on several threads is not reproducible (its reductions follow the
+    threads' schedule), so the CPU loss curve the card's is held against
+    changed from run to run while the card's stayed bit-equal; on one
+    thread it is the same each time, at about the same speed for the NER
+    model (tests/test_torch_smoke_checks.py holds the repeat)."""
+
+    def __init__(self, device):
+        self.on = device.type == "cpu"
+
+    def __enter__(self):
+        self.threads = torch.get_num_threads()
+        if self.on:
+            torch.set_num_threads(1)
+
+    def __exit__(self, *exc):
+        torch.set_num_threads(self.threads)
+
+
 def launches_per_step(run) -> dict:
     """The device operations of one training step: those of run(4) less
     those of run(2), over 2 (so the set-up both share cancels)."""
@@ -4190,8 +4237,9 @@ def phase14_root(tmp) -> dict:
 
 def phase14_ner(dev, root) -> dict:
     """(b) train_ner_default's corpus and configuration through NerModel.fit
-    on the card and on the CPU from the same weights, twice on the card (its
-    run-to-run spread), then extract and the real-text span F1."""
+    on the card and on the CPU (on one thread, so that it is reproducible)
+    from the same weights, twice on the card (its run-to-run spread), then
+    extract and the real-text span F1."""
     from yams_tpu_torch.embed.ner import NerModel
     from yams_tpu_torch.plugins.neural_ner import _BUNDLED
     from yams_tpu_torch.scripts import eval_ner_realtext as enr
@@ -4208,7 +4256,8 @@ def phase14_ner(dev, root) -> dict:
             m.model.load_state_dict(init)
         got = []
         t = time.perf_counter()
-        m.fit(train, steps=NER_FIT_STEPS, lr=tnd.LR, batch=tnd.BATCH, losses=got)
+        with one_cpu_thread(device):
+            m.fit(train, steps=NER_FIT_STEPS, lr=tnd.LR, batch=tnd.BATCH, losses=got)
         if device.type == "cuda":
             torch.cuda.synchronize()
         step_ms[name] = (time.perf_counter() - t) * 1e3 / NER_FIT_STEPS
@@ -4257,7 +4306,8 @@ def phase14_ner(dev, root) -> dict:
     for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
         short[name] = NerModel(cfg, seed=0, device=device)
         short[name].model.load_state_dict(init)
-        short[name].fit(train, steps=NER_SHARED_STEPS, lr=tnd.LR, batch=tnd.BATCH)
+        with one_cpu_thread(device):
+            short[name].fit(train, steps=NER_SHARED_STEPS, lr=tnd.LR, batch=tnd.BATCH)
     within = agree(short["card"], short["cpu"])
     ties = near_ties(within["probs"], 1e-4) & live
     named = [(int(w), int(t)) for w, t in zip(*np.nonzero(ties))]
@@ -4462,6 +4512,407 @@ def phase14_ops(training: dict) -> list:
              "bound_gflop": enc["bound_ops"] / 1e9, "bound_mb": enc["bound_bytes"] / 1e6}]
 
 
+# -- phase 15 -----------------------------------------------------------------
+def mesh_of(dev, shape: tuple, names: tuple):
+    """A mesh of prod(shape) shards: one card each when that many are
+    visible, else every shard on `dev` (a virtual mesh). -> (mesh, real)."""
+    from yams_tpu_torch.parallel.mesh import Mesh, virtual_mesh
+
+    n = int(np.prod(shape))
+    if dev.type == "cuda" and torch.cuda.device_count() >= n:
+        grid = np.empty(n, dtype=object)
+        for i in range(n):
+            grid[i] = torch.device("cuda", i)
+        return Mesh(grid.reshape(shape), names), True
+    return virtual_mesh(shape, names, dev), False
+
+
+def clustered_int8(dev, gen, N: int, D: int = 768, block: int = 1 << 18):
+    """clustered_corpus's rows made a block at a time and quantized on the
+    card as they are made (no bf16 copy of the whole corpus, no host
+    mirror): (int8 (N, D), f32 row scales (N,))."""
+    from yams_tpu_torch.ops.scan import quantize_rows
+
+    centers = torch.randn(4096, D, generator=gen, device=dev)
+    centers /= centers.norm(dim=1, keepdim=True).clamp_min(1e-9)
+    E8 = torch.empty(N, D, dtype=torch.int8, device=dev)
+    scale = torch.empty(N, dtype=torch.float32, device=dev)
+    for lo in range(0, N, block):
+        hi = min(N, lo + block)
+        ar = torch.arange(lo, hi, device=dev, dtype=torch.int64)
+        assign = (((ar * 2654435761) & 0xFFFFFFFF) >> 7) % 4096
+        noise = torch.randn(hi - lo, D, generator=gen, device=dev, dtype=torch.bfloat16)
+        e = (centers[assign].to(torch.bfloat16) + 0.35 * noise).float()
+        e = (e / e.norm(dim=1, keepdim=True).clamp_min(1e-9)).to(torch.bfloat16)
+        E8[lo:hi], scale[lo:hi] = quantize_rows(e.float())
+    return E8, scale
+
+
+def sharded_split(mesh, axis, args, kw, int8: bool) -> dict:
+    """Device ms of one sharded_hybrid_query and of its stages: the local
+    scans of every shard, the hierarchical merge with the slot dedup, and
+    the rest (the embed once, the lexical leg and the fusion)."""
+    from yams_tpu_torch.parallel.sharded_hybrid import (embed_queries, local_candidates,
+                                                        merge_candidates, sharded_hybrid_query)
+
+    (sk, tid, tm, proj, E, rv, r2s, rs, pd, pi, to, tl, dm, hot, w) = args
+    C, Nd = kw["rrf_cand"], kw["num_slots"]
+    q, qs = embed_queries(sk, proj, int8)
+    cands = local_candidates(mesh, q, qs, E, rv, r2s, rs, dm, None, C=C, num_slots=Nd,
+                             int8_corpus=int8, axis=axis)
+    out = {"total_ms": cuda_ms(lambda: sharded_hybrid_query(
+        mesh, *args, int8_corpus=int8, axis=axis, **kw), 3)}
+    out["local_ms"] = cuda_ms(lambda: local_candidates(
+        mesh, q, qs, E, rv, r2s, rs, dm, None, C=C, num_slots=Nd, int8_corpus=int8,
+        axis=axis), 3)
+    out["merge_ms"] = cuda_ms(lambda: merge_candidates(mesh, cands, C=C, num_slots=Nd,
+                                                       axis=axis), 5)
+    out["rest_ms"] = out["total_ms"] - out["local_ms"] - out["merge_ms"]
+    out["merge_share"] = out["merge_ms"] / out["total_ms"]
+    return out
+
+
+def phase15_hybrid(what: str, mesh, axis, args, kw, int8: bool, B: int) -> dict:
+    """sharded_hybrid_query against the single-device hybrid_query on the
+    same arrays: the reference's gate (values within 2e-3 at every rank,
+    top-10 id overlap >= 0.9), every differing id a near-tie (1e-4), both
+    timed, the sharded call split."""
+    from yams_tpu_torch.parallel.sharded_hybrid import sharded_hybrid_query
+    from yams_tpu_torch.search.fusion import hybrid_query
+
+    hv, hs, _, _ = sharded_hybrid_query(mesh, *args, int8_corpus=int8, axis=axis, **kw)
+    sv, ss, _, _ = hybrid_query(*args, int8_corpus=int8, rows_are_docs=True, **kw)
+    err, differ = fused_agree(what, hv, hs, sv, ss, tol=2e-3, tie=1e-4)
+    overlap = top10_ids_overlap(hs, ss)
+    check(overlap >= 0.9, f"{what}: top-10 id overlap {overlap:.4f} >= 0.9")
+    out = {"max_err": err, "ids_differ": differ, "id_overlap": overlap,
+           "single_ms": cuda_ms(lambda: hybrid_query(*args, int8_corpus=int8,
+                                                     rows_are_docs=True, **kw), 3),
+           **sharded_split(mesh, axis, args, kw, int8)}
+    log(f"[phase15] {what} on {mesh!r}: values within {err:.3g} of the single-device "
+        f"program, {differ} of {hs.numel()} ids differ (near-ties within 1e-4), overlap "
+        f"{overlap:.4f}; single {out['single_ms']:.2f} ms, sharded {out['total_ms']:.2f} ms "
+        f"(local scans {out['local_ms']:.2f}, merge {out['merge_ms']:.3f} = "
+        f"{100 * out['merge_share']:.1f}%, embed + lexical + fusion {out['rest_ms']:.2f}) "
+        f"at B {B}")
+    return out
+
+
+def top10_ids_overlap(a, b) -> float:
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    return float(np.mean([len(set(x) & set(y)) / a.shape[1] for x, y in zip(a, b)]))
+
+
+def phase15_topk(what: str, mesh, sharded, single, k: int, rows_local: int) -> dict:
+    """A sharded scan against its single-device scan on the same arrays
+    (values within 1e-5, differing ids near-ties), both timed, and the
+    merge's own time on lists of the same shapes."""
+    from yams_tpu_torch.parallel.sharded_scan import _merge_topk
+
+    hv, hi = sharded()
+    sv, si = single()
+    err, differ = fused_agree(what, hv, hi, sv, si, tol=1e-5, tie=1e-4)
+    S = mesh.size
+    out = {"max_err": err, "ids_differ": differ, "single_ms": cuda_ms(single, 3),
+           "total_ms": cuda_ms(sharded, 3),
+           "merge_ms": cuda_ms(lambda: _merge_topk([hv] * S, [hi] * S, k=k,
+                                                   rows_local=rows_local,
+                                                   device=mesh.lead), 5)}
+    out["local_ms"] = out["total_ms"] - out["merge_ms"]
+    log(f"[phase15] {what} over {S} shards: values within {err:.3g} of the single-device "
+        f"scan, {differ} ids differ; single {out['single_ms']:.2f} ms, sharded "
+        f"{out['total_ms']:.2f} ms (merge {out['merge_ms']:.3f} ms)")
+    return out
+
+
+def phase15_programs(dev, N8: int = 10_485_760, N16: int = 1 << 22, NPQ: int = 1 << 20,
+                     D: int = 768, B: int = 64, V: int = 65536, WIN: int = 1024) -> dict:
+    """(a) The sharded programs at config 4's width: the int8 corpus of
+    10,485,760 x 768 (8.05 GB with its scales) made on the card in blocks,
+    phase 4's packed postings, rows_are_docs, B 64, C 32, k 10, over eight
+    shards (eight cards, or a virtual mesh on one); then phase 8's bf16
+    corpus of 4,194,304 rows on the 1-D mesh of 2, 4 and 8 shards and on
+    the 2 x 4 ("dcn", "ici") mesh; sharded_topk, sharded_int8_topk and
+    sharded_pq_topk (PQ4 codes, group 1 and 64) against their scans."""
+    from yams_tpu_torch.ops.pq import pq4_pack, pq_adc_topk, pq_encode, pq_train
+    from yams_tpu_torch.ops.scan import exact_topk_scan, int8_topk_scan
+    from yams_tpu_torch.parallel.sharded_scan import (sharded_int8_topk, sharded_pq_topk,
+                                                      sharded_topk)
+    from yams_tpu_torch.search.config import SearchEngineConfig
+    from yams_tpu_torch.search.fusion import pack_weights
+
+    S, T, K, C = 4096, 16, 10, 32
+    out: dict = {"batch": B, "rrf_cand": C, "k": K}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 15)
+    mesh8, real = mesh_of(dev, (8,), ("d",))
+    out["mesh"] = {"shards": 8, "real_cards": real}
+    proj = torch.where(torch.rand(S, D, generator=gen, device=dev) < 0.5, 1.0, -1.0)
+    proj = (proj / np.sqrt(D)).to(torch.bfloat16)
+    sk = torch.randn(B, S, generator=gen, device=dev)
+    tid = torch.randint(0, V, (B, T), generator=gen, device=dev, dtype=torch.int32)
+    tm = torch.ones(B, T, device=dev)
+    w = torch.from_numpy(pack_weights(SearchEngineConfig())).to(dev)
+    dummy = torch.zeros(1, dtype=torch.int32, device=dev)
+    kw = dict(k=K, rrf_cand=C, window=WIN, packed_lexical=True, bm25_prefilter=256)
+
+    def problem(N, E, scale):
+        packed, pscale = packed_postings(dev, N, V, WIN)
+        ones = torch.ones(N, device=dev)
+        return ((sk, tid, tm, proj, E, ones, torch.arange(N, device=dev, dtype=torch.int32),
+                 scale if scale is not None else ones, packed, pscale, dummy, dummy, ones,
+                 torch.zeros(N, device=dev), w), dict(kw, num_slots=N))
+
+    # the int8 corpus at config 4's width
+    t = time.perf_counter()
+    E8, scale8 = clustered_int8(dev, gen, N8, D)
+    args, kwn = problem(N8, E8, scale8)
+    sync_dev(dev)
+    out["int8_build_s"] = time.perf_counter() - t
+    out["int8_bytes"] = E8.nbytes + scale8.nbytes
+    log(f"[phase15] int8 corpus {N8}x{D} with row scales ({out['int8_bytes'] / 1e9:.2f} GB), "
+        f"made on the card in {out['int8_build_s']:.2f} s; mesh of 8 shards "
+        f"({'eight cards' if real else 'virtual, on one card'})")
+    out["int8_hybrid"] = phase15_hybrid("int8 sharded_hybrid_query", mesh8, "d", args, kwn,
+                                        True, B)
+    q = torch.nn.functional.normalize(sk @ proj.float(), dim=1)
+    out["int8_topk"] = phase15_topk(
+        "sharded_int8_topk", mesh8,
+        lambda: sharded_int8_topk(mesh8, q, E8, scale8, args[5], K, block_rows=4096),
+        lambda: int8_topk_scan(q, E8, scale8, args[5], K, block_rows=4096), K, N8 // 8)
+    del E8, scale8, args
+    empty_cache(dev)
+
+    # the bf16 corpus: the 1-D mesh of 2, 4 and 8 shards, and 2 x 4
+    t = time.perf_counter()
+    E16 = clustered_corpus(dev, gen, N16, D)
+    args, kwn = problem(N16, E16, None)
+    sync_dev(dev)
+    log(f"[phase15] bf16 corpus {N16}x{D} ({E16.nbytes / 1e9:.2f} GB) built in "
+        f"{time.perf_counter() - t:.2f} s")
+    out["bf16_hybrid"] = {}
+    for shape, names in (((2,), ("d",)), ((4,), ("d",)), ((8,), ("d",)),
+                         ((2, 4), ("dcn", "ici"))):
+        mesh, _ = mesh_of(dev, shape, names)
+        axis = names if len(names) > 1 else names[0]
+        key = "x".join(map(str, shape))
+        out["bf16_hybrid"][key] = phase15_hybrid(f"bf16 sharded_hybrid_query {key}", mesh,
+                                                 axis, args, kwn, False, B)
+    out["bf16_topk"] = phase15_topk(
+        "sharded_topk", mesh8,
+        lambda: sharded_topk(mesh8, q, E16, args[5], K, block_rows=4096),
+        lambda: exact_topk_scan(q, E16, args[5], K, block_rows=4096), K, N16 // 8)
+    del E16, args
+    empty_cache(dev)
+
+    # PQ4 codes of a clustered corpus (phase 5's m 48, ksub 16, packed)
+    t = time.perf_counter()
+    Epq = clustered_corpus(dev, gen, NPQ, D)
+    sample = Epq[torch.randperm(NPQ, generator=gen, device=dev)[:65_536]].float().cpu().numpy()
+    cb = pq_train(sample, m=48, ksub=16, train_limit=65_536, device=dev)
+    codes = torch.cat([pq_encode(cb, Epq[lo:lo + (1 << 18)].float())
+                       for lo in range(0, NPQ, 1 << 18)])
+    packed4 = torch.from_numpy(pq4_pack(codes.cpu().numpy())).to(dev)
+    qpq = Epq[:B].float()
+    del Epq, codes
+    valid = torch.ones(NPQ, device=dev)
+    log(f"[phase15] PQ4 codes of {NPQ}x{D} (m 48, ksub 16, packed: "
+        f"{packed4.nbytes / 1e6:.1f} MB) in {time.perf_counter() - t:.2f} s")
+    out["pq4_topk"] = {}
+    for group in (1, 64):
+        out["pq4_topk"][f"group{group}"] = phase15_topk(
+            f"sharded_pq_topk group {group}", mesh8,
+            lambda g=group: sharded_pq_topk(mesh8, qpq, packed4, cb.centroids, valid, K,
+                                            packed4=True, group=g),
+            lambda g=group: pq_adc_topk(qpq, packed4, cb.centroids, valid, K,
+                                        packed4=True, group=g), K, NPQ // 8)
+    return out
+
+
+def sync_dev(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def empty_cache(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase15_engine(dev, eng, queries, n_shards: int = 4) -> tuple[dict, tuple]:
+    """(b) Phase 3's card engine armed over a 4-shard mesh against itself
+    unarmed (topology off for both): sharded_devices in the trace, the same
+    top-10 but near-ties within the reference's engine gate (2e-2); then
+    64 documents added and 8 deleted, searchable at once, with the bytes
+    re-placed; the PQ tier and chunk_agg "sum" serve on one device."""
+    cfg = eng.config
+    saved = (cfg.topology_policy, cfg.chunk_agg, cfg.pq_tier_enabled)
+    mesh, real = mesh_of(dev, (n_shards,), ("d",))
+    out: dict = {"shards": n_shards, "real_cards": real,
+                 "rows": eng.vector_index.active_rows,
+                 "capacity": eng.vector_index.capacity}
+    try:
+        cfg.topology_policy = "off"
+        _, single_s, want = timed_search(dev, eng, queries)
+        check(eng.last_trace.get("sharded_devices") is None, "unarmed: one device")
+        check(eng.enable_sharding(mesh), "enable_sharding arms the mesh")
+        vi = eng.vector_index
+        up0 = vi.upload_bytes_total
+        first_s, sharded_s, got = timed_search(dev, eng, queries)
+        out["placed_bytes"] = vi.upload_bytes_total - up0
+        check(eng.last_trace.get("sharded_devices") == n_shards,
+              f"trace names {n_shards} shards ({eng.last_trace.get('sharded_devices')})")
+        out["vs_unarmed"] = results_agree("sharded engine against itself unarmed", got, want,
+                                          atol=2e-2)
+        out["top10_overlap"] = top10_overlap(got, want)
+        out.update(single_ms=single_s * 1e3, sharded_first_ms=first_s * 1e3,
+                   sharded_ms=sharded_s * 1e3)
+        log(f"[phase15] engine ({out['rows']} rows, capacity {out['capacity']}) over "
+            f"{n_shards} shards ({'cards' if real else 'virtual'}): search_batch(64) "
+            f"{out['sharded_ms']:.1f} ms (first {out['sharded_first_ms']:.1f} ms, placing "
+            f"{out['placed_bytes'] / 1e6:.1f} MB) against {out['single_ms']:.1f} ms unarmed; "
+            f"top-10 overlap {out['top10_overlap']:.4f}, {json.dumps(out['vs_unarmed'])}")
+
+        # mutations: searchable at once, the whole corpus re-placed
+        base = 900_000
+        new = [(base + i, f"zq{i}x unique{i}marker sharded scaleout note {i}", f"zq{i}x")
+               for i in range(64)]
+        eng.add_documents(new)
+        for doc_id, *_ in new[:8]:
+            eng.remove_document(doc_id)
+        up1 = vi.upload_bytes_total
+        res = eng.search_batch([f"zq{i}x unique{i}marker" for i in range(64)])
+        out["replaced_bytes"] = vi.upload_bytes_total - up1
+        check(eng.last_trace.get("sharded_devices") == n_shards, "mutated: still sharded")
+        hit = [bool(res[i]) and res[i][0].doc_id == base + i for i in range(8, 64)]
+        gone = {base + i for i in range(8)}
+        check(all(hit), f"the 56 kept new docs rank first ({sum(hit)})")
+        check(not any(x.doc_id in gone for r in res for x in r), "no deleted doc returned")
+        log(f"[phase15] 64 documents added and 8 deleted: each kept one first for its own "
+            f"words, none deleted returned; {out['replaced_bytes'] / 1e6:.1f} MB re-placed")
+        arrays = vi.sharded_device_arrays(mesh, "d")
+
+        # features the sharded program cannot express serve on one device
+        cfg.chunk_agg = "sum"
+        eng.search_batch(queries[:8])
+        check("sharded_devices" not in eng.last_trace, "chunk_agg sum: one device")
+        cfg.chunk_agg = "max"
+        eng.vector_index.build_pq(m=32, ksub=16, pack4=True, group=64)
+        cfg.pq_tier_enabled = True
+        eng.search_batch(queries[:8])
+        check("sharded_devices" not in eng.last_trace, "the PQ tier: one device")
+        log("[phase15] chunk_agg='sum' and the PQ tier served on one device (no "
+            "sharded_devices in the trace)")
+        return out, arrays
+    finally:
+        cfg.topology_policy, cfg.chunk_agg, cfg.pq_tier_enabled = saved
+        eng._shard_mesh = None
+
+
+def phase15_app(dev) -> dict:
+    """(c) AppContext arming: over every card with "auto" when more than
+    one is visible; on one card "auto" stays on it and "on" raises the
+    reference's error."""
+    import tempfile
+
+    from yams_tpu_torch.core.config import load_config
+    from yams_tpu_torch.parallel.mesh import visible_devices
+    from yams_tpu_torch.services.app import AppContext
+
+    n = len(visible_devices(dev))
+    old = os.environ.get("YAMS_VECTOR_SHARDED")
+    out = {"visible": n}
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            os.environ["YAMS_VECTOR_SHARDED"] = "auto"
+            app = AppContext(load_config(data_dir=pathlib.Path(td) / "a"), device=dev)
+            try:
+                out["auto_armed"] = app.sharded
+                mesh = app.search_engine._shard_mesh
+                check(app.sharded == (n > 1) and (mesh is None or mesh.size == n),
+                      f"'auto' arms over all {n} devices only when more than one")
+            finally:
+                app.close()
+            os.environ["YAMS_VECTOR_SHARDED"] = "on"
+            try:
+                app = AppContext(load_config(data_dir=pathlib.Path(td) / "b"), device=dev)
+            except RuntimeError as e:
+                check(n == 1 and "only one device is visible" in str(e), f"'on' raised {e}")
+                out["on_raised"] = str(e)
+            else:
+                check(n > 1 and app.sharded, "'on' armed")
+                app.close()
+    finally:
+        if old is None:
+            os.environ.pop("YAMS_VECTOR_SHARDED", None)
+        else:
+            os.environ["YAMS_VECTOR_SHARDED"] = old
+    log(f"[phase15] AppContext with {n} visible device(s): 'auto' armed {out['auto_armed']}; "
+        f"'on' {'raised: ' + out['on_raised'] if 'on_raised' in out else 'armed'}")
+    return out
+
+
+def phase15_checkpoint(dev, arrays) -> dict:
+    """(d) (b)'s sharded arrays saved at epoch 3 over 4 shards, restored
+    onto 2 and 8 shards and one device, each bit-equal; min_epoch 4
+    raises. Save and restore MB/s."""
+    import tempfile
+
+    from yams_tpu_torch.index.checkpoint import restore_sharded, save_sharded, sharded_template
+
+    names = ("E", "valid", "row2slot", "row_scale")
+    tree = dict(zip(names, arrays))
+    whole = {k: torch.cat([p.to(dev) for p in v]) for k, v in tree.items()}
+    nbytes = sum(t.nbytes for t in whole.values())
+    out: dict = {"bytes": nbytes}
+    with tempfile.TemporaryDirectory() as td:
+        sync_dev(dev)
+        t = time.perf_counter()
+        save_sharded(td, tree, epoch=3)
+        out["save_MBps"] = nbytes / 1e6 / (time.perf_counter() - t)
+        out["restore_MBps"] = {}
+        for label, shape in (("2 shards", (2,)), ("8 shards", (8,)), ("one device", None)):
+            mesh = mesh_of(dev, shape or (1,), ("d",))[0]
+            spec = ("d",) if shape else (None,)
+            tpl = {k: sharded_template(v, mesh, spec + (None,) * (v.dim() - 1))
+                   for k, v in whole.items()}
+            t = time.perf_counter()
+            got, epoch = restore_sharded(td, tpl, min_epoch=3)
+            sync_dev(dev)
+            out["restore_MBps"][label] = nbytes / 1e6 / (time.perf_counter() - t)
+            for k, v in got.items():
+                back = torch.cat(v) if isinstance(v, list) else v
+                check(epoch == 3 and torch.equal(back.to(dev), whole[k]),
+                      f"{k} restored onto {label} bit-equal")
+        try:
+            restore_sharded(td, {}, min_epoch=4)
+        except ValueError as e:
+            check("stale" in str(e), f"min_epoch 4 raised {e}")
+        else:
+            check(False, "min_epoch 4 raised")
+    log(f"[phase15] checkpoint of {nbytes / 1e6:.1f} MB over 4 shards: save "
+        f"{out['save_MBps']:.0f} MB/s; restore " + ", ".join(
+            f"{k} {v:.0f} MB/s" for k, v in out["restore_MBps"].items())
+        + "; every restore bit-equal; min_epoch 4 refused")
+    return out
+
+
+def phase15_scale_out(dev, card: str, eng, queries) -> dict:
+    from yams_tpu_torch.scripts.dryrun_multichip import dryrun_multichip
+
+    log(f"[phase15] {card}")
+    out = {"programs": phase15_programs(dev)}
+    empty_cache(dev)
+    out["engine"], arrays = phase15_engine(dev, eng, queries)
+    out["app"] = phase15_app(dev)
+    out["checkpoint"] = phase15_checkpoint(dev, arrays)
+    del arrays
+    t = time.perf_counter()
+    out["dryrun"] = dryrun_multichip(8, dev)
+    out["dryrun"]["seconds"] = time.perf_counter() - t
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; nothing was run", file=sys.stderr)
@@ -4593,10 +5044,16 @@ def main() -> int:
         "operations; no chunk reaches K5's 32 MiB)")
     log("[phase14] device operations " + json.dumps(phase14_ops(training)))
 
+    zero()
+    scale_out = phase("phase15", phase15_scale_out, dev, card, eng, queries)
+    so_launches = read()
+    log(f"[scale-out path] kernel launches {so_launches} (the shards' scans, the merge and "
+        "the fusion are torch operations, as the reference's shards run XLA)")
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("yams_tpu", "jax", "jaxlib", "flax"))
     check(not loaded, f"no module of yams_tpu, jax, jaxlib or flax loaded (found {loaded})")
-    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'neural': neural, 'services13': services13, 'training': training, 'torch': torch.__version__})}")
+    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'neural': neural, 'services13': services13, 'training': training, 'scale_out': scale_out, 'torch': torch.__version__})}")
 
     sources = {
         "gear_hash_cuda": ("yams_tpu_torch/csrc/gear_hash.cu", "yams_tpu/ops/cdc.py:65",
@@ -4630,6 +5087,7 @@ def main() -> int:
         records[-1]["launches_phase12"] = neural_launches[name]
         records[-1]["launches_phase13"] = svc13_launches[name]
         records[-1]["launches_phase14"] = train_launches[name]
+        records[-1]["launches_phase15"] = so_launches[name]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -618,3 +618,48 @@ def test_ported_scripts_keep_the_reference_constants():
     assert (cfg.dm, cfg.heads, cfg.layers, cfg.window, cfg.labels) == (64, 4, 2, 32, ("entity",))
     assert (train_ner_default.STEPS, train_ner_default.LR, train_ner_default.BATCH) == \
         (1200, 3e-3, 32)
+
+
+def test_test_fixtures_match_reference():
+    """utils/fixtures.py: the same seeded corpora, queries and bytes."""
+    from yams_tpu import utils as ref_utils
+    from yams_tpu_torch import utils as port_utils
+
+    assert set(port_utils.__all__) == set(ref_utils.__all__)
+    for seed, kw in ((0, {}), (7, dict(docs_per_topic=4, topics=["ml", "music"],
+                                       queries_per_topic=2, filler_ratio=0.1))):
+        ref_gen, port_gen = ref_utils.TestDataGenerator(seed), port_utils.TestDataGenerator(seed)
+        want, got = ref_gen.corpus(**kw), port_gen.corpus(**kw)
+        assert [dataclasses.astuple(d) for d in got.docs] == \
+            [dataclasses.astuple(d) for d in want.docs]
+        assert got.queries == want.queries
+        assert got.relevant_names("ml") == want.relevant_names("ml")
+        assert port_gen.random_bytes(1000) == ref_gen.random_bytes(1000)
+        assert port_gen.compressible_bytes(3000, 16) == ref_gen.compressible_bytes(3000, 16)
+
+
+def test_benchmark_tracker_matches_reference(tmp_path, monkeypatch):
+    """utils/benchtrack.py: the same statuses and the same baseline JSON
+    (the clock and platform fields pinned)."""
+    import json
+    import time
+
+    from yams_tpu.utils.benchtrack import BenchmarkTracker as RefTracker
+    from yams_tpu_torch.utils import BenchmarkTracker
+
+    monkeypatch.setattr(time, "time", lambda: 1234.5)
+    runs = [("qps", 100.0, "q/s", True), ("qps", 40.0, "q/s", True),
+            ("p99", 2.0, "ms", False), ("p99", 2.5, "ms", False), ("p99", 9.0, "ms", False)]
+    files = {}
+    for name, cls in (("ref", RefTracker), ("port", BenchmarkTracker)):
+        path = tmp_path / name / "base.json"
+        outs = []
+        for i, (metric, value, unit, hib) in enumerate(runs):
+            if i == 3:
+                monkeypatch.setenv("YAMS_TPU_UPDATE_BASELINES", "1")
+            outs.append(cls(path).record(metric, value, unit, higher_is_better=hib))
+        monkeypatch.delenv("YAMS_TPU_UPDATE_BASELINES")
+        files[name] = (outs, json.loads(path.read_text()))
+    assert files["port"] == files["ref"]
+    assert [o["status"] for o in files["port"][0]] == ["new", "regression", "new", "ok",
+                                                       "regression"]

@@ -310,6 +310,32 @@ def test_the_training_slice_runs_with_the_reference_refused(tmp_path):
     assert out.strip().endswith("[]")
 
 
+def test_the_sharded_slice_runs_with_the_reference_refused(tmp_path):
+    """The scale-out slice (parallel/, the sharded engine route, sharded
+    checkpoints) and the dryrun script on a virtual mesh of CPU shards,
+    with yams_tpu, jax, jaxlib, flax and optax refused."""
+    out = _run_guarded(f"""
+        import contextlib, io
+        import torch
+        from yams_tpu_torch.index.checkpoint import (restore_sharded, save_sharded,
+                                                     sharded_template)
+        from yams_tpu_torch.parallel.mesh import virtual_mesh
+        from yams_tpu_torch.scripts import dryrun_multichip
+        sink = io.StringIO()
+        with contextlib.redirect_stdout(sink):
+            assert dryrun_multichip.main(["8", "--device", "cpu"]) == 0
+        assert sink.getvalue().startswith("dryrun_multichip ok: virtual mesh of 8"), sink.getvalue()
+        x = torch.arange(64.0).reshape(16, 4)
+        save_sharded({str(tmp_path / "ck")!r}, {{"x": x.chunk(4)}}, epoch=2)
+        got, epoch = restore_sharded({str(tmp_path / "ck")!r}, {{"x": sharded_template(
+            x, virtual_mesh(2, "d", "cpu"), ("d", None))}})
+        assert epoch == 2 and torch.equal(torch.cat(got["x"]), x)
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in {REFUSED!r})
+        print(loaded)
+    """)
+    assert out.strip().endswith("[]")
+
+
 def test_the_guard_refuses_the_reference():
     """The finder above does refuse: importing yams_tpu through it fails."""
     proc = subprocess.run([sys.executable, "-c", _GUARD + "import yams_tpu.core.config"],
@@ -500,6 +526,20 @@ def _lexical_search(device):
     return torch.device(device or "cuda")
 
 
+def _corpus_mesh(device):
+    from yams_tpu_torch.parallel import corpus_mesh
+    return corpus_mesh(**({} if device is None else {"device": device})).lead
+
+
+def _dryrun(device):
+    import contextlib
+    import io
+    from yams_tpu_torch.scripts.dryrun_multichip import dryrun_multichip
+    with contextlib.redirect_stdout(io.StringIO()):
+        dryrun_multichip(2, **({} if device is None else {"device": device}))
+    return torch.device(device or "cuda")
+
+
 def _mcp_module(device, root):
     import contextlib
     import io
@@ -528,7 +568,8 @@ _ENTRY_POINTS = {"SearchEngine": _search_engine, "ContentStore": _content_store,
                  "TokenIndex": _token_index, "NerModel": _ner_model,
                  "NerModel.fit": _ner_fit, "ContrastiveTrainer": _contrastive_trainer,
                  "run_eval": _run_eval,
-                 "LexicalIndex.search": _lexical_search, "mcp": _mcp_module}
+                 "LexicalIndex.search": _lexical_search, "mcp": _mcp_module,
+                 "corpus_mesh": _corpus_mesh, "dryrun_multichip": _dryrun}
 _TAKE_A_DIR = ("ContentStore", "AppContext", "YamsDaemon", "cli", "mcp")
 
 

@@ -21,8 +21,8 @@ dir, at small widths (dim 64):
 - the port's departures: int8 reopens as int8; a checkpoint that fails to
   parse is quarantined, while a RuntimeError from `VectorIndex.load`
   propagates and leaves the files in place; the entity side index is saved
-  and reopened; sharding "on" raises NotImplementedError, and an unknown
-  provider the reference's ValueError;
+  and reopened; sharding "on" on the one CPU device raises the
+  reference's RuntimeError, and an unknown provider its ValueError;
   `YAMS_TPU_DEBUG_NANS` prints that it is not ported; stats list the CPU
   device.
 """
@@ -316,8 +316,11 @@ def test_the_entity_side_index_is_saved_and_reopened(tmp_path):
 
 
 def test_sharding_on_is_not_ported(tmp_path, monkeypatch):
+    """The CPU is one device: "on" raises the reference's error before
+    anything opens, "auto" serves on the one device (the sharded tier on a
+    mesh: tests/test_torch_sharded_engine.py)."""
     monkeypatch.setenv("YAMS_VECTOR_SHARDED", "on")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(RuntimeError, match="only one device is visible"):
         AppContext(port_config_for(tmp_path / "d"), device="cpu")
     monkeypatch.setenv("YAMS_VECTOR_SHARDED", "auto")
     app = AppContext(port_config_for(tmp_path / "d"), device="cpu")

@@ -335,3 +335,29 @@ def test_phase11_bounds_count_the_live_rows():
     assert join["bound_ms"] == pytest.approx(15.23, abs=0.01)
     prop = smoke.propagate_bound(140_000, 8)
     assert prop["bound_by"] == "bytes" and prop["bound_bytes"] == 24 * 140_000 * 26 * 4
+
+
+def test_one_cpu_thread_makes_the_ner_fit_reproducible():
+    """Phase 14 holds the card's NER loss curve against the CPU's: the CPU
+    fit runs on one thread, where two fits from the same weights give the
+    same losses bit for bit, and the thread count is restored after."""
+    from yams_tpu_torch.embed.ner import NerModel
+    from yams_tpu_torch.scripts import train_ner_default as tnd
+
+    train = tnd.training_set(tnd.CONFIG)[0][:256]
+    threads = torch.get_num_threads()
+    init, curves = None, []
+    for _ in range(2):
+        m = NerModel(tnd.CONFIG, seed=0, device="cpu")
+        if init is None:
+            init = {k: v.clone() for k, v in m.model.state_dict().items()}
+        m.model.load_state_dict(init)
+        got = []
+        with smoke.one_cpu_thread(torch.device("cpu")):
+            assert torch.get_num_threads() == 1
+            m.fit(train, steps=30, lr=tnd.LR, batch=tnd.BATCH, losses=got)
+        curves.append([float(x) for x in got])
+        assert torch.get_num_threads() == threads
+    assert curves[0] == curves[1]
+    with smoke.one_cpu_thread(torch.device("meta")):
+        assert torch.get_num_threads() == threads

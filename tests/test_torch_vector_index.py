@@ -237,9 +237,10 @@ def test_port_build_pq_searches():
 
 @pytest.mark.parametrize("call", ["int8", "sharded", "load"])
 def test_unported_tiers_refuse(call, tmp_path):
-    """Sharded views refuse. The int8 tier and persistence refused until the
-    port had them: the int8 tier uploads the reference's int8 codes (an
-    unknown device dtype raises), and a reference index saved with PQ
+    """Each tier refused until the port had it. Sharded views give the
+    reference's rows in per-shard parts (a shard count that does not divide
+    the capacity raises); the int8 tier uploads the reference's int8 codes
+    (an unknown device dtype raises); a reference index saved with PQ
     reloads in the port with equal rows and searches."""
     if call == "int8":
         ref, port = _pair(dtype="int8")
@@ -266,8 +267,24 @@ def test_unported_tiers_refuse(call, tmp_path):
             assert np.array_equal(got[1], np.asarray(want[1]))
             np.testing.assert_allclose(got[0], np.asarray(want[0]), atol=1e-6, rtol=0)
         return
-    with pytest.raises(NotImplementedError):
-        _pair()[1].sharded_device_arrays(mesh=None)
+    from yams_tpu_torch.parallel.mesh import virtual_mesh
+
+    for dtype in ("bfloat16", "int8"):
+        ref, port = _pair(dtype=dtype)
+        for idx in (ref, port):
+            idx.add(_unit(50), list(range(50)))
+            idx.remove_doc(7)
+        parts = port.sharded_device_arrays(virtual_mesh(4, "d", CPU))
+        want = [np.asarray(a) for a in ref.device_arrays()]
+        for got, w in zip(parts, want):
+            assert len(got) == 4
+            g = torch.cat(got)
+            g = g.float() if g.dtype == torch.bfloat16 else g
+            assert np.array_equal(g.numpy(), w.astype(np.float32) if w.dtype.name ==
+                                  "bfloat16" else w)
+        assert port.sharded_device_arrays(virtual_mesh(4, "d", CPU)) is parts
+        with pytest.raises(ValueError, match="not divisible by 3 shards"):
+            port.sharded_device_arrays(virtual_mesh(3, "d", CPU))
 
 
 # -- the int8 device tier ----------------------------------------------------------

@@ -15,7 +15,11 @@ loop:
   (`pq4_adc_cuda`) of `index.vector_index.VectorIndex`;
 - the fused top-C scans `ops.scan.grouped_topk_pallas` (`grouped_max_cuda`)
   and `ops.flash_topk.flash_topc` (`windowed_scan_cuda`), run by the
-  experiments in `scripts/`.
+  experiments in `scripts/`;
+- scale-out: `parallel/` runs the corpus-sharded programs over a mesh of
+  cards driven from this one process (the shards' scans are torch
+  operations, as the reference's are XLA), served by the engine and
+  `services.app.AppContext`, with sharded checkpoints in `index/checkpoint`.
 
 It imports nothing of yams_tpu: the host modules it runs (`core`, `embed`,
 `native`, `ingest`, `storage`, the indexes' host state) are its own copies.

@@ -25,8 +25,8 @@ asks for the CPU):
     and written with NumPy alone, so either package loads the other's.
     `load` takes the device dtype and the device: the reference's loader
     passes no dtype, so an int8 index it reopens comes back bf16.
-
-Sharded views are not ported.
+  - sharded_device_arrays: the row-sharded view of the dense tier over a
+    parallel.mesh.Mesh, one list of per-shard tensors an array.
 """
 
 from __future__ import annotations
@@ -86,6 +86,7 @@ class VectorIndex:
         self.upload_bytes_total = 0  # instrumentation: host->device traffic
         self._device = None  # (E bf16, valid f32, row2slot i32, row_scale f32)
         self.mutation_gen = 0  # bumps on every mutation
+        self._sharded = None  # (key, per-shard arrays): sharded_device_arrays
         self._lock = threading.RLock()
 
     # -- capacity ---------------------------------------------------------------
@@ -117,11 +118,13 @@ class VectorIndex:
             self._pq_valid_device = None  # re-upload on next _pq_arrays
             self._pq_rerank_device = None
 
-    def _upload(self, a: np.ndarray, dtype: torch.dtype | None = None) -> torch.Tensor:
-        """Host array -> a fresh tensor on the device (never a view of `a`)."""
+    def _upload(self, a: np.ndarray, dtype: torch.dtype | None = None,
+                device: torch.device | None = None) -> torch.Tensor:
+        """Host array -> a fresh tensor on the index's device, or `device`
+        (never a view of `a`)."""
+        dev = device or self.device
         t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.to(dtype).to(self.device) if dtype is not None \
-            else t.to(self.device, copy=True)
+        return t.to(dtype).to(dev) if dtype is not None else t.to(dev, copy=True)
 
     def _splice(self, dst: torch.Tensor, src: np.ndarray, blocks: list[int],
                 dtype: torch.dtype | None = None) -> tuple[torch.Tensor, int]:
@@ -258,8 +261,46 @@ class VectorIndex:
                 self._dirty_blocks.clear()
             return self._device
 
-    def sharded_device_arrays(self, mesh, axis: str = "d"):
-        raise NotImplementedError("sharded device views are not ported")
+    def sharded_device_arrays(self, mesh, axis: str | tuple[str, ...] = "d"):
+        """(E, valid, row2slot, row_scale) row-sharded over `mesh`'s `axis`:
+        four lists of per-shard tensors, shard i on its own device (the
+        serving view parallel.sharded_hybrid_query reads).
+
+        Cached per (mutation_gen, device dtype, mesh devices, axis): any
+        mutation re-places the whole corpus on the next use, the
+        reference's contract (ingest arrives in batches). int8 codes are
+        quantized over the whole capacity, as the reference does. Rows are
+        capacity-padded, so a shard count dividing the capacity is
+        required."""
+        from ..parallel.mesh import shard_devices
+
+        with self._lock:
+            key = (self.mutation_gen, self.device_dtype,
+                   tuple(str(d) for d in mesh.devices.flat), axis)
+            if self._sharded is not None and self._sharded[0] == key:
+                return self._sharded[1]
+            devices = shard_devices(mesh, axis)
+            if self.capacity % len(devices):
+                raise ValueError(f"capacity {self.capacity} not divisible by "
+                                 f"{len(devices)} shards")
+            self._sharded = None    # drop the stale placement before uploading
+            rows = self.capacity // len(devices)
+            if self.device_dtype == "int8":
+                e_host, scale_host = quantize_int8(self._vecs)
+                e_dtype = None
+            else:
+                e_host, e_dtype = self._vecs, torch.bfloat16
+                scale_host = np.ones(self.capacity, np.float32)
+
+            def place(a, dtype=None):
+                return [self._upload(a[i * rows:(i + 1) * rows], dtype, d)
+                        for i, d in enumerate(devices)]
+
+            arrays = (place(e_host, e_dtype), place(self._valid), place(self._slots),
+                      place(scale_host))
+            self.upload_bytes_total += sum(p.nbytes for parts in arrays for p in parts)
+            self._sharded = (key, arrays)
+            return arrays
 
     def _gather_blocks(self, src: np.ndarray, blocks: list[int]):
         """Stack dirty blocks for one batched splice. Padded to a power of

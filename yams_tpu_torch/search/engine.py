@@ -43,9 +43,16 @@ kernel, whose route is the unfiltered scan only.
 The narrow gather tier's trace also carries `topology_route_ms` (the
 reference records it for the masked routes only).
 
-Not ported, and refused loudly (NotImplementedError) rather than skipped:
-sharded serving (ROADMAP queue 1 item 9) and vector engines other than
-dense, pq and pq4.
+Sharded serving (`enable_sharding`, `_sharded_eligible` and search_batch's
+`use_sharded` branch, :295-331, 692-694, 942-973): the corpus row-sharded
+over a parallel.mesh.Mesh (real cards, or a virtual mesh of shards on one
+device) through parallel.sharded_hybrid_query, with `sharded_devices` in
+the trace. Batches the sharded program cannot express (the PQ tier,
+chunk_agg other than "max", the late-interaction tier) run on the engine's
+device, as in the reference; a failure on the sharded route raises.
+
+Vector engines other than dense, pq and pq4 are not ported, and refused
+loudly (NotImplementedError).
 """
 
 from __future__ import annotations
@@ -177,6 +184,8 @@ class SearchEngine:
         self.token_index = None     # TokenIndex, opt-in (ColBERT rerank tier)
         self.fragment_index = None  # FragmentIndex, opt-in (fragment geometry)
         self.cross_reranker = None  # optional callable(query, [SearchResult]) -> list
+        self._shard_mesh = None     # parallel.mesh.Mesh once enable_sharding() arms it
+        self._shard_axis: str | tuple[str, ...] = "d"
         self.last_trace: dict | None = None
         self._proj_host: np.ndarray | None = None
         # doc identity: external doc_id <-> dense slot
@@ -293,6 +302,37 @@ class SearchEngine:
             self.fragment_index.remove_doc(slot)
         self._titles.pop(doc_id, None)
         return True
+
+    # -- multi-device serving ----------------------------------------------------
+    def enable_sharding(self, mesh=None, axis: str | tuple[str, ...] = "d") -> bool:
+        """Arm corpus-sharded serving over a device mesh.
+
+        mesh=None builds a 1-D mesh over every visible device of the
+        engine's kind (parallel.mesh.visible_devices); callers with a
+        multi-level or virtual mesh pass their own and a tuple axis. Returns
+        False, and stays on one device, when fewer than two devices are
+        visible."""
+        from ..parallel.mesh import corpus_mesh
+
+        if mesh is None:
+            mesh = corpus_mesh(axis=axis, device=self.device)
+            if mesh.size < 2:
+                return False
+        self._shard_mesh = mesh
+        self._shard_axis = axis
+        return True
+
+    def _sharded_eligible(self, use_pq: bool) -> bool:
+        """Batches route sharded unless a feature the sharded program cannot
+        express is active: the PQ capacity tier, non-max chunk aggregation
+        (the post-merge slot dedup is exactly chunk_agg="max"), or the
+        late-interaction tier (its candidate gather is single-device)."""
+        return (
+            self._shard_mesh is not None
+            and not use_pq
+            and self.config.chunk_agg == "max"
+            and self.token_index is None
+        )
 
     # -- hotzone (feedback) -----------------------------------------------------
     def touch_hot(self, doc_id: int, boost: float = 1.0) -> None:
@@ -649,7 +689,8 @@ class SearchEngine:
         # PQ capacity tier: the dense matrix never reaches the device; the
         # vector leg runs as ADC scan + host rerank outside the fused query
         use_pq = cfg.pq_tier_enabled and self.vector_index.has_pq
-        if not use_pq:
+        use_sharded = self._sharded_eligible(use_pq)
+        if not use_pq and not use_sharded:
             E, row_valid, row2slot, row_scale = self.vector_index.device_arrays()
         bm = self.lexical_index.device_arrays(Nd, dev)
         n_used = len(self._doc_by_slot)
@@ -706,7 +747,7 @@ class SearchEngine:
         # active, or a route has no live member.
         narrow_gather: tuple[np.ndarray, np.ndarray] | None = None
         if (policy == "narrow" and mode != "keyword" and not use_pq
-                and 0 < B_real <= cfg.narrow_gather_max_batch
+                and not use_sharded and 0 < B_real <= cfg.narrow_gather_max_batch
                 and filter_doc_ids is None and per_query_filters is None):
             t_r = time.monotonic()
             qvecs = _query_vecs()
@@ -811,6 +852,30 @@ class SearchEngine:
                 bm25_prefilter=lex_prefilter,
                 packed_lexical=use_packed,
             )
+        elif use_sharded:
+            # the corpus row-sharded over the armed mesh: per-shard KNN,
+            # the hierarchical candidate merge and the slot dedup, then the
+            # lexical leg and fusion on the lead device; the same output
+            # contract as hybrid_query, so everything downstream is unchanged
+            from ..parallel.sharded_hybrid import sharded_hybrid_query
+
+            mesh = self._shard_mesh
+            vals, slots, bm_at, vec_at = sharded_hybrid_query(
+                mesh, to_dev(sketches.astype(np.float32)), to_dev(tids), to_dev(tmask),
+                proj,
+                *self.vector_index.sharded_device_arrays(mesh, self._shard_axis),
+                *lexical, to_dev(doc_mask), hot, to_dev(w),
+                to_dev(mask_idx) if mask_idx is not None else None,
+                k=k_dev,
+                rrf_cand=rrf_c,
+                window=self.lexical_index.config.postings_window,
+                num_slots=Nd,
+                int8_corpus=self.vector_index.device_dtype == "int8",
+                axis=self._shard_axis,
+                packed_lexical=use_packed,
+                bm25_prefilter=lex_prefilter,
+            )
+            trace["sharded_devices"] = mesh.size
         else:
             rows = E.shape[0]
             flat = self.vector_index.identity_layout and rows >= Nd

@@ -14,9 +14,12 @@ only:
   (`vectors/entities/`) and reopened with it; the reference rebuilds it only
   as the graph service indexes documents again, so after its restart the
   entity leg finds nothing until then.
-- Sharding is not ported (ROADMAP queue 1 item 9): `vector.sharded="on"`
-  raises NotImplementedError, and "auto" serves on the one device it was
-  given (`self.sharded` is False, and stats say so).
+- The sharded tier arms over `parallel.mesh.visible_devices(device)`:
+  every card for a CUDA device, the one device for the CPU (a test stands
+  several CPU devices in by patching that function). "on" with one device
+  raises the reference's RuntimeError before anything opens (the
+  reference raises it after opening the store). `self.sharded` says
+  whether the mesh is armed, and the detailed stats name its devices.
 - No JIT cache: the CUDA kernels are cached by `_build.py`. The
   YAMS_TPU_DEBUG_NANS tripwire is not ported; it prints one line saying so.
 - `embedding.provider` in {mock, neural, hf} builds that provider (with
@@ -41,6 +44,7 @@ from ..metadata.db import Database
 from ..metadata.kg import KnowledgeGraphStore
 from ..metadata.repository import MetadataRepository
 from ..metadata.tree import TreeBuilder
+from ..parallel.mesh import visible_devices
 from ..search.engine import SearchEngine
 from ..storage.content_store import ContentStore
 
@@ -57,15 +61,19 @@ class AppContext:
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.config = config or load_config()
-        # YAMS_VECTOR_SHARDED overrides the config, as in the reference
+        # multi-device serving: "auto" and "on" arm the sharded tier over
+        # every visible device of this kind; YAMS_VECTOR_SHARDED overrides
+        # the config, as in the reference. Decided before anything opens, so
+        # a refused "on" leaves no lock held.
         sharded_mode = str(
             os.environ.get("YAMS_VECTOR_SHARDED")
             or getattr(self.config.vector, "sharded", "auto")).lower()
-        if sharded_mode == "on":
-            raise NotImplementedError(
-                "vector.sharded='on': the sharded tier is not ported: "
-                "ROADMAP queue 1 item 9")
-        self.sharded = False   # "auto" serves on the one device it was given
+        arm = False
+        if sharded_mode in ("auto", "on"):
+            arm = len(visible_devices(self.device)) > 1
+            if not arm and sharded_mode == "on":
+                raise RuntimeError(
+                    "vector.sharded='on' but only one device is visible")
         self.config.data_dir.mkdir(parents=True, exist_ok=True)
         self._acquire_lock()
         if os.environ.get("YAMS_TPU_DEBUG_NANS"):
@@ -143,6 +151,7 @@ class AppContext:
             self.search_engine.tuner = SearchTuner(
                 state_path=self.config.data_dir / "tuner.json")
         self._load_indexes()
+        self.sharded = arm and self.search_engine.enable_sharding()
 
         # services (lazy circular-free wiring)
         from .document_service import DocumentService

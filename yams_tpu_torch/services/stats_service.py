@@ -6,7 +6,8 @@ Parity: src/app/services/stats_service.cpp + DaemonMetrics::getSnapshot
 Port of yams_tpu/services/stats_service.py. It departs in the detailed
 snapshot only: `devices` lists the app's torch device (each CUDA card's
 index and name, or "cpu"), `vector_index` adds the tier's device dtype,
-and `sharded` says that the app serves on one device. `version` is the
+`sharded` says whether the app serves over a mesh, and `mesh` gives its
+shape and devices when it does. `version` is the
 port's.
 """
 
@@ -56,6 +57,10 @@ class StatsService:
             out["vector_index"]["device_dtype"] = \
                 app.search_engine.vector_index.device_dtype
             out["sharded"] = app.sharded
+            mesh = app.search_engine._shard_mesh
+            if mesh is not None:
+                out["mesh"] = {"shape": mesh.shape,
+                               "devices": [str(d) for d in mesh.devices.flat]}
             s = app.search_engine.stats()
             if "avg_latency_ms" in s:
                 out["search"]["avg_latency_ms"] = round(s["avg_latency_ms"], 2)
