@@ -253,7 +253,22 @@ seconds):
      "on" raises the reference's error with one; (d) (b)'s sharded arrays
      saved at epoch 3 over 4 shards and restored onto 2 and 8 shards and
      one device bit-equal, min_epoch 4 refused, save and restore MB/s;
-     (e) scripts/dryrun_multichip over 8 shards.
+     (e) scripts/dryrun_multichip over 8 shards;
+ 16. the mobile C ABI and the measurement scripts: (a) a C host compiled
+     with gcc against yams_tpu_torch/native/include/yams_mobile.h and
+     linked to the port's mobile library drives a daemon on the card in
+     this process (add_text, store_document of a 48 MiB random blob,
+     search, grep, get_document, doctor): the store returns the blob's
+     SHA-256 and launches gear_hash_cuda and sha256_cuda, and the search
+     hits equal the same daemon's search from Python; (b) embedded mode
+     over a fresh directory spawns the port's daemon (YAMS_TPU_DEVICE
+     unset: the CLI's default, cuda), whose status and doctor name the
+     card; (c) the scripts at small arguments: bench_ipc_ceiling (16 and
+     64 clients), bench_daemon (1,000 documents, 1 and 16 clients, a
+     quarter filtered), bench_ingest_device (64 MiB; its end-to-end chunks
+     equal the host's), bench_pq at 1,048,576 rows on both routes (K4's
+     recall@10 within 0.01 of the plain ADC's), profile_legs at the bench
+     shape (2 batches) and bench_encode, no request failing.
 
 The kernel launch counters are zeroed just before each path and read just
 after: the add path (phases 2-3) must launch gear_hash_cuda and
@@ -276,7 +291,9 @@ their calls, times and bounds; phase 14's path runs torch operations only
 (no chunk of its adds reaches K5's 32 MiB), and its counts are printed with
 each training step's time, device operations and bound; phase 15's path
 runs torch operations only (the shards' scans, the merge, the fusion), and
-its counts are printed. At
+its counts are printed; phase 16's path must launch gear_hash_cuda,
+sha256_cuda (the C host's store, bench_ingest_device) and pq4_adc_cuda
+(bench_pq's pallas route). At
 the end no module of
 yams_tpu, jax, jaxlib or flax
 may be loaded. The second-last line is the kernels' JSON record (each with
@@ -286,6 +303,7 @@ record.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import hashlib
 import json
@@ -4913,6 +4931,329 @@ def phase15_scale_out(dev, card: str, eng, queries) -> dict:
     return out
 
 
+# -- phase 16 -----------------------------------------------------------------
+ABI_HOST_C = r"""
+/* A C host of the port's mobile ABI: the typed surface against a daemon. */
+#include <stdio.h>
+#include <string.h>
+#include "yams_mobile.h"
+
+static void emit(const char* tag, yams_mobile_string_view v) {
+    printf("%s %.*s\n", tag, (int)v.length, v.data ? v.data : "");
+}
+
+int main(int argc, char** argv) {
+    if (argc != 5) return 64;
+    const char *sock = argv[1], *path = argv[2], *query = argv[3], *pattern = argv[4];
+    yams_mobile_context_config cfg = yams_mobile_context_config_default();
+    cfg.backend_mode = YAMS_MOBILE_BACKEND_DAEMON;
+    cfg.daemon_socket_path = sock;
+    yams_mobile_context_t* ctx = NULL;
+    if (yams_mobile_context_create(&cfg, &ctx) != YAMS_MOBILE_STATUS_OK) {
+        fprintf(stderr, "context_create: %s\n", yams_mobile_last_error_message());
+        return 2;
+    }
+    void* h = yams_mobile_connect(sock);
+    char* added = yams_mobile_add_text(
+        h, "abi/host_note.txt",
+        "the C host stores notes about tensor kernels and socket frames");
+    printf("add_text %s\n", added ? added : "");
+    yams_mobile_free(added);
+    yams_mobile_disconnect(h);
+
+    yams_mobile_document_store_request sreq;
+    memset(&sreq, 0, sizeof sreq);
+    sreq.header = yams_mobile_request_header_default();
+    sreq.path = path;
+    yams_mobile_string_view hash = {0};
+    if (yams_mobile_store_document(ctx, &sreq, &hash) != YAMS_MOBILE_STATUS_OK) {
+        fprintf(stderr, "store_document: %s\n", yams_mobile_last_error_message());
+        return 3;
+    }
+    emit("store", hash);
+
+    yams_mobile_search_request q;
+    memset(&q, 0, sizeof q);
+    q.header = yams_mobile_request_header_default();
+    q.query = query;
+    q.limit = 10;
+    yams_mobile_search_result_t* sr = NULL;
+    if (yams_mobile_search_execute(ctx, &q, &sr) != YAMS_MOBILE_STATUS_OK) return 4;
+    emit("search", yams_mobile_search_result_json(sr));
+    yams_mobile_search_result_destroy(sr);
+
+    yams_mobile_grep_request g;
+    memset(&g, 0, sizeof g);
+    g.header = yams_mobile_request_header_default();
+    g.pattern = pattern;
+    g.max_matches = 10;
+    yams_mobile_grep_result_t* gr = NULL;
+    if (yams_mobile_grep_execute(ctx, &g, &gr) != YAMS_MOBILE_STATUS_OK) return 5;
+    emit("grep", yams_mobile_grep_result_json(gr));
+    yams_mobile_grep_result_destroy(gr);
+
+    yams_mobile_document_get_request dreq;
+    memset(&dreq, 0, sizeof dreq);
+    dreq.header = yams_mobile_request_header_default();
+    dreq.document_hash = hash.data;
+    yams_mobile_document_get_result_t* dr = NULL;
+    if (yams_mobile_get_document(ctx, &dreq, &dr) != YAMS_MOBILE_STATUS_OK) return 6;
+    emit("get_document", yams_mobile_document_get_result_json(dr));
+    yams_mobile_document_get_result_destroy(dr);
+    yams_mobile_string_view_destroy(&hash);
+
+    yams_mobile_string_view report = {0};
+    if (yams_mobile_doctor(ctx, &report) != YAMS_MOBILE_STATUS_OK) return 7;
+    emit("doctor", report);
+    yams_mobile_doctor_result_destroy(&report);
+    yams_mobile_context_destroy(ctx);
+    return 0;
+}
+"""
+
+
+def phase16_abi(dev, root: pathlib.Path) -> dict:
+    """(a) A C host compiled with gcc against the port's yams_mobile.h and
+    linked to its mobile library drives a daemon on the card in this
+    process: add_text, store_document of a 48 MiB blob (K5 and SHA-256 on
+    the card), search, grep, get_document, doctor."""
+    from yams_tpu_torch import native
+    from yams_tpu_torch.core.config import load_config
+    from yams_tpu_torch.ops import cdc, sha256
+
+    out: dict = {}
+    t = time.perf_counter()
+    lib = native.mobile_library()          # builds, or raises: no Python route
+    lib_path = pathlib.Path(lib._name)
+    include = pathlib.Path(native.__file__).parent / "include"
+    (root / "host.c").write_text(ABI_HOST_C)
+    subprocess.run(["gcc", "-O1", "-std=c11", f"-I{include}", str(root / "host.c"),
+                    str(lib_path), f"-Wl,-rpath,{lib_path.parent}", "-o", str(root / "host")],
+                   check=True, capture_output=True, text=True, timeout=120)
+    out["build_s"] = time.perf_counter() - t
+    blob = np.random.default_rng(SEED + 16).bytes(48 << 20)
+    (root / "blob.bin").write_bytes(blob)
+    cfg = load_config(data_dir=root / "data")
+    cfg.daemon.socket_path = str(root / "d.sock")
+    d = ThreadDaemon(cfg, dev)
+    try:
+        g0, s0 = cdc.gear_hash_cuda.launches, sha256.sha256_cuda.launches
+        t = time.perf_counter()
+        proc = subprocess.run([str(root / "host"), str(cfg.socket_path), str(root / "blob.bin"),
+                               "tensor kernels socket", "socket frames"],
+                              capture_output=True, text=True, timeout=300)
+        out["host_s"] = time.perf_counter() - t
+        check(proc.returncode == 0, f"the C host ran ({proc.returncode}: {proc.stderr[-500:]})")
+        got = {}
+        for line in proc.stdout.splitlines():
+            tag, _, body = line.partition(" ")
+            got[tag] = body
+        gear, sha = cdc.gear_hash_cuda.launches - g0, sha256.sha256_cuda.launches - s0
+        check(gear >= 1 and sha >= 1,
+              f"the C host's 48 MiB store launched gear_hash_cuda ({gear}) and sha256_cuda ({sha})")
+        digest = hashlib.sha256(blob).hexdigest()
+        check(got["store"] == digest, "store_document returned the blob's SHA-256")
+        check(json.loads(got["add_text"])["result"]["indexed"], "add_text indexed the note")
+        hits = json.loads(got["search"])["result"]["hits"]
+        want = d.client.search("tensor kernels socket", limit=10)["hits"]
+        check(bool(hits) and hits[0]["name"] == "host_note.txt",
+              f"the C host's search finds the note ({[h['name'] for h in hits]})")
+        check([(h["document_id"], h["path"], h["score"]) for h in hits]
+              == [(h["document_id"], h["path"], h["score"]) for h in want],
+              "the C host's search hits equal the daemon's search from Python")
+        grep = json.loads(got["grep"])["result"]
+        check(grep["files_matched"] == 1, f"grep found the note ({grep['files_matched']})")
+        doc = json.loads(got["get_document"])["result"]
+        check(doc["sha256_hash"] == digest and doc["file_size"] == len(blob),
+              "get_document describes the blob")
+        doctor = json.loads(got["doctor"])["result"]
+        check(doctor["device"][1].startswith(str(dev)) and all(v[0] for v in doctor.values()),
+              f"doctor is green on {dev} ({doctor})")
+        check(d.client.cat(str(root / "blob.bin")) == blob, "the stored blob reads back")
+        out.update({"gear_hash_launches": gear, "sha256_launches": sha,
+                    "hits": len(hits), "doctor_device": doctor["device"][1]})
+    finally:
+        d.stop()
+    log(f"[phase16] C host: built in {out['build_s']:.2f} s, ran in {out['host_s']:.2f} s; "
+        f"48 MiB store launched gear_hash_cuda {out['gear_hash_launches']}, sha256_cuda "
+        f"{out['sha256_launches']}; {out['hits']} hits equal to Python's")
+    return out
+
+
+def phase16_embedded(dev, root: pathlib.Path) -> dict:
+    """(b) BACKEND_EMBEDDED over a fresh directory: the library spawns the
+    port's daemon (python3 -m yams_tpu_torch.cli.main ... daemon start, its
+    device from $YAMS_TPU_DEVICE, unset here on a card so that the CLI's
+    default, cuda, serves) and its status and doctor report the card."""
+    from yams_tpu_torch import native
+    from yams_tpu_torch.daemon.client import DaemonClient
+    from yams_tpu_torch.native import mobile_abi as abi
+
+    lib = native.mobile_library()
+    wd = root / "embedded"
+    wd.mkdir()
+    env_dev = os.environ.pop("YAMS_TPU_DEVICE", None)
+    if dev.type != "cuda":
+        os.environ["YAMS_TPU_DEVICE"] = str(dev)     # a dry run on the host
+    cfg = lib.yams_mobile_context_config_default()
+    cfg.working_directory = str(wd).encode()
+    ctx = ctypes.c_void_p()
+    t = time.perf_counter()
+    try:
+        rc = lib.yams_mobile_context_create(ctypes.byref(cfg), ctypes.byref(ctx))
+        spawn_s = time.perf_counter() - t
+        check(rc == 0, f"embedded context_create ({lib.yams_mobile_last_error_message()})")
+        res = ctypes.c_void_p()
+        check(lib.yams_mobile_status_execute(ctx.value, 0, ctypes.byref(res)) == 0,
+              "status through the embedded context")
+        status = json.loads(lib.yams_mobile_status_result_json(res).text())["result"]
+        lib.yams_mobile_status_result_destroy(res)
+        report = abi.StringView()
+        check(lib.yams_mobile_doctor(ctx.value, ctypes.byref(report)) == 0, "doctor (embedded)")
+        doctor = json.loads(report.text())["result"]
+        lib.yams_mobile_doctor_result_destroy(ctypes.byref(report))
+        lib.yams_mobile_context_destroy(ctx.value)
+        check(status["backend"] == "torch" and status["device"].startswith(dev.type),
+              f"the embedded daemon is the port's on {dev.type} ({status.get('device')})")
+        check(doctor["device"][0] and doctor["device"][1].startswith(dev.type),
+              f"the embedded daemon's doctor names {dev.type} ({doctor['device']})")
+        check(status["data_dir"] == str(wd), "the embedded daemon serves the working directory")
+    finally:
+        os.environ.pop("YAMS_TPU_DEVICE", None)
+        if env_dev is not None:
+            os.environ["YAMS_TPU_DEVICE"] = env_dev
+        try:
+            DaemonClient(wd / "daemon.sock").shutdown()
+        except Exception:       # noqa: BLE001  (gone already; the pid wait below decides)
+            pass
+        pid_file = wd / "daemon.pid"
+        if pid_file.exists():
+            pid = int(pid_file.read_text())
+            for _ in range(300):
+                try:
+                    os.kill(pid, 0)
+                except ProcessLookupError:
+                    break
+                time.sleep(0.1)
+            else:
+                os.kill(pid, 9)
+                check(False, "the embedded daemon stopped on shutdown")
+    log(f"[phase16] embedded: daemon spawned and answering in {spawn_s:.2f} s on "
+        f"{status['device']}")
+    return {"spawn_s": spawn_s, "device": status["device"]}
+
+
+class quiet:
+    """Collect a script's stdout (its lines go to the log in one piece)."""
+
+    def __enter__(self):
+        import contextlib
+        import io
+
+        self.buf = io.StringIO()
+        self.cm = contextlib.redirect_stdout(self.buf)
+        self.cm.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.cm.__exit__(*exc)
+        for line in self.buf.getvalue().splitlines():
+            log(f"[phase16]   {line}")
+        return False
+
+
+def phase16_scripts(dev, n_docs: int = 1000, ingest_mb: float = 64, pq_rows: int = 1 << 20,
+                    encode_docs: int = 4096, legs_env: dict | None = None) -> dict:
+    """(c) The measurement scripts at small arguments, on the card:
+    bench_ipc_ceiling (16 and 64 clients), bench_daemon (n_docs, 1 and 16
+    clients, a quarter filtered), bench_ingest_device (ingest_mb), bench_pq
+    (pq_rows, both routes), profile_legs (the bench shape, 2 batches; or
+    legs_env) and bench_encode (encode_docs)."""
+    from yams_tpu_torch.ops import cdc, pq_pallas, sha256
+    from yams_tpu_torch.scripts import (bench_daemon, bench_encode, bench_ingest_device,
+                                        bench_ipc_ceiling, bench_pq, profile_legs)
+
+    out: dict = {}
+    seconds: dict = {}
+
+    def run(name, fn):
+        t = time.perf_counter()
+        with quiet():
+            r = fn()
+        seconds[name] = time.perf_counter() - t
+        return r
+
+    ipc = run("bench_ipc_ceiling", lambda: bench_ipc_ceiling.main(
+        ["16,64", "2000", "--device", str(dev)]))
+    check(all(r["errors"] == 0 and r["qps"] > 0 for r in ipc), f"ping ceiling ({ipc})")
+    out["ipc"] = ipc
+    sweep = run("bench_daemon", lambda: bench_daemon.main(
+        [str(n_docs), "40", "1,16", "0.25", "--device", str(dev)]))
+    check(sweep[0]["docs"] == n_docs and all(r["errors"] == 0 for r in sweep[1:]),
+          f"the daemon sweep served every request ({sweep})")
+    out["daemon"] = sweep
+    g0, s0 = cdc.gear_hash_cuda.launches, sha256.sha256_cuda.launches
+    ingest = run("bench_ingest_device", lambda: bench_ingest_device.main(
+        [str(ingest_mb), "--device", str(dev)]))
+    gear, sha = cdc.gear_hash_cuda.launches - g0, sha256.sha256_cuda.launches - s0
+    check(gear >= 1 and sha >= 1,
+          f"bench_ingest_device launched gear_hash_cuda ({gear}) and sha256_cuda ({sha})")
+    check(ingest[-1]["matches_host"], "the end-to-end chunks and digests equal the host's")
+    out["ingest_device"] = ingest
+    pq = {}
+    for impl in ("pallas", "xla"):
+        os.environ["PQ_IMPL"] = impl
+        k0 = pq_pallas.pq4_adc_cuda.launches
+        try:
+            pq[impl] = run(f"bench_pq_{impl}", lambda: bench_pq.main(
+                [str(pq_rows), "--device", str(dev)]))
+        finally:
+            os.environ.pop("PQ_IMPL", None)
+        pq[impl]["pq4_adc_launches"] = pq_pallas.pq4_adc_cuda.launches - k0
+    check(pq["pallas"]["pq4_adc_launches"] >= 1 and pq["xla"]["pq4_adc_launches"] == 0,
+          f"bench_pq launched pq4_adc_cuda on its pallas route only "
+          f"({pq['pallas']['pq4_adc_launches']}, {pq['xla']['pq4_adc_launches']})")
+    gap = abs(pq["pallas"]["recall10_planted"] - pq["xla"]["recall10_planted"])
+    check(gap <= 0.01 and pq["pallas"]["recall10_planted"] >= 0.9,
+          f"bench_pq's K4 recall@10 {pq['pallas']['recall10_planted']} within 0.01 of the "
+          f"plain ADC's {pq['xla']['recall10_planted']}")
+    out["pq"] = pq
+    env = {"BENCH_ITERS": "2", **(legs_env or {})}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        legs = run("profile_legs", lambda: profile_legs.main(["--device", str(dev)]))
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k)
+            if v is not None:
+                os.environ[k] = v
+    check(list(legs) == ["vec_matmul", "vec_approx_exact", "vec_exact_topk", "bm25", "full"]
+          and all(v > 0 for v in legs.values()), f"profile_legs timed its legs ({legs})")
+    out["legs_ms"] = legs
+    enc = run("bench_encode", lambda: bench_encode.main(
+        ["--docs", str(encode_docs), "--device", str(dev)]))
+    emb = enc.pop("embeddings")
+    check(emb.shape == (encode_docs, 384) and np.allclose(np.linalg.norm(emb, axis=1), 1, atol=1e-3),
+          "bench_encode's embeddings are unit rows")
+    out["encode"] = enc
+    out["seconds"] = seconds
+    return out
+
+
+def phase16_abi_scripts(dev, card: str) -> dict:
+    """Phase 16: the mobile C ABI on the card (a C host, embedded mode) and
+    the measurement scripts at small arguments."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="y16") as tmp:
+        root = pathlib.Path(tmp)
+        out = {"card": card, "abi": phase16_abi(dev, root),
+               "embedded": phase16_embedded(dev, root)}
+    out["scripts"] = phase16_scripts(dev)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; nothing was run", file=sys.stderr)
@@ -5050,10 +5391,17 @@ def main() -> int:
     log(f"[scale-out path] kernel launches {so_launches} (the shards' scans, the merge and "
         "the fusion are torch operations, as the reference's shards run XLA)")
 
+    zero()
+    abi_scripts = phase("phase16", phase16_abi_scripts, dev, card)
+    abi_launches = read()
+    log(f"[mobile ABI and scripts path] kernel launches {abi_launches}")
+    for name in ("gear_hash_cuda", "sha256_cuda", "pq4_adc_cuda"):
+        check(abi_launches[name] >= 1, f"{name} launched on phase 16's path")
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("yams_tpu", "jax", "jaxlib", "flax"))
     check(not loaded, f"no module of yams_tpu, jax, jaxlib or flax loaded (found {loaded})")
-    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'neural': neural, 'services13': services13, 'training': training, 'scale_out': scale_out, 'torch': torch.__version__})}")
+    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'neural': neural, 'services13': services13, 'training': training, 'scale_out': scale_out, 'abi_scripts': abi_scripts, 'torch': torch.__version__})}")
 
     sources = {
         "gear_hash_cuda": ("yams_tpu_torch/csrc/gear_hash.cu", "yams_tpu/ops/cdc.py:65",
@@ -5088,6 +5436,7 @@ def main() -> int:
         records[-1]["launches_phase13"] = svc13_launches[name]
         records[-1]["launches_phase14"] = train_launches[name]
         records[-1]["launches_phase15"] = so_launches[name]
+        records[-1]["launches_phase16"] = abi_launches[name]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

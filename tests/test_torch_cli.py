@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from chip_smoke import ThreadDaemon
-from test_torch_services import make_tree
+from test_torch_services import make_tree, reference_native, reference_native_build  # noqa: F401
 from yams_tpu.cli.main import main as ref_main
 from yams_tpu_torch.cli.main import main as port_main
 from yams_tpu_torch.core.config import load_config
@@ -126,12 +126,14 @@ def _ported_argv(name, snapshot, target):
 
 
 @pytest.mark.parametrize("name", ["repair", "doctor", "restore", "dedupe", "tune"])
-def test_ported_commands_match_the_reference(env, capsys, name):
+def test_ported_commands_match_the_reference(env, capsys, name, reference_native):
     """The commands that exited 3 until the repair service was ported print
     what the reference's CLI prints for the same tree, apart from the
     departures the repair service names: the embeddings op does not re-queue the binary
     ('skipped') document, and doctor's device and native lines name the
-    port's own."""
+    port's own. The reference's native library is built into a file of the
+    test's own (`reference_native`), so its doctor line does not depend on
+    which xdist worker won its loader's shared build."""
     tree = make_tree(env / "tree", n_notes=30)
     got = {}
     for label, main, argv in (("port", port_main, port), ("ref", ref_main, ref)):

@@ -37,7 +37,8 @@ import pytest
 import torch
 
 from chip_smoke import ThreadDaemon, hits_of
-from test_torch_services import SEARCHES, TAGGED, make_tree, populate, port_config_for
+from test_torch_services import (SEARCHES, TAGGED, make_tree, populate, port_config_for,
+                                 reference_native, reference_native_build)  # noqa: F401
 from yams_tpu_torch.core.config import load_config
 from yams_tpu_torch.core.errors import ErrorCode, YamsError
 from yams_tpu_torch.daemon.client import DaemonClient
@@ -284,12 +285,15 @@ def test_model_load_status_and_embed_batch(daemon, model, options):
 
 
 @pytest.mark.parametrize("rtype", ["repair", "doctor", "repair_dry_run"])
-def test_repair_and_doctor_answer_as_the_reference(daemon, tree, tmp_path, rtype):
+def test_repair_and_doctor_answer_as_the_reference(daemon, tree, tmp_path, rtype,
+                                                   reference_native):
     """`repair` (with and without dry_run) and `doctor` through the socket
     answer as the reference's RepairService on an AppContext over the same
     tree, apart from the repair service's named departures (the binary,
     'skipped', document is not re-queued; doctor's device and native lines
-    are the port's own)."""
+    are the port's own). The reference's native library is built into a
+    file of the test's own (`reference_native`), so its doctor line does
+    not depend on which xdist worker won its loader's shared build."""
     from test_torch_services import ref_config_for
     from yams_tpu.services.app import AppContext as RefApp
     from yams_tpu.services.repair_service import RepairService as RefRepair

@@ -586,6 +586,10 @@ SCRIPT_KEPT = {
         "SUFFIX_PIECES", "build_vocab"],
     ("scripts.train_encoder_realtext", "scripts/train_encoder_realtext.py"): [
         "MAX_LEN", "SUFFIX_PIECES", "VOCAB_CAP", "build_vocab"],
+    ("scripts.relevance_ab", "scripts/relevance_ab.py"): ["aggregate", "sign_test", "diff"],
+    ("scripts.bench_daemon", "scripts/bench_daemon.py"): ["WORDS", "BENCH_TOML", "run_level"],
+    ("scripts.bench_ingest", "scripts/bench_ingest.py"): ["make_corpus"],
+    ("scripts.bench_encode", "scripts/bench_encode.py"): ["WORDS", "make_docs"],
 }
 
 
@@ -593,8 +597,10 @@ SCRIPT_KEPT = {
 def test_ported_scripts_keep_the_reference_code(port_name, original):
     """The real-text helper's dataset code, the default NER script's
     generator and token F1, the real-text NER eval's regexes and scoring,
-    and the encoder scripts' vocabularies are the reference's, definition
-    for definition."""
+    the encoder scripts' vocabularies, relevance_ab's aggregate, sign test
+    and diff, bench_daemon's corpus words, config and client sweep, and
+    the ingest and encode benchmarks' corpora are the reference's,
+    definition for definition."""
     import importlib
 
     port = importlib.import_module(f"yams_tpu_torch.{port_name}")
@@ -663,3 +669,56 @@ def test_benchmark_tracker_matches_reference(tmp_path, monkeypatch):
     assert files["port"] == files["ref"]
     assert [o["status"] for o in files["port"][0]] == ["new", "regression", "new", "ok",
                                                        "regression"]
+
+
+MOBILE_DEPARTURES = [   # (the port's lines, the original's), the copy's named departures
+    ("""//
+// Port of yams_tpu/native/src/yams_mobile.cpp for yams_tpu_torch. The ABI's
+// symbols, structs and JSON are the original's; it departs only here:
+//   - the embedded spawn runs the port's CLI
+//     (-m yams_tpu_torch.cli.main --storage <wd> daemon start), whose daemon
+//     opens on $YAMS_TPU_DEVICE (default cuda) since a C host cannot pass
+//     --device;
+//   - it execs python3, not python, which a host may not have on its PATH;
+//   - the socket poll waits for the port's daemon to open its app on the
+//     device (its first CUDA context and kernel builds), not a TPU compile.
+""", ""),
+    ("""        execlp("python3", "python3", "-m", "yams_tpu_torch.cli.main", "--storage",
+""", """        execlp("python", "python", "-m", "yams_tpu.cli.main", "--storage",
+"""),
+    ("""        // the daemon opens its app on the device first (CUDA context, kernel
+        // builds at first use): tens of seconds; ping-poll the socket
+""", """        // first TPU compile can take tens of seconds; ping-poll the socket
+"""),
+]
+
+
+@pytest.mark.parametrize("rel", ["include/yams_mobile.h", "src/yams_mobile.cpp"])
+def test_mobile_abi_copy_is_the_original_apart_from_its_departures(rel):
+    """The port's mobile C ABI (`native/include/yams_mobile.h`,
+    `native/src/yams_mobile.cpp`) is the reference's, byte for byte, apart
+    from the source's three named departures (its header comment, the
+    embedded spawn's interpreter and module, the poll's comment), each
+    present exactly once; the header, and so every symbol and struct, is
+    unchanged."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    port = (root / "yams_tpu_torch" / "native" / rel).read_text()
+    original = (root / "yams_tpu" / "native" / rel).read_text()
+    if rel.endswith(".cpp"):
+        for ours, theirs in MOBILE_DEPARTURES:
+            assert port.count(ours) == 1
+            port = port.replace(ours, theirs)
+    assert port == original
+
+
+def test_mobile_library_is_built_from_the_copies():
+    """The `mobile` library builds from the sketch source (its `ytn_crc32`)
+    and the copied ABI source, with g++ alone (no zstd), and its name
+    hashes the header too."""
+    sources, link, signatures = native._LIBS["mobile"]
+    assert sources == ("yams_native.cpp", "yams_mobile.cpp") and link == ()
+    assert "yams_mobile_store_document" in signatures and "ytn_crc32" in signatures
+    lib = native.mobile_library()
+    assert lib.ytn_crc32(b"123456789", 9, 0) == 0xCBF43926

@@ -336,6 +336,51 @@ def test_the_sharded_slice_runs_with_the_reference_refused(tmp_path):
     assert out.strip().endswith("[]")
 
 
+NEW_SCRIPTS = ("bench_ipc_ceiling", "bench_daemon", "relevance_ab", "bench_ingest",
+               "bench_ingest_device", "bench_encode", "bench_pq", "profile_legs")
+
+
+def test_the_mobile_abi_and_the_measurement_scripts_run_with_the_reference_refused(tmp_path):
+    """The mobile C ABI's loader (`native.mobile_library()`, built and
+    bound) answers its version and talks to the port's daemon over its
+    socket, and every measurement script of the slice imports; three run a
+    tiny CPU pass (profile_legs, bench_encode, relevance_ab's sign test);
+    with yams_tpu, jax, jaxlib, flax and optax refused."""
+    out = _run_guarded(f"""
+        import contextlib, ctypes, importlib, io, json, os
+        import torch
+        from yams_tpu_torch import native
+        from yams_tpu_torch.core import config as C
+        from chip_smoke import ThreadDaemon
+        for name in {NEW_SCRIPTS!r}:
+            importlib.import_module("yams_tpu_torch.scripts." + name)
+        from yams_tpu_torch.scripts import bench_encode, profile_legs, relevance_ab
+        lib = native.mobile_library()
+        assert lib.yams_mobile_abi_version() == 1
+        cfg = C.Config(data_dir=__import__("pathlib").Path({str(tmp_path / "d")!r}))
+        cfg.embedding = C.EmbeddingConfig(dim=64, sketch_dim=512)
+        cfg.vector = C.VectorIndexConfig(dim=64, capacity=256, block_rows=128)
+        cfg.daemon.socket_path = {str(tmp_path / "s.sock")!r}
+        d = ThreadDaemon(cfg, torch.device("cpu"), timeout=120)
+        h = lib.yams_mobile_connect(str(cfg.socket_path).encode())
+        ptr = lib.yams_mobile_ping(h)
+        pong = json.loads(ctypes.string_at(ptr))
+        lib.yams_mobile_free(ptr)
+        lib.yams_mobile_disconnect(h)
+        d.stop()
+        assert pong["result"]["backend"] == "torch", pong
+        os.environ.update(BENCH_N="2048", BENCH_D="32", BENCH_B="4", BENCH_ITERS="1")
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert len(profile_legs.main(["--device", "cpu"])) == 5
+            assert bench_encode.main(["--docs", "8", "--reps", "1", "--device", "cpu"])[
+                "embeddings"].shape == (8, 384)
+        assert relevance_ab.sign_test([0.1] * 8) < 0.01
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in {REFUSED!r})
+        print(loaded)
+    """)
+    assert out.strip().endswith("[]")
+
+
 def test_the_guard_refuses_the_reference():
     """The finder above does refuse: importing yams_tpu through it fails."""
     proc = subprocess.run([sys.executable, "-c", _GUARD + "import yams_tpu.core.config"],

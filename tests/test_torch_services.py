@@ -110,6 +110,40 @@ def populate(app, tree: pathlib.Path):
     return rep
 
 
+@pytest.fixture(scope="session")
+def reference_native_build(tmp_path_factory):
+    """The reference's native library, built once a session by its own
+    loader into a directory of this session's own.
+
+    The reference's loader builds every process's library into one shared
+    `.so.tmp` and latches a failed build for the whole process, so under
+    xdist a worker that loses the race sees `get_native() is None` for the
+    session. A comparison with its doctor line must not depend on that."""
+    import yams_tpu.native as ref_native
+
+    path = tmp_path_factory.mktemp("ref_native") / "libyams_native.so"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_native, "_LIB", path)
+        built = ref_native._build()
+    return path if built else None
+
+
+@pytest.fixture()
+def reference_native(reference_native_build, monkeypatch):
+    """The reference's loader pointed at `reference_native_build` with its
+    latch reset for one test (restored after it); yields what its
+    get_native() then returns (None only where g++ or <zstd.h> is missing)."""
+    import yams_tpu.native as ref_native
+
+    for var in ("YAMS_TPU_NATIVE_LIB", "YAMS_TPU_NO_NATIVE"):
+        monkeypatch.delenv(var, raising=False)
+    if reference_native_build is not None:
+        monkeypatch.setattr(ref_native, "_LIB", reference_native_build)
+    monkeypatch.setattr(ref_native, "_lib", None)
+    monkeypatch.setattr(ref_native, "_tried", reference_native_build is None)
+    yield ref_native.get_native()
+
+
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
     return make_tree(tmp_path_factory.mktemp("tree"))

@@ -8,9 +8,12 @@ Port of yams_tpu/cli/main.py over the port's services and daemon
 (`python -m yams_tpu_torch.cli`, or the `yams-torch` script). It departs
 from the reference in these ways only:
 
-- a global `--device` (default `cuda`; `cpu` runs the port on the host):
-  the in-process AppContext opens on it, and `daemon start` spawns the
-  port's daemon with it;
+- a global `--device` (default `$YAMS_TPU_DEVICE`, else `cuda`; `cpu` runs
+  the port on the host): the in-process AppContext opens on it, and
+  `daemon start` spawns the port's daemon with it. The variable is how a
+  host that cannot pass flags picks the device: the mobile C ABI's embedded
+  mode runs `daemon start` with none. There is no fallback: a daemon asked
+  for `cuda` where torch sees no card raises;
 - the CLI uses a daemon only when its ping says "backend": "torch". A
   daemon of the JAX package on the socket is an error (exit 2), never a
   silent server;
@@ -945,9 +948,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true", help="JSON output")
     p.add_argument("--no-daemon", action="store_true",
                    help="never route through a running daemon")
-    p.add_argument("--device", default="cuda",
+    p.add_argument("--device", default=os.environ.get("YAMS_TPU_DEVICE", "cuda"),
                    help="torch device of the in-process app and of a spawned "
-                        "daemon: cuda (default), cuda:N or cpu")
+                        "daemon: cuda, cuda:N or cpu (default: $YAMS_TPU_DEVICE, "
+                        "else cuda)")
     sub = p.add_subparsers(dest="command", required=True)
 
     sub.add_parser("init", help="initialize storage").set_defaults(fn=cmd_init)

@@ -1,7 +1,8 @@
 """The port's native host libraries (C++, built with g++ on first use).
 
 Copied from yams_tpu/native/__init__.py, with the sources copied under
-`native/src/`, and split in two so that each builds where it can:
+`native/src/` and `native/include/`, and split in three so that each builds
+where it can:
 
   - the sketch library, from `yams_native.cpp` alone: the gear table,
     FastCDC boundaries, the batched n-gram sketch (`ytn_sketch_batch`) and
@@ -9,14 +10,26 @@ Copied from yams_tpu/native/__init__.py, with the sources copied under
   - the ingest library, from `yams_native.cpp` + `ingest_pipeline.cpp`: one
     pass of FastCDC, SHA-256 and zstd over a payload. It links the system
     zstd and needs `<zstd.h>`.
+  - the mobile library, from `yams_native.cpp` (its `ytn_crc32`) +
+    `yams_mobile.cpp`: the `yams_mobile_*` C ABI of
+    `native/include/yams_mobile.h`, which speaks the daemon's framed protocol
+    in JSON mode. It needs only a C++ compiler. `mobile_library()` binds the
+    signatures of `native/mobile_abi.py`.
 
-Both build into `yams_tpu_torch/_build/` under a name that carries a hash of
+All three build into `yams_tpu_torch/_build/` under a name that carries a hash of
 their sources, their flags and the host CPU's model (the build targets
 `-march=native`), so an edited source, or a tree copied to another
-machine, builds anew. A library that
+machine, builds anew. A sketch or ingest library that
 does not build (no compiler, no zstd) is None, and its callers take their
-Python route, as the reference's host tiers do. YAMS_TPU_NO_NATIVE=1 turns
-both off. This is host code: no device kernel lives here.
+Python route, as the reference's host tiers do; the mobile library has no
+Python route, so a failed build raises with the compiler's message.
+YAMS_TPU_NO_NATIVE=1 turns all three off (the mobile one then raises).
+
+An explicit library replaces a build, as YAMS_TPU_NATIVE_LIB does for the
+reference's one library: YAMS_TPU_TORCH_SKETCH_LIB, YAMS_TPU_TORCH_INGEST_LIB
+and YAMS_TPU_TORCH_MOBILE_LIB name a file to load instead (a sanitizer build
+of `native/build_sanitized.sh`, say); one that does not load raises. This is
+host code: no device kernel lives here.
 """
 
 from __future__ import annotations
@@ -28,6 +41,8 @@ import pathlib
 import platform
 import subprocess
 import threading
+
+from .mobile_abi import SIGNATURES as _MOBILE_SIGNATURES
 
 _HERE = pathlib.Path(__file__).parent
 _SRC = _HERE / "src"
@@ -58,7 +73,9 @@ _LIBS = {
                                         ctypes.c_int, ctypes.c_int, _P(_u64), _P(_u8),
                                         _P(_u8), _size, _P(_u64), _P(_u64), _size]),
     }),
+    "mobile": (("yams_native.cpp", "yams_mobile.cpp"), (), _MOBILE_SIGNATURES),
 }
+_REQUIRED = ("mobile",)    # no Python route: a failed build raises
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL | None] = {}
@@ -79,7 +96,14 @@ def library_path(name: str) -> pathlib.Path:
     h = hashlib.sha256(" ".join((*_FLAGS, *link, platform.machine(), _cpu_model())).encode())
     for src in sources:
         h.update((_SRC / src).read_bytes())
+    if name == "mobile":
+        h.update((_HERE / "include" / "yams_mobile.h").read_bytes())
     return _BUILD_DIR / f"libyams_torch_{name}_{h.hexdigest()[:16]}.so"
+
+
+def override_var(name: str) -> str:
+    """The environment variable that names an explicit `name` library."""
+    return f"YAMS_TPU_TORCH_{name.upper()}_LIB"
 
 
 def _build(name: str) -> pathlib.Path | None:
@@ -94,8 +118,12 @@ def _build(name: str) -> pathlib.Path | None:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         os.replace(tmp, out)
         return out
-    except (subprocess.SubprocessError, OSError):
+    except (subprocess.SubprocessError, OSError) as e:
         tmp.unlink(missing_ok=True)
+        if name in _REQUIRED:
+            detail = getattr(e, "stderr", b"") or str(e).encode()
+            raise RuntimeError(f"the {name} library did not build: "
+                               f"{detail.decode(errors='replace')[-2000:]}") from e
         return None
 
 
@@ -103,12 +131,20 @@ def _load(name: str) -> ctypes.CDLL | None:
     with _lock:
         if name in _loaded:
             return _loaded[name]
-        lib = None
-        path = None if os.environ.get("YAMS_TPU_NO_NATIVE") else _build(name)
-        if path is not None:
+        explicit = os.environ.get(override_var(name))
+        if explicit:
+            lib = ctypes.CDLL(explicit)      # an explicit library that does not load raises
+        elif os.environ.get("YAMS_TPU_NO_NATIVE"):
+            if name in _REQUIRED:
+                raise RuntimeError(f"YAMS_TPU_NO_NATIVE is set: no {name} library")
+            lib = None
+        else:
+            path = _build(name)
             try:
-                lib = ctypes.CDLL(str(path))
+                lib = None if path is None else ctypes.CDLL(str(path))
             except OSError:
+                if name in _REQUIRED:
+                    raise
                 lib = None
         if lib is not None:
             for sym, (restype, argtypes) in _LIBS[name][2].items():
@@ -116,6 +152,8 @@ def _load(name: str) -> ctypes.CDLL | None:
                 fn.restype = restype
                 fn.argtypes = argtypes
             if lib.ytn_abi_version() != 1:
+                if explicit or name in _REQUIRED:
+                    raise RuntimeError(f"{name} library: ABI {lib.ytn_abi_version()}, not 1")
                 lib = None
         _loaded[name] = lib
         return lib
@@ -129,6 +167,12 @@ def sketch_library() -> ctypes.CDLL | None:
 def ingest_library() -> ctypes.CDLL | None:
     """The zstd ingest-pipeline library, built on first call; None if it cannot be."""
     return _load("ingest")
+
+
+def mobile_library() -> ctypes.CDLL:
+    """The mobile C ABI library with every signature bound, built on first
+    call; raises where it cannot be built or loaded."""
+    return _load("mobile")
 
 
 def fastcdc_boundaries(

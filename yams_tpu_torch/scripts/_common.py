@@ -1,7 +1,11 @@
-"""Timing and recall helpers shared by the experiments."""
+"""Timing, recall, card and daemon helpers shared by the scripts."""
 
 from __future__ import annotations
 
+import os
+import pathlib
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -50,3 +54,38 @@ def recall(ids: np.ndarray, oracle: np.ndarray) -> float:
 
 def device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def card_line(device: torch.device) -> str:
+    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` of
+    the card (its first line), or "cpu"."""
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    return out.splitlines()[device.index or 0] if out else ""
+
+
+REPO = pathlib.Path(__file__).resolve().parents[2]
+
+
+def start_daemon(env: dict, device: str, log, sock: pathlib.Path,
+                 prefix: tuple = ()) -> subprocess.Popen:
+    """`python -m yams_tpu_torch.daemon --device <device>` in a subprocess
+    (its own interpreter, as in production) with `env`, its output to
+    `log`; returns once `sock` exists. `prefix` goes between the
+    interpreter and `-m` (a profiler, say)."""
+    proc = subprocess.Popen(
+        [sys.executable, *prefix, "-m", "yams_tpu_torch.daemon", "--device", str(device)],
+        stdout=log, stderr=log, stdin=subprocess.DEVNULL, env={**os.environ, **env},
+        cwd=str(REPO))
+    for _ in range(1200):
+        if sock.exists():
+            return proc
+        if proc.poll() is not None:
+            raise RuntimeError(f"the daemon exited with {proc.returncode} before its socket "
+                               "appeared")
+        time.sleep(0.1)
+    proc.kill()
+    raise RuntimeError("daemon socket never appeared")

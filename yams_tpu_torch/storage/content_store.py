@@ -372,4 +372,5 @@ class ContentStore:
     def stats(self) -> dict:
         s = self.refcounter.stats()
         s.update(self.engine.stats())
+        s["compression"] = self.compression_monitor.snapshot()
         return s
