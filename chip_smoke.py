@@ -98,7 +98,7 @@ seconds):
      equal codes;
  10. the service layer through the port's own daemon on the card (a
      YamsDaemon on a background thread with a real AF_UNIX socket): a
-     seeded tree of 2,048 zipf-word notes (96-1,536 words) in 64
+     seeded tree of 1,024 zipf-word notes (96-1,536 words) in 64
      directories, a 48 MiB seeded blob and a copy of it, added with one
      add_path (every file added, none failed, the copy deduped whole,
      gear_hash_cuda and sha256_cuda launched, the blob read back
@@ -158,7 +158,7 @@ seconds):
      s): add_documents split into tokenizer, forward and index,
      search_batch(64) first and steady, and card == CPU (results_agree,
      ties named) on 2,048-document engines at f32 compute, 16 queries;
-     (c) the ColBERT tier and the fragment arm on 8,192 documents (one
+     (c) the ColBERT tier and the fragment arm on 4,096 documents (one
      forward a document for its tokens and one for its sentences, as in
      the reference): search_batch(64) steady with late_interaction_ms,
      then with fragment_geometry_ms; a doc holding the query's exact
@@ -268,7 +268,28 @@ seconds):
      quarter filtered), bench_ingest_device (64 MiB; its end-to-end chunks
      equal the host's), bench_pq at 1,048,576 rows on both routes (K4's
      recall@10 within 0.01 of the plain ADC's), profile_legs at the bench
-     shape (2 batches) and bench_encode, no request failing.
+     shape (2 batches) and bench_encode, no request failing;
+ 17. the six design experiments at the reference's widths, every row
+     logged: profile_vec (1,000,448 x 768 unit-normal, B 256, D0 192; the
+     exact top-10, f32 and bf16 scores, the 192-dim prefix scan with its
+     full-dimension rescore), exp_coarse_bf16 (bench.py's clustered
+     1,000,448 x 768, B 1,024: f32, bf16 without and with the f32 rescore
+     at C 32 and 128, against the exact oracle), exp_recall_target (the
+     same corpus padded to 1,001,472 dead rows included: the exact top-C
+     and K1 at group 16 / 64 / 256 / 1,024 with recall@10, and the widest
+     group meeting each of the reference's recall targets), profile_bm25
+     and profile_bm25b (1,000,448 docs, 65,536 terms x 512 hashed
+     postings, windows of 1,024, B 256, T 16: gathers, production's sort,
+     the packed single-key sort, the (V, W) row gathers) and
+     profile_lex_stages (B 512, T 16, W 1,024, V 65,536), at the
+     reference's depth (8 batches); the exact rows' recall must be 1, each
+     K1 row's recall the one its contract allows, the bf16 rows' recall
+     rising with the candidates, the packed top-1 sums within the
+     quantization's error of production's; then, on the path's inputs,
+     K1's winners at each group width equal grouped_max_reference on all
+     1,024 queries of a batch, dot_bf16 within one bf16 ulp of dot_f32's
+     sums rounded, and the mat192 rescores equal dot_f32's top-32 at
+     their candidates.
 
 The kernel launch counters are zeroed just before each path and read just
 after: the add path (phases 2-3) must launch gear_hash_cuda and
@@ -293,7 +314,9 @@ each training step's time, device operations and bound; phase 15's path
 runs torch operations only (the shards' scans, the merge, the fusion), and
 its counts are printed; phase 16's path must launch gear_hash_cuda,
 sha256_cuda (the C host's store, bench_ingest_device) and pq4_adc_cuda
-(bench_pq's pallas route). At
+(bench_pq's pallas route); phase 17's must launch grouped_max_cuda
+(exp_recall_target's sweep; its check against the twin comes after the
+count is read). At
 the end no module of
 yams_tpu, jax, jaxlib or flax
 may be loaded. The second-last line is the kernels' JSON record (each with
@@ -3270,9 +3293,10 @@ def phase12_engine(dev, docs, queries, subs, n_docs: int = 70_000) -> dict:
 EXACT_DOC = (900_000, "gradient descent optimizer converges", "")
 
 
-def phase12_tiers(dev, docs, queries, subs, counts: CallCounts, n_docs: int = 8_192) -> dict:
-    """(c) the ColBERT tier and the fragment arm over 8,192 documents (cut
-    from 16,384 to keep the whole smoke well inside its time limit)."""
+def phase12_tiers(dev, docs, queries, subs, counts: CallCounts, n_docs: int = 4_096) -> dict:
+    """(c) the ColBERT tier and the fragment arm over 4,096 documents (cut
+    from 16,384 to 8,192, then 4,096, to keep the whole smoke well inside
+    its time limit on a slow host)."""
     from yams_tpu_torch.embed.provider import create_provider
     from yams_tpu_torch.search.engine import SearchEngine
 
@@ -5144,7 +5168,11 @@ def phase16_embedded(dev, root: pathlib.Path) -> dict:
 
 
 class quiet:
-    """Collect a script's stdout (its lines go to the log in one piece)."""
+    """Collect a script's stdout (its lines go to the log in one piece,
+    under the phase's tag)."""
+
+    def __init__(self, tag: str = "phase16"):
+        self.tag = tag
 
     def __enter__(self):
         import contextlib
@@ -5158,7 +5186,7 @@ class quiet:
     def __exit__(self, *exc):
         self.cm.__exit__(*exc)
         for line in self.buf.getvalue().splitlines():
-            log(f"[phase16]   {line}")
+            log(f"[{self.tag}]   {line}")
         return False
 
 
@@ -5254,6 +5282,188 @@ def phase16_abi_scripts(dev, card: str) -> dict:
     return out
 
 
+# -- phase 17 -----------------------------------------------------------------
+PHASE17_RUNS = {   # the reference's widths and depths (8 batches; lex stages 4 runs)
+    "profile_vec": dict(N=1_000_000, D=768, B=256, iters=8, D0=192),
+    "exp_coarse_bf16": dict(N=1_000_448, D=768, B=1024, iters=8),
+    "exp_recall_target": dict(N=1_000_448, D=768, B=1024, iters=8),
+    "profile_bm25": dict(N=1_000_000, B=256, iters=8),
+    "profile_bm25b": dict(N=1_000_000, B=256, iters=8),
+    "profile_lex_stages": dict(B=512, T=16, W=1024, V=65536, reps=4),
+}
+
+
+def packed_error_allowed(r: dict) -> float:
+    """How far a packed top-1 sum may sit from production's f32 one: half
+    a quantization step (vmax / (2 * QMAX)) for each of the doc's postings
+    (at most `max_postings_per_doc`, which T bounds but for a doc that a
+    term's window holds twice), and 8 f32 ulps of the query's total impact
+    mass for each side's prefix sums (segment sums are differences of
+    running totals, each rounded at the mass's scale)."""
+    sh = r["shape"]
+    half_step = sh["vmax"] / (2 * ((1 << sh["qbits"]) - 1))
+    return (r["max_postings_per_doc"] * half_step
+            + 16 * float(np.spacing(np.float32(r["impact_mass_max"]))))
+
+
+# an id may leave or join a top-10 only at a near-tie between two f32 sums
+# of the same bf16 products taken in another order (cuBLAS, K1, the batched
+# rescore; ~1e-7 apart at these norms), where neighbouring top-10 scores
+# sit ~1e-4 apart: a share of the ids this run's recalls may drift by
+RECALL_FLIP_SHARE = 1e-3
+
+
+def phase17_design_experiments(dev, card: str, runs: dict | None = None) -> dict:
+    """The six design experiments at the reference's widths (PHASE17_RUNS,
+    or `runs`): every row logged with the card's name and power limit.
+    Gates:
+      - plumbing only (each of these rows runs the oracle's own program, so
+        only mislabelled rows or mixed-up ids fail them): the exact rows'
+        recall is 1 (profile_vec's base_f32_exact overlap, exp_coarse_bf16's
+        f32 and exact, exp_recall_target's exact);
+      - K1's sweep: at each group width the leg's recall is the one K1's
+        contract allows against the oracle (exp_recall_target
+        contract_recall), within RECALL_FLIP_SHARE;
+      - the bf16 rows: a rescore keeps every oracle id its candidates hold,
+        and the top-32 candidates hold the norescore row's top-10 and the
+        top-128 the top-32, so recall(bf16 C 128) >= recall(bf16 C 32) >=
+        recall(bf16 norescore), each within RECALL_FLIP_SHARE;
+      - packed1 (profile_bm25) and full_packed (profile_bm25b) within
+        packed_error_allowed of production's top-1 sum on every query: at
+        vmax 5.5 and QMAX 2,047 (QBITS 11 at N 1,000,448) half a step is
+        0.00134 a posting (T 16 postings a doc: 0.0215), and 16 ulps of a
+        query's impact mass (T x 512 impacts of at most 5.225, ~23,500 in
+        practice and 42,800 at most: an ulp of 0.002-0.004) add
+        0.031-0.0625.
+    dot_bf16, the matryoshka rescore and K1's winners are held to their
+    plain versions by phase17_checks."""
+    from yams_tpu_torch.scripts import (exp_coarse_bf16, exp_recall_target, profile_bm25,
+                                        profile_bm25b, profile_lex_stages, profile_vec)
+
+    mods = {"profile_vec": profile_vec, "exp_coarse_bf16": exp_coarse_bf16,
+            "exp_recall_target": exp_recall_target, "profile_bm25": profile_bm25,
+            "profile_bm25b": profile_bm25b, "profile_lex_stages": profile_lex_stages}
+    log(f"[phase17] {card}")
+    out: dict = {"card": card, "seconds": {}}
+    for name, kw in (runs or PHASE17_RUNS).items():
+        t = time.perf_counter()
+        with quiet("phase17"):
+            print(f"{name} {kw}")
+            out[name] = mods[name].run(**kw, device=dev, seed=SEED)
+        out["seconds"][name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    check(out["profile_vec"]["overlap"]["base_f32_exact"] == 1.0,
+          "profile_vec: the exact base_f32 row's overlap is 1")
+    rows = out["exp_coarse_bf16"]["rows"]
+    check(rows["f32"]["recall10"] == rows["exact"]["recall10"] == 1.0,
+          "exp_coarse_bf16: the f32 and exact rows' recall is 1")
+    check(out["exp_recall_target"]["rows"]["exact"]["recall10"] == 1.0,
+          "exp_recall_target: the exact row's recall is 1")
+    for key, r in out["exp_recall_target"]["rows"].items():
+        if "group" in r:
+            check(abs(r["recall10"] - r["contract_recall10"]) <= RECALL_FLIP_SHARE,
+                  f"exp_recall_target {key}: recall@10 {r['recall10']:.6f} is its contract's "
+                  f"{r['contract_recall10']:.6f}")
+    order = [rows[k]["recall10"] for k in ("bf16nr", "bf16_C32", "bf16_C128")]
+    check(all(b >= a - RECALL_FLIP_SHARE for a, b in zip(order, order[1:])),
+          f"exp_coarse_bf16: recall@10 norescore <= C 32 <= C 128 ({order})")
+    for name, row in (("profile_bm25", "packed1"), ("profile_bm25b", "full_packed")):
+        r = out[name]
+        r["top1_abs_err_allowed"] = packed_error_allowed(r)
+        log(f"[phase17] {name}: {row} top-1 off production's by {r['top1_abs_err']:.6g} "
+            f"(allowed {r['top1_abs_err_allowed']:.6g}; {r['max_postings_per_doc']} postings "
+            f"a doc at most, impact mass <= {r['impact_mass_max']:.1f})")
+        check(r["top1_abs_err"] <= r["top1_abs_err_allowed"],
+              f"{name}: {row} within the quantization's error of production")
+    return out
+
+
+def phase17_k1_winners(qs, E, valid) -> dict:
+    """K1's winners at each group width of exp_recall_target's sweep against
+    grouped_max_reference on the sweep's first batch (every query: B 1,024
+    spans four of K1's 256-query tiles), with phase 1's check_topk."""
+    from yams_tpu_torch.ops import scan
+    from yams_tpu_torch.scripts import exp_recall_target
+
+    q = qs[0].to(torch.bfloat16).contiguous()
+    out = {}
+    for group in exp_recall_target.GROUPS:
+        kv, ki = scan.grouped_max_cuda(q, E, valid, group)
+        tv, ti = scan.grouped_max_reference(q, E, valid, group)
+        err, d = check_topk(f"K1 sweep group={group}", kv, ki, tv, ti,
+                            partition_true_score(q, E, valid=valid),
+                            part_owns(valid, group, 1), 1e-4, ordered=False)
+        out[group] = {"max_abs_err": err, "ids_differ": d, "winners": ki.numel()}
+        log(f"[phase17] K1 group={group}: {ki.numel()} winners of {q.shape[0]} queries == "
+            f"grouped_max_reference (max err {err:.3g}, {d} differing ids, all near-ties)")
+        del kv, ki, tv, ti
+    return out
+
+
+def phase17_dot_bf16(qs, E) -> dict:
+    """dot_bf16 (a bf16 cuBLAS product) on the first batch of
+    exp_coarse_bf16's queries against dot_f32's sums rounded to bf16: every
+    score within one bf16 ulp of its query's largest score (the CPU tests'
+    bound for the bf16 rows)."""
+    from yams_tpu_torch.ops.scan import dot_f32
+    from yams_tpu_torch.scripts._common import dot_bf16
+
+    q = qs[0]
+    got = dot_bf16(q, E).float()
+    want = dot_f32(q, E)
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().amax(dim=1))) - 7)
+    gap = ((got - want.to(torch.bfloat16).float()).abs() / ulp[:, None]).max().item()
+    check(gap <= 1.0, f"dot_bf16: within one bf16 ulp of dot_f32's sums rounded "
+                      f"({gap:.3g} ulps at most)")
+    log(f"[phase17] dot_bf16 on {q.shape[0]} x {E.shape[0]}: {gap:.3g} bf16 ulps at most from "
+        "dot_f32's sums rounded")
+    return {"max_ulps": gap}
+
+
+def phase17_rescore(qs, E, E0, C: int = 32, rerank: int = 4) -> dict:
+    """profile_vec's mat192 rows on its first batch: rescore_topk (a row
+    gather and a batched product with f32 sums) against the top-C of
+    dot_f32's full-dimension scores at the same candidates, for the f32
+    and the bf16 prefix scores: values within 1e-5, differing ids near-ties
+    (fused_agree)."""
+    from yams_tpu_torch.ops.matryoshka import rescore_topk
+    from yams_tpu_torch.ops.scan import dot_f32
+    from yams_tpu_torch.ops.select import top_k
+    from yams_tpu_torch.scripts._common import dot_bf16
+
+    q = qs[0]
+    full = dot_f32(q, E)
+    out = {}
+    for name, dot in (("mat192", dot_f32), ("mat192_bf16", dot_bf16)):
+        _, ci = top_k(dot(q[:, :E0.shape[1]], E0), C * rerank)
+        v, i = rescore_topk(q, E, ci, C)
+        tv, pos = top_k(full.gather(1, ci), C)
+        err, d = fused_agree(f"{name} rescore", v, i, tv, ci.gather(1, pos))
+        out[name] = {"max_abs_err": err, "ids_differ": d}
+        log(f"[phase17] {name} rescore of {ci.shape[1]} candidates == dot_f32's top-{C} at "
+            f"them (max err {err:.3g}, {d} ids at near-ties)")
+    return out
+
+
+def phase17_checks(dev) -> dict:
+    """The card's kernel and products on the path's own inputs (the same
+    seeds), made after the path's kernel counts are read."""
+    from yams_tpu_torch.scripts import exp_recall_target, profile_vec
+
+    kw = PHASE17_RUNS["exp_recall_target"]
+    qs, E, valid = exp_recall_target.make_inputs(kw["N"], kw["D"], kw["B"], kw["iters"], 4096,
+                                                 0.35, dev, SEED)
+    out = {"k1_winners": phase17_k1_winners(qs, E, valid),
+           "dot_bf16": phase17_dot_bf16(qs, E[:kw["N"]])}
+    del qs, E, valid
+    torch.cuda.empty_cache()
+    kw = PHASE17_RUNS["profile_vec"]
+    out["rescore"] = phase17_rescore(*profile_vec.make_inputs(kw["N"], kw["D"], kw["B"],
+                                                              kw["iters"], kw["D0"], dev, SEED))
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; nothing was run", file=sys.stderr)
@@ -5346,7 +5556,7 @@ def main() -> int:
 
     zero()
     keep: dict = {}
-    service = phase("phase10", phase10_service, dev, card, 2048, 64, 48 << 20, keep)
+    service = phase("phase10", phase10_service, dev, card, 1024, 64, 48 << 20, keep)
     svc_launches = read()
     log(f"[service layer path] kernel launches {svc_launches}")
     for name in ("gear_hash_cuda", "sha256_cuda"):
@@ -5398,10 +5608,19 @@ def main() -> int:
     for name in ("gear_hash_cuda", "sha256_cuda", "pq4_adc_cuda"):
         check(abi_launches[name] >= 1, f"{name} launched on phase 16's path")
 
+    zero()
+    design = phase("phase17", phase17_design_experiments, dev, card)
+    design_launches = read()
+    log(f"[design experiments path] kernel launches {design_launches}")
+    check(design_launches["grouped_max_cuda"] >= 1,
+          "grouped_max_cuda launched on exp_recall_target's sweep")
+    # the comparisons' launches come after the path's count was read
+    design["checks"] = phase("phase17 checks", phase17_checks, dev)
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("yams_tpu", "jax", "jaxlib", "flax"))
     check(not loaded, f"no module of yams_tpu, jax, jaxlib or flax loaded (found {loaded})")
-    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'neural': neural, 'services13': services13, 'training': training, 'scale_out': scale_out, 'abi_scripts': abi_scripts, 'torch': torch.__version__})}")
+    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'neural': neural, 'services13': services13, 'training': training, 'scale_out': scale_out, 'abi_scripts': abi_scripts, 'design': design, 'torch': torch.__version__})}")
 
     sources = {
         "gear_hash_cuda": ("yams_tpu_torch/csrc/gear_hash.cu", "yams_tpu/ops/cdc.py:65",
@@ -5437,6 +5656,7 @@ def main() -> int:
         records[-1]["launches_phase14"] = train_launches[name]
         records[-1]["launches_phase15"] = so_launches[name]
         records[-1]["launches_phase16"] = abi_launches[name]
+        records[-1]["launches_phase17"] = design_launches[name]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

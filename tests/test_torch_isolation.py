@@ -3,8 +3,8 @@
 - In a fresh interpreter whose import system refuses `yams_tpu`, `jax`,
   `jaxlib`, `flax` and `optax` (a `sys.meta_path` finder that raises
   ModuleNotFoundError for them and their submodules), every module of
-  yams_tpu_torch (the package walked), `chip_smoke` and the two experiment
-  modules import, and a tiny add -> search runs on the CPU: device
+  yams_tpu_torch (the package walked), `chip_smoke`, the two top-C
+  experiments and the six design experiments import, and a tiny add -> search runs on the CPU: device
   chunk + hash, a ContentStore round trip, and SearchEngine searches
   (with an intent, so search/query.py runs; with feedback; on the int8
   tier), and the KG leg over the port's own SQLite store with the tuner,
@@ -25,6 +25,9 @@
 - The service slice (grep, sessions, watch, downloads and a remote
   checkpoint, the NER plugin with its pickle, MCP, auth and the standalone
   BM25 scan) runs on the CPU with the reference refused.
+- The six design experiments (profile_vec, exp_coarse_bf16,
+  exp_recall_target, profile_bm25, profile_bm25b, profile_lex_stages) run
+  a tiny CPU pass each with the reference refused.
 - The training and real-text slice (the stand-in root, the real-text
   dataset, `NerModel.fit`, the contrastive trainer, the `.npz` writer and
   the scripts' `main`s at a tiny size) runs on the CPU with the reference
@@ -44,6 +47,8 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 REFUSED = ("yams_tpu", "jax", "jaxlib", "flax", "optax")
+DESIGN_EXPERIMENTS = ("profile_vec", "exp_coarse_bf16", "exp_recall_target", "profile_bm25",
+                      "profile_bm25b", "profile_lex_stages")
 
 _GUARD = f"""
 import sys
@@ -75,7 +80,8 @@ def test_port_imports_and_runs_with_the_reference_refused(tmp_path):
         names = [m.name for m in pkgutil.walk_packages(yams_tpu_torch.__path__,
                                                       "yams_tpu_torch.")]
         for name in names + ["chip_smoke", "yams_tpu_torch.scripts.profile_grouped",
-                             "yams_tpu_torch.scripts.exp_flash_topk"]:
+                             "yams_tpu_torch.scripts.exp_flash_topk",
+                             *("yams_tpu_torch.scripts." + n for n in {DESIGN_EXPERIMENTS!r})]:
             importlib.import_module(name)
         from yams_tpu_torch.core.config import ChunkingConfig
         from yams_tpu_torch.ingest.device_pipeline import device_chunk_hash
@@ -375,6 +381,33 @@ def test_the_mobile_abi_and_the_measurement_scripts_run_with_the_reference_refus
             assert bench_encode.main(["--docs", "8", "--reps", "1", "--device", "cpu"])[
                 "embeddings"].shape == (8, 384)
         assert relevance_ab.sign_test([0.1] * 8) < 0.01
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in {REFUSED!r})
+        print(loaded)
+    """)
+    assert out.strip().endswith("[]")
+
+
+def test_the_design_experiments_run_with_the_reference_refused():
+    """The six design experiments import and each run() does a tiny CPU
+    pass, with yams_tpu, jax, jaxlib, flax and optax refused."""
+    out = _run_guarded(f"""
+        import contextlib, importlib, io
+        mods = {{n: importlib.import_module("yams_tpu_torch.scripts." + n)
+                for n in {DESIGN_EXPERIMENTS!r}}}
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs = [
+                mods["profile_vec"].run(N=2048, D=32, B=4, iters=1, D0=8, device="cpu"),
+                mods["exp_coarse_bf16"].run(N=4096, D=32, B=4, iters=1, n_clusters=32,
+                                            device="cpu"),
+                mods["exp_recall_target"].run(N=4096, D=32, B=4, iters=1, n_clusters=32,
+                                              groups=(16, 64), device="cpu"),
+                mods["profile_bm25"].run(N=4096, B=4, iters=1, T=4, vocab=64, window=64,
+                                         device="cpu"),
+                mods["profile_bm25b"].run(N=4096, B=4, iters=1, T=4, vocab=64, window=64,
+                                          device="cpu"),
+                mods["profile_lex_stages"].run(B=4, T=4, W=64, V=128, reps=1, device="cpu"),
+            ]
+        assert [r["experiment"] for r in runs] == list({DESIGN_EXPERIMENTS!r})
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in {REFUSED!r})
         print(loaded)
     """)

@@ -19,7 +19,9 @@ tiny sizes.
   K4 route (its twin here) and plain ADC route find the planted copies with
   recall within 0.01 of each other, and profile_legs times its five legs.
 - Every script that runs in-process defaults to the card: without
-  `--device cpu` it raises here, where torch sees no card.
+  `--device cpu` it raises here, where torch sees no card. The six design
+  experiments (tests/test_torch_design_experiments.py) are held to it here
+  too.
 """
 
 import json
@@ -33,7 +35,9 @@ import pytest
 
 from yams_tpu_torch.scripts import (bench_daemon, bench_encode, bench_ingest,
                                     bench_ingest_device, bench_ipc_ceiling, bench_pq,
-                                    profile_legs, relevance_ab)
+                                    exp_coarse_bf16, exp_recall_target, profile_bm25,
+                                    profile_bm25b, profile_lex_stages, profile_legs,
+                                    profile_vec, relevance_ab)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -327,7 +331,15 @@ def test_profile_legs_times_the_five_legs(monkeypatch, capsys):
     lambda tmp: bench_pq.main(["8192"]),
     lambda tmp: profile_legs.main([]),
     lambda tmp: relevance_ab.run_queries(str(tmp / "data"), QUERIES, 5, "hybrid"),
-], ids=["bench_ingest_device", "bench_encode", "bench_pq", "profile_legs", "relevance_ab"])
+    lambda tmp: profile_vec.main([]),
+    lambda tmp: exp_coarse_bf16.main([]),
+    lambda tmp: exp_recall_target.main([]),
+    lambda tmp: profile_bm25.main([]),
+    lambda tmp: profile_bm25b.main([]),
+    lambda tmp: profile_lex_stages.main([]),
+], ids=["bench_ingest_device", "bench_encode", "bench_pq", "profile_legs", "relevance_ab",
+        "profile_vec", "exp_coarse_bf16", "exp_recall_target", "profile_bm25", "profile_bm25b",
+        "profile_lex_stages"])
 def test_scripts_default_to_the_card(run, monkeypatch, tmp_path):
     """No `--device`: each opens on CUDA, which raises where torch sees no
     card (no fallback to the host)."""

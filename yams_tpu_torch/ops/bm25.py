@@ -143,17 +143,24 @@ def pack_postings_2d(
     return packed, scale
 
 
-def _segment_topk(
-    ids: torch.Tensor, val: torch.Tensor, num_docs: int, num_candidates: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Doc-sorted (B, L) ids + values -> top-C (ids, per-doc sums)."""
+def segment_totals(ids: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """Sorted (B, L) ids + values -> (B, L) f32: each run of equal ids' sum
+    at the run's last position, 0 elsewhere (a prefix sum less the run's
+    base, the bases forward-filled by a cummax)."""
     cs = prefix_sum(val)
     change = ids[:, 1:] != ids[:, :-1]
     edge = torch.ones_like(ids[:, :1], dtype=torch.bool)
     first = torch.cat([edge, change], dim=1)
     last = torch.cat([change, edge], dim=1)
     base = torch.where(first, cs - val, -torch.inf).cummax(dim=1).values
-    seg_total = torch.where(last & (ids < num_docs), cs - base, 0.0)
+    return torch.where(last, cs - base, 0.0)
+
+
+def segment_topk(
+    ids: torch.Tensor, val: torch.Tensor, num_docs: int, num_candidates: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Doc-sorted (B, L) ids + values -> top-C (ids, per-doc sums)."""
+    seg_total = torch.where(ids < num_docs, segment_totals(ids, val), 0.0)
     c_scores, c_pos = top_k(seg_total, num_candidates)
     c_ids = torch.where(c_scores > 0, ids.gather(1, c_pos), num_docs)
     return c_ids.to(torch.int32), c_scores
@@ -186,7 +193,7 @@ def bm25_topk_candidates_packed(
     keys = keys.reshape(keys.shape[0], -1).sort(dim=1).values
     ids = keys >> qbits
     val = (keys & qmax).float() * (scale / qmax)
-    return _segment_topk(ids, val, num_docs, num_candidates)
+    return segment_topk(ids, val, num_docs, num_candidates)
 
 
 def bm25_topk_candidates(
@@ -218,4 +225,4 @@ def bm25_topk_candidates(
     B = tid.shape[0]
     ids, order = docs.reshape(B, -1).sort(dim=1, stable=True)
     val = contrib.reshape(B, -1).gather(1, order)
-    return _segment_topk(ids, val, num_docs, num_candidates)
+    return segment_topk(ids, val, num_docs, num_candidates)

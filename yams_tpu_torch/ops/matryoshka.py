@@ -33,6 +33,15 @@ def matryoshka_topk(q: torch.Tensor, E: torch.Tensor, E0: torch.Tensor,
     s0 = s0 + (valid - 1.0)[None, :] * 1e30
     C = min(k * rerank_factor, E0.shape[0])
     _, ci = top_k(s0, C)
+    vals, ids = rescore_topk(q, E, ci, k)
+    return vals, ids.to(torch.int32)
+
+
+def rescore_topk(q: torch.Tensor, E: torch.Tensor, ci: torch.Tensor, k: int):
+    """Rescore each query's candidate rows at full dimension: (B, D)
+    queries, (N, D) corpus, (B, C) row ids -> the top-k (scores (B, k) f32,
+    row ids (B, k) of ci's dtype). The rows are gathered (B, C, D) and
+    scored by a batched bf16 product with f32 sums."""
     cand = E.index_select(0, ci.reshape(-1)).reshape(*ci.shape, -1).to(torch.bfloat16)
     q16 = q.to(torch.bfloat16)[:, :, None]
     if cand.device.type == "cuda":
@@ -40,4 +49,4 @@ def matryoshka_topk(q: torch.Tensor, E: torch.Tensor, E0: torch.Tensor,
     else:
         full = torch.bmm(cand.float(), q16.float())[:, :, 0]
     vals, pos = top_k(full, k)
-    return vals, ci.gather(1, pos).to(torch.int32)
+    return vals, ci.gather(1, pos)

@@ -18,8 +18,9 @@ Port of yams_tpu/ops/scan.py (`dense_scores`, `exact_topk_scan`,
     top-k over them merges the groups (lax.approx_max_k's one-hit-per-window
     contract, fused with the product). On a CUDA tensor the group step is
     `grouped_max_cuda` (csrc/fused_scan.cu); on a CPU tensor its plain twin
-    `grouped_max_reference`. Its only callers are the experiment
-    yams_tpu_torch/scripts/profile_grouped.py and the tests;
+    `grouped_max_reference`. Its only callers are the experiments
+    yams_tpu_torch/scripts/profile_grouped.py and exp_recall_target.py
+    and the tests;
   - the int8 tier: `quantize_int8` (host NumPy, the corpus side),
     `quantize_rows` (the query side, on the device), `int8_mm` (int8 x int8
     with int32 sums: torch._int_mm, the reference's lax.dot_general with

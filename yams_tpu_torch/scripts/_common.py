@@ -11,6 +11,8 @@ import time
 import numpy as np
 import torch
 
+from ..ops.scan import dot_f32
+
 
 def sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -44,6 +46,49 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def batch_ms(fn, iters: int, device: torch.device, best_of: int = 1):
+    """Mean milliseconds a batch of fn(0), ..., fn(iters - 1), after a
+    warm-up fn(0): CUDA events around the batches on a card, the host clock
+    after a sync on the CPU; the least of `best_of` timed passes. -> (ms,
+    the outputs of the last pass, left on the device)."""
+    fn(0)
+    sync(device)
+    best, outs = float("inf"), []
+    for _ in range(best_of):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs = [fn(i) for i in range(iters)]
+            end.record()
+            torch.cuda.synchronize(device)
+            ms = start.elapsed_time(end)
+        else:
+            t = time.perf_counter()
+            outs = [fn(i) for i in range(iters)]
+            ms = (time.perf_counter() - t) * 1e3
+        best = min(best, ms / iters)
+    return best, outs
+
+
+def dot_bf16(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """a @ b_t.T with bf16 operands and bf16 scores (the reference's
+    preferred_element_type=bf16), for the design experiments. On CUDA a
+    bf16 cuBLAS product: cuBLAS rounds its sums to bf16 once, but may also
+    reduce in reduced precision where torch allows it
+    (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction), so
+    chip_smoke.py holds it to one bf16 ulp of dot_f32's sums rounded. On
+    the CPU dot_f32's sums rounded once."""
+    if a.device.type == "cuda":
+        return torch.mm(a.to(torch.bfloat16), b_t.to(torch.bfloat16).t())
+    return dot_f32(a, b_t).to(torch.bfloat16)
+
+
+def batch_line(name: str, ms: float, batch: int, width: int = 12) -> str:
+    """The reference scripts' row: `name  ms/batch  qps`."""
+    return f"{name:{width}s} {ms:8.2f} ms/batch {batch * 1e3 / ms:10.0f} qps"
 
 
 def recall(ids: np.ndarray, oracle: np.ndarray) -> float:

@@ -48,18 +48,26 @@ def clustered_corpus(N: int, D: int, n_clusters: int, sigma: float,
     return (ef / ef.norm(dim=1, keepdim=True).clamp_min(1e-9)).to(torch.bfloat16)
 
 
+def clustered_inputs(N: int, D: int, B: int, iters: int, n_clusters: int, sigma: float,
+                     device: torch.device, seed: int):
+    """bench.py's clustered corpus, then `iters` batches of B unit queries,
+    made on the device from one seed -> (queries (iters, B, D) f32, the
+    corpus (N, D) bf16)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    E = clustered_corpus(N, D, n_clusters, sigma, gen, device)
+    Q = torch.randn(iters, B, D, generator=gen, device=device)
+    return Q / Q.norm(dim=-1, keepdim=True).clamp_min(1e-9), E
+
+
 def run(N: int = 1_015_808, D: int = 768, B: int = 1024, iters: int = 8, C: int = 32,
         n_clusters: int = 4096, sigma: float = 0.35, windows: int = 3,
         device: str | torch.device = "cuda", seed: int = 0) -> dict:
     if N % SPAN:
         raise ValueError(f"N={N} must be a multiple of {SPAN}")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    E = clustered_corpus(N, D, n_clusters, sigma, gen, dev)
+    Q, E = clustered_inputs(N, D, B, iters, n_clusters, sigma, dev, seed)
     bias = torch.zeros(N, device=dev)
-    Q = torch.randn(iters, B, D, generator=gen, device=dev)
-    Q = Q / Q.norm(dim=-1, keepdim=True).clamp_min(1e-9)
 
     def flash(i):
         return flash_topc(Q[i], E, bias, k=C)

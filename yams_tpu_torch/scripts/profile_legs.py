@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 
 import numpy as np
 import torch
@@ -36,7 +35,7 @@ from ..ops.scan import dot_f32
 from ..ops.select import top_k
 from ..search.config import SearchEngineConfig
 from ..search.fusion import hybrid_query, pack_weights
-from ._common import sync
+from ._common import batch_line, batch_ms
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -81,24 +80,8 @@ def main(argv: list[str] | None = None) -> dict:
     out: dict[str, float] = {}
 
     def timed(name, fn):
-        fn(0)
-        sync(dev)
-        if dev.type == "cuda":
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for i in range(ITERS):
-                fn(i)
-            end.record()
-            torch.cuda.synchronize(dev)
-            dt = start.elapsed_time(end) / 1e3
-        else:
-            t0 = time.perf_counter()
-            for i in range(ITERS):
-                fn(i)
-            dt = time.perf_counter() - t0
-        out[name] = dt * 1e3 / ITERS
-        print(f"{name:16s} {dt * 1e3 / ITERS:8.2f} ms/batch "
-              f"{ITERS * B / dt:10.0f} qps", flush=True)
+        out[name], _ = batch_ms(fn, ITERS, dev)
+        print(batch_line(name, out[name], B, 16), flush=True)
 
     def embed(sk):
         q = dot_f32(sk, proj.t())
