@@ -8,7 +8,13 @@ seconds):
   0. card identity (nvidia-smi name and power limit);
   1. each CUDA kernel built from yams_tpu_torch/csrc (one nvcc per source,
      in parallel) and held against its plain PyTorch twin on the card, with
-     both timed: gear hash and SHA-256 bit-exact; K3 (exact_topk_cuda) at
+     both timed: gear hash and SHA-256 bit-exact (SHA-256 also against
+     hashlib on 4,096 chunks of up to 256 KiB and on its edge rows:
+     lengths 0-200 and around the padding's, the helpers' span's and the
+     schedule ring's edges, starts at every residue mod 16, zero-length
+     rows, rows at both ends of buffers that begin 0/1/7/13 bytes past a
+     16-byte boundary; its chain floor, one 4 KiB and one 256 KiB message
+     alone, and the cycles a round at the SM clock); K3 (exact_topk_cuda) at
      edge shapes (B 1/3/64 and 255/256/257; k 1/10/16 on its threshold
      epilogue and 17/100/128/129/2,048 on its score dump; duplicate rows,
      ties across 128-row tile and block edges, 24 exact ties inside one
@@ -37,7 +43,8 @@ seconds):
      kernel timed beside dot_f32 (cuBLAS) on the same operands;
   2. add: a 128 MiB seeded zipf-word payload through device_chunk_hash
      (gear-hash CDC + SHA-256 on the card), checked against the host chunker
-     and hashlib;
+     and hashlib; then its stages by CUDA events and the SHA-256 kernel
+     alone on its chunks;
   3. search: a SearchEngine with the default configs fed 70,000 seeded
      documents, a 64-query search_batch on the card, 16 of its queries
      checked against the same state searched on the CPU plain path (with the
@@ -341,7 +348,7 @@ import types
 import numpy as np
 import torch
 
-from yams_tpu_torch.scripts._common import cuda_ms
+from yams_tpu_torch.scripts._common import cuda_ms, sm_clock_mhz, zipf_text
 
 SEED = 0
 
@@ -374,17 +381,6 @@ def bound(nbytes: float, ops: float, rate: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": nbytes, "bound_ops": ops}
-
-
-def zipf_text(n_bytes: int, seed: int) -> bytes:
-    """bench.py's ingest payload generator, scaled: zipf(1.3) over 4,096 words."""
-    rng = np.random.default_rng(seed)
-    words = [f"word{i}" for i in range(4096)]
-    zipf = rng.zipf(1.3, size=n_bytes // 6 + 1)   # every word + space >= 6 B
-    data = " ".join(np.asarray(words, dtype=object)[zipf % 4096].tolist()).encode()
-    if len(data) < n_bytes:
-        raise RuntimeError("zipf text generator came up short")
-    return data[:n_bytes]
 
 
 # -- phase 0 ------------------------------------------------------------------
@@ -436,9 +432,13 @@ def phase1_kernels(dev) -> dict:
         check(dig[i].tobytes() == hashlib.sha256(blob[s:s + n]).digest(),
               f"sha256_cuda == hashlib on chunk {i} (len {n})")
     sha_big_ms = cuda_ms(lambda: sha256.sha256_cuda(buf, st, ln), 3)
+    sha_big_launch_ms = launch_ms(sha256, buf, st, ln, 3)
     log(f"[phase1] sha256 4096 chunks ({len(blob) / 2**20:.1f} MiB): "
-        f"cuda {sha_big_ms:.3f} ms; all digests == hashlib")
+        f"cuda {sha_big_ms:.3f} ms (the launch alone {sha_big_launch_ms:.3f}); "
+        "all digests == hashlib")
     del buf
+    edge_rows = phase1_sha256_edges(dev)
+    chain = sha256_chain(dev)
 
     # sha256 vs its plain twin: 2,048 rows of 4 KiB (the twin is a Python
     # loop of ~45 torch launches per round, so it is timed on short rows)
@@ -452,8 +452,10 @@ def phase1_kernels(dev) -> dict:
     sha_err = int((a.int() - b.int()).abs().max())
     check(sha_err == 0, "sha256_cuda == sha256_reference")
     sha_ms = cuda_ms(lambda: sha256.sha256_cuda(tb, tst, tln), 10)
+    sha_launch_ms = launch_ms(sha256, tb, tst, tln, 10)
     sha_plain_ms = cuda_ms(lambda: sha256.sha256_reference(tb, tst, tln), 1)
-    log(f"[phase1] sha256 {rows}x{width} B: cuda {sha_ms:.3f} ms, plain {sha_plain_ms:.1f} ms")
+    log(f"[phase1] sha256 {rows}x{width} B: cuda {sha_ms:.4f} ms (the launch alone "
+        f"{sha_launch_ms:.4f}), plain {sha_plain_ms:.1f} ms")
     n = 64 << 20
     lens = tln.long()
     blocks = int(((lens + 9 + 63) // 64).sum())
@@ -465,11 +467,111 @@ def phase1_kernels(dev) -> dict:
         # message bytes, starts and lengths in, 32-byte digests out; ~2,200
         # 32-bit integer ops per 64-byte block (64 rounds + the schedule)
         "sha256_cuda": dict(max_abs_err=sha_err, ms=sha_ms, plain_ms=sha_plain_ms,
-                            shape=f"{rows} rows x ~{width} B",
+                            shape=f"{rows} rows x ~{width} B", launch_ms=sha_launch_ms,
                             ms_4096_chunks_to_256KiB=sha_big_ms,
+                            launch_ms_4096_chunks_to_256KiB=sha_big_launch_ms,
+                            edge_rows_equal_hashlib=edge_rows, **chain,
                             **bound(float(lens.sum()) + 44.0 * rows, 2200.0 * blocks,
                                     PEAK_INT)),
     }
+
+
+# the SHA-256 kernel's staging sizes (yams_tpu_torch/csrc/sha256.cu): a helper
+# warp copies kSpanBlocks = 4 blocks of a lane at a time, and the schedule
+# ring holds kSlots = 12 blocks of every lane
+SHA_SPAN = 4 * 64
+SHA_RING = 12 * 64
+
+
+def sha256_edge_rows(seed: int):
+    """Rows at the SHA-256 kernel's edges, in one buffer: lengths 0-200; one
+    below, at and one above 55/56, 63/64 and 119/120 (the padding's edges),
+    the helpers' span and twice it, the schedule ring and twice it; starts at
+    every residue mod 16; a zero-length row after every tenth row; a row at
+    byte 0 and one that ends at the buffer's last byte. -> (bytes, (N,)
+    int64 starts, (N,) int32 lengths)."""
+    lengths = list(range(201))
+    for edge in (55, 56, 63, 64, 119, 120, SHA_SPAN, 2 * SHA_SPAN, SHA_RING, 2 * SHA_RING):
+        lengths += [edge - 1, edge, edge + 1]
+    starts, rows, at = [0], [300], 0
+    for i, n in enumerate(lengths):
+        at += (i - at) % 16                 # row i starts at residue i mod 16
+        starts.append(at)
+        rows.append(n)
+        at += n
+        if i % 10 == 9:
+            starts.append(at)
+            rows.append(0)
+    starts.append(at)                       # the last row ends at the last byte
+    rows.append(100)
+    blob = np.random.default_rng(seed).bytes(at + 100)
+    return blob, np.asarray(starts, np.int64), np.asarray(rows, np.int32)
+
+
+def launch_ms(sha256, buf, st, ln, reps: int) -> float:
+    """CUDA-event ms of the SHA-256 kernel's launch alone (its wrapper's
+    checks and plan made once, outside the timing)."""
+    order = sha256.block_order(ln)
+    out = torch.empty((ln.shape[0], 32), dtype=torch.uint8, device=buf.device)
+    return cuda_ms(lambda: sha256.launch(buf, st, ln, order, out), reps)
+
+
+def phase1_sha256_edges(dev) -> int:
+    """sha256_edge_rows on the card against hashlib, in buffers that begin 0,
+    1, 7 and 13 bytes past a 16-byte boundary (views into one allocation with
+    other bytes around them); a row past the buffer's end refused."""
+    from yams_tpu_torch.ingest.device_pipeline import payload_tensor
+    from yams_tpu_torch.ops import sha256
+
+    blob, starts, lengths = sha256_edge_rows(SEED + 16)
+    want = [hashlib.sha256(blob[s:s + n]).digest() for s, n in zip(starts, lengths)]
+    st = torch.from_numpy(starts).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    for lead in (0, 1, 7, 13):
+        whole = payload_tensor(b"\xa5" * lead + blob + b"\x5a" * 31, dev)
+        buf = whole[lead:lead + len(blob)]
+        check(buf.data_ptr() % 16 == lead, f"the edge buffer begins {lead} bytes in")
+        dig = sha256.sha256_cuda(buf, st, ln).cpu().numpy()
+        for i, (s, n) in enumerate(zip(starts, lengths)):
+            check(dig[i].tobytes() == want[i],
+                  f"sha256_cuda == hashlib on edge row {i} (start {s}, len {n}, lead {lead})")
+        try:
+            sha256.sha256_cuda(buf, st + 1, ln)
+        except ValueError:
+            pass
+        else:
+            raise RuntimeError("check failed: sha256_cuda refuses a row past the buffer")
+    log(f"[phase1] sha256 {len(want)} edge rows x 4 buffer leads == hashlib")
+    return len(want)
+
+
+def sha256_chain(dev, reps: int = 20) -> dict:
+    """The chain floor: one message alone as its own launch (the kernel
+    alone, CUDA events) at 4 KiB and 256 KiB, and the cycles a round of the
+    256 KiB one at the SM clock nvidia-smi reads while it runs."""
+    from yams_tpu_torch.ingest.device_pipeline import payload_tensor
+    from yams_tpu_torch.ops import sha256
+
+    rng = np.random.default_rng(SEED + 17)
+    chain, runs = {}, {}
+    for n in (4096, 256 * 1024):
+        msg = rng.bytes(n)
+        buf = payload_tensor(msg, dev)
+        st = torch.zeros(1, dtype=torch.int64, device=dev)
+        ln = torch.full((1,), n, dtype=torch.int32, device=dev)
+        order = torch.zeros(1, dtype=torch.int64, device=dev)
+        out = torch.empty((1, 32), dtype=torch.uint8, device=dev)
+        runs[n] = lambda buf=buf, st=st, ln=ln, order=order, out=out: sha256.launch(
+            buf, st, ln, order, out)
+        chain[f"{n} B"] = cuda_ms(runs[n], reps)
+        check(out.cpu().numpy()[0].tobytes() == hashlib.sha256(msg).digest(),
+              f"sha256_cuda == hashlib on one {n}-byte message")
+    mhz = sm_clock_mhz(runs[256 * 1024])
+    rounds = (256 * 1024 + 9 + 63) // 64 * 64
+    cycles = chain[f"{256 * 1024} B"] * 1e-3 * mhz * 1e6 / rounds
+    log(f"[phase1] sha256 chain floor: 4 KiB {chain['4096 B']:.4f} ms, 256 KiB "
+        f"{chain['262144 B']:.4f} ms; SM clock {mhz:.0f} MHz -> {cycles:.1f} cycles a round")
+    return {"chain_ms": chain, "sm_clock_mhz": mhz, "cycles_per_round": cycles}
 
 
 def check_topk(what: str, kv, ki, tv, ti, true_score, owns, tol: float,
@@ -1091,7 +1193,10 @@ def phase2_add(dev, data: bytes, warm_reps: int = 5) -> dict:
 
 
 def phase2_breakdown(dev, data: bytes) -> dict:
-    """Stage times of a second, synchronized pass (not on the counted path)."""
+    """Stage times of a second pass (not on the counted path), each stage by
+    CUDA events around it: the card's clock, which runs on through the host
+    stages it waits for. Then the SHA stage's kernel alone: the wrapper
+    (checks, plan, launch) and the launch, each over 5 launches."""
     from yams_tpu_torch.ingest.chunker import ChunkingConfig, _masks, select_cuts
     from yams_tpu_torch.ingest.device_pipeline import payload_tensor
     from yams_tpu_torch.ops import cdc, sha256
@@ -1100,11 +1205,13 @@ def phase2_breakdown(dev, data: bytes) -> dict:
     out = {}
 
     def timed(name, fn):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        t = time.perf_counter()
+        a.record()
         r = fn()
+        b.record()
         torch.cuda.synchronize()
-        out[name] = (time.perf_counter() - t) * 1e3
+        out[name] = a.elapsed_time(b)
         return r
 
     buf = timed("h2d_ms", lambda: payload_tensor(data, dev))
@@ -1120,8 +1227,12 @@ def phase2_breakdown(dev, data: bytes) -> dict:
     starts = np.concatenate([[0], ends[:-1]])
     st = torch.from_numpy(starts).to(dev)
     ln = torch.from_numpy((ends - starts).astype(np.int32)).to(dev)
-    timed("sha256_kernel_ms", lambda: sha256.sha256_cuda(buf, st, ln).cpu())
-    log("[phase2] breakdown " + json.dumps({k: round(v, 3) for k, v in out.items()}))
+    timed("sha256_stage_ms", lambda: sha256.sha256_cuda(buf, st, ln).cpu())
+    out.update(chunks=len(ends), longest_chunk_blocks=int((int(ln.max()) + 9 + 63) // 64),
+               sha256_ms=cuda_ms(lambda: sha256.sha256_cuda(buf, st, ln), 5),
+               sha256_launch_ms=launch_ms(sha256, buf, st, ln, 5))
+    log("[phase2] breakdown (CUDA events) " + json.dumps(
+        {k: round(v, 3) if isinstance(v, float) else v for k, v in out.items()}))
     return out
 
 
@@ -5515,6 +5626,8 @@ def main() -> int:
         check(add_launches[name] >= 1, f"{name} launched on the add path")
 
     breakdown = phase("phase2 breakdown", phase2_breakdown, dev, data)
+    kernels["sha256_cuda"].update(ms_128MiB_chunks=breakdown["sha256_ms"],
+                                  launch_ms_128MiB_chunks=breakdown["sha256_launch_ms"])
     bench = phase("phase4", phase4_bench, dev)
 
     zero()
@@ -5645,8 +5758,11 @@ def main() -> int:
                         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"], "library_ms": None, "shape": k["shape"],
                         "bound_bytes": k["bound_bytes"], "bound_ops": k["bound_ops"],
-                        **{key: k[key] for key in ("dot_f32_ms", "tflops", "dot_f32_tflops",
-                                                   "large_k", "rising_ms") if key in k}})
+                        **{key: k[key] for key in (
+                            "dot_f32_ms", "tflops", "dot_f32_tflops", "large_k", "rising_ms",
+                            "launch_ms", "chain_ms", "cycles_per_round", "sm_clock_mhz",
+                            "ms_4096_chunks_to_256KiB", "launch_ms_4096_chunks_to_256KiB",
+                            "ms_128MiB_chunks", "launch_ms_128MiB_chunks") if key in k}})
         if name in ("exact_topk_cuda", "pq4_adc_cuda"):
             records[-1]["launches_phase9"] = kg_launches[name]
         if name in ("gear_hash_cuda", "sha256_cuda"):

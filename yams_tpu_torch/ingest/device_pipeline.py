@@ -5,7 +5,7 @@ device once; both stages read that one buffer:
 
   1. gear-hash boundary candidates on the device (ops.cdc), bit-identical to
      the host chunkers, with the greedy cut selection on the host;
-  2. per-chunk SHA-256 on the device (ops.sha256), one thread per chunk,
+  2. per-chunk SHA-256 on the device (ops.sha256), 32 chunks a CTA,
      reading each chunk in place at its (start, length), bit-identical to
      hashlib. No (n_chunks, longest) padded matrix is built (it would be
      ~0.5 GB at a 128 MiB payload).

@@ -8,9 +8,11 @@ natural device shape is one lane per chunk.
   contract in plain torch ((N, Lp) uint8 rows + (N,) lengths -> padded words
   -> (N, 8) state -> (N, 32) uint8 digests). `sha256_reference` chains them;
   it is the CPU path and the card-side oracle.
-- `sha256_cuda`: the CUDA kernel (csrc/sha256.cu), one thread per message,
-  padding applied on the fly, reading each row straight out of a flat byte
-  buffer at (starts, lengths) so ingest never builds a padded matrix.
+- `sha256_cuda`: the CUDA kernel (csrc/sha256.cu), reading each row
+  straight out of a flat byte buffer at (starts, lengths) so ingest never
+  builds a padded matrix. A CTA hashes 32 rows: helper warps stage the bytes
+  and the message schedule in shared memory, one round warp runs the
+  compression. `block_order` is its plan: rows longest first.
 - `sha256_rows` routes by device; `sha256_batch` is the reference's
   padded-matrix entry point on top of it.
 
@@ -138,6 +140,26 @@ def sha256_reference(
     return digest_bytes(sha256_blocks(words, nblk))
 
 
+def check_rows(data: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor) -> None:
+    """Raise ValueError unless every row [starts[i], starts[i] + lengths[i])
+    lies inside the flat buffer `data` (one read back from the device)."""
+    if starts.numel():
+        lo, short, hi = torch.stack([
+            starts.min(), lengths.min().to(torch.int64),
+            (starts + lengths.to(torch.int64)).max()]).tolist()
+        if lo < 0 or short < 0 or hi > data.shape[0]:
+            raise ValueError("sha256: a row reaches outside the buffer")
+
+
+def block_order(lengths: torch.Tensor) -> torch.Tensor:
+    """The kernel's plan: row indices by 64-byte block count, longest first,
+    ties in row order (a stable sort on the rows' device). 32 neighbours in
+    it share a round warp, so a warp lasts about as long as each of its
+    messages and the longest start first."""
+    blocks = (lengths.to(torch.int64) + 9 + 63) // 64
+    return torch.argsort(blocks, descending=True, stable=True)
+
+
 def sha256_cuda(
     data: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor,
 ) -> torch.Tensor:
@@ -156,21 +178,28 @@ def sha256_cuda(
             or not starts.is_contiguous() or not lengths.is_contiguous()):
         raise ValueError("sha256_cuda takes (N,) int64 starts and (N,) int32 "
                          "lengths, contiguous, on the data's device")
-    n = starts.shape[0]
-    if n and (int(starts.min()) < 0 or int(lengths.min()) < 0
-              or int((starts + lengths).max()) > data.shape[0]):
-        raise ValueError("sha256_cuda: a row reaches outside the buffer")
-    lib = _build.library()
-    out = torch.empty((n, 32), dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.yt_sha256_rows(data.data_ptr(), starts.data_ptr(),
-                             lengths.data_ptr(), out.data_ptr(), n, stream)
-    sha256_cuda.launches += 1
-    _build.check(err, "sha256_cuda")
-    return out
+    order = block_order(lengths)          # queued ahead of the check's read-back
+    check_rows(data, starts, lengths)
+    out = torch.empty((starts.shape[0], 32), dtype=torch.uint8, device=dev)
+    return launch(data, starts, lengths, order, out)
 
 
 sha256_cuda.launches = 0
+
+
+def launch(data: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor,
+           order: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """sha256_cuda past its checks and its plan: launch the kernel on rows
+    already checked, in `order` (int64, on the card), into `out`, a fresh
+    (N, 32) uint8 tensor (the kernel stores 16 bytes at a time). The
+    measurement code calls it to time the kernel alone."""
+    err = _build.library().yt_sha256_rows(
+        data.data_ptr(), data.shape[0], starts.data_ptr(), lengths.data_ptr(),
+        order.data_ptr(), out.data_ptr(), starts.shape[0],
+        torch.cuda.current_stream(data.device).cuda_stream)
+    sha256_cuda.launches += 1
+    _build.check(err, "sha256_cuda")
+    return out
 
 
 def sha256_rows(
@@ -181,6 +210,7 @@ def sha256_rows(
     if data.device.type == "cuda":
         return sha256_cuda(data, starts, lengths)
     if data.device.type == "cpu":
+        check_rows(data, starts, lengths)
         return sha256_reference(data, starts, lengths)
     raise ValueError(f"sha256_rows: unsupported device {data.device}")
 

@@ -48,6 +48,37 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def sm_clock_mhz(fn, seconds: float = 2.0) -> float:
+    """Median SM clock in MHz that `nvidia-smi --query-gpu=clocks.sm` reads
+    every 100 ms while fn() runs back to back on the card for `seconds`."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+         "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t = time.perf_counter()
+        while time.perf_counter() - t < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+    mhz = [float(x) for x in out.split() if x.replace(".", "", 1).isdigit()]
+    if not mhz:
+        raise RuntimeError("nvidia-smi read no SM clock")
+    return float(np.median(mhz))
+
+
+def zipf_text(n_bytes: int, seed: int) -> bytes:
+    """bench.py's ingest payload generator, scaled: zipf(1.3) over 4,096 words."""
+    rng = np.random.default_rng(seed)
+    words = [f"word{i}" for i in range(4096)]
+    zipf = rng.zipf(1.3, size=n_bytes // 6 + 1)   # every word + space >= 6 B
+    data = " ".join(np.asarray(words, dtype=object)[zipf % 4096].tolist()).encode()
+    if len(data) < n_bytes:
+        raise RuntimeError("zipf text generator came up short")
+    return data[:n_bytes]
+
+
 def batch_ms(fn, iters: int, device: torch.device, best_of: int = 1):
     """Mean milliseconds a batch of fn(0), ..., fn(iters - 1), after a
     warm-up fn(0): CUDA events around the batches on a card, the host clock
