@@ -30,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..spans import span
 from .select import prefix_sum, top_k
 
 
@@ -178,22 +179,23 @@ def bm25_topk_candidates_packed(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-C BM25 candidates from packed 2-D postings -> (ids (B, C) i32,
     scores (B, C) f32), rank-ordered; id num_docs marks an empty slot."""
-    window = packed.shape[1]
-    take = prefilter if 0 < prefilter < window else window
-    qbits = packed_qbits(num_docs)
-    qmax = (1 << qbits) - 1
-    sink_key = num_docs << qbits
-    scale = impact_scale.reshape(())
-    keys = packed[term_ids.long(), :take]               # (B, T, take)
-    # fractional term weights scale the quantized impact in the LOW bits;
-    # doc ids in the high bits stay sort-stable
-    q = (keys & qmax).float() * term_mask.clamp(0.0, 1.0)[:, :, None]
-    keys = (keys & ~qmax) | q.to(torch.int32)
-    keys = torch.where(term_mask[:, :, None] > 0, keys, sink_key)
-    keys = keys.reshape(keys.shape[0], -1).sort(dim=1).values
-    ids = keys >> qbits
-    val = (keys & qmax).float() * (scale / qmax)
-    return segment_topk(ids, val, num_docs, num_candidates)
+    with span("lexical_leg"):
+        window = packed.shape[1]
+        take = prefilter if 0 < prefilter < window else window
+        qbits = packed_qbits(num_docs)
+        qmax = (1 << qbits) - 1
+        sink_key = num_docs << qbits
+        scale = impact_scale.reshape(())
+        keys = packed[term_ids.long(), :take]               # (B, T, take)
+        # fractional term weights scale the quantized impact in the LOW bits;
+        # doc ids in the high bits stay sort-stable
+        q = (keys & qmax).float() * term_mask.clamp(0.0, 1.0)[:, :, None]
+        keys = (keys & ~qmax) | q.to(torch.int32)
+        keys = torch.where(term_mask[:, :, None] > 0, keys, sink_key)
+        keys = keys.reshape(keys.shape[0], -1).sort(dim=1).values
+        ids = keys >> qbits
+        val = (keys & qmax).float() * (scale / qmax)
+        return segment_topk(ids, val, num_docs, num_candidates)
 
 
 def bm25_topk_candidates(
@@ -211,18 +213,19 @@ def bm25_topk_candidates(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """CSR form of bm25_topk_candidates_packed (same contract): each term's
     window is a contiguous slice of the flat postings arrays."""
-    P = postings_doc.shape[0]
-    take = prefilter if 0 < prefilter < window else window
-    tid = term_ids.long()
-    off = term_offsets.long()[tid].clamp(0, P - take)          # (B, T)
-    pos = torch.arange(take, device=tid.device)
-    idx = off[:, :, None] + pos                                  # (B, T, take)
-    pmask = (pos < term_lengths.long()[tid][:, :, None]) \
-        & (term_mask[:, :, None] > 0)
-    contrib = torch.where(pmask, postings_impact[idx] * term_mask[:, :, None],
-                          0.0)
-    docs = torch.where(pmask, postings_doc[idx].long(), num_docs)
-    B = tid.shape[0]
-    ids, order = docs.reshape(B, -1).sort(dim=1, stable=True)
-    val = contrib.reshape(B, -1).gather(1, order)
-    return segment_topk(ids, val, num_docs, num_candidates)
+    with span("lexical_leg"):
+        P = postings_doc.shape[0]
+        take = prefilter if 0 < prefilter < window else window
+        tid = term_ids.long()
+        off = term_offsets.long()[tid].clamp(0, P - take)          # (B, T)
+        pos = torch.arange(take, device=tid.device)
+        idx = off[:, :, None] + pos                                  # (B, T, take)
+        pmask = (pos < term_lengths.long()[tid][:, :, None]) \
+            & (term_mask[:, :, None] > 0)
+        contrib = torch.where(pmask, postings_impact[idx] * term_mask[:, :, None],
+                              0.0)
+        docs = torch.where(pmask, postings_doc[idx].long(), num_docs)
+        B = tid.shape[0]
+        ids, order = docs.reshape(B, -1).sort(dim=1, stable=True)
+        val = contrib.reshape(B, -1).gather(1, order)
+        return segment_topk(ids, val, num_docs, num_candidates)

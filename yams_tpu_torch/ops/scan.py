@@ -130,11 +130,19 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     (int8 (B, D), scale f32 (B,)). torch.round rounds half to even, as
     jnp.round does. The divisor 127 is a tensor on the device: on a card
     torch turns division by a Python number into a multiply by its
-    reciprocal, which rounds otherwise than the reference's division."""
+    reciprocal, which rounds otherwise than the reference's division.
+
+    `syncs` (a plain int, never reset) counts the host's waits for the
+    device: one a call, the divisor's copy to the device, which on a card
+    waits for the work queued before it (a stream sync)."""
     amax = x.abs().amax(dim=1).clamp_min(1e-12)
-    qscale = amax / amax.new_tensor(127.0)
+    qscale = amax / amax.new_tensor(127.0)             # the host waits here
+    quantize_rows.syncs += 1
     q8 = torch.round(x / qscale[:, None]).clamp_(-127, 127).to(torch.int8)
     return q8, qscale
+
+
+quantize_rows.syncs = 0
 
 
 _INT_MM_MIN_ROWS = 32   # torch._int_mm on CUDA wants more than 16 rows in A

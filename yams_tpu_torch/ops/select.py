@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ..spans import span
+
 _ROW_BLOCK = 64    # rows per top_k pass: bounds the int64 key buffer
 _SCAN_BASE = 16
 
@@ -44,20 +46,37 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     torch.topk picks the right values; only which of the elements equal to
     the k-th value it keeps is open. Rows where every such element was kept
     need no repair; the rest (a tie straddling the cut) are redone with
-    unique int64 keys. The k winners are then ordered by the same keys."""
-    if x.shape[0] == 0:
+    unique int64 keys. The k winners are then ordered by the same keys.
+
+    Counters (plain ints on this function, never reset): `syncs`, the
+    host's waits for the device, one where the `nonzero` that finds the rows
+    to repair hands its size to the host (on a card a stream sync, which
+    `portbench.spans` counts in a trace to check this counter); `rows`, the
+    rows selected; `repair_rows`, the rows redone."""
+    shape = x.shape
+    n_rows = shape[0]
+    if n_rows == 0:
         empty = torch.empty((0, k), dtype=torch.int64, device=x.device)
         return x.new_empty((0, k)), empty
-    vals, pos = torch.topk(x, k, dim=1)
-    kth = vals[:, -1:]
-    cut_ties = (x == kth).sum(dim=1) != (vals == kth).sum(dim=1)
-    rows = torch.nonzero(cut_ties).flatten()
-    if rows.numel():
-        pos[rows] = _key_top_k(x[rows], k)
-    sel = x.gather(1, pos)
-    order = _key_top_k_small(sel, pos)
-    pos = pos.gather(1, order)
-    return x.gather(1, pos), pos
+    with span("top_k", rows=n_rows, cols=shape[1], k=k):
+        vals, pos = torch.topk(x, k, dim=1)
+        kth = vals[:, -1:]
+        cut_ties = (x == kth).sum(dim=1) != (vals == kth).sum(dim=1)
+        rows = torch.nonzero(cut_ties).flatten()      # the host waits here
+        top_k.syncs += 1
+        n_repair = rows.numel()
+        top_k.rows += n_rows
+        if n_repair:
+            top_k.repair_rows += n_repair
+            with span("tie_repair", rows=n_repair):
+                pos[rows] = _key_top_k(x[rows], k)
+        sel = x.gather(1, pos)
+        order = _key_top_k_small(sel, pos)
+        pos = pos.gather(1, order)
+        return x.gather(1, pos), pos
+
+
+top_k.syncs = top_k.rows = top_k.repair_rows = 0
 
 
 def _key_top_k_small(vals: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

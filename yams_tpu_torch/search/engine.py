@@ -61,11 +61,11 @@ import dataclasses
 import heapq
 import math
 import threading
-import time
 
 import numpy as np
 import torch
 
+from .. import spans
 from ..core.config import EmbeddingConfig, LexicalIndexConfig, VectorIndexConfig
 from ..device import resolve_device
 from ..embed.chunker import chunk_document
@@ -625,11 +625,21 @@ class SearchEngine:
         per_query_filters: list[set[int] | None] | None = None,
     ) -> list[list[SearchResult]]:
         """Batched hybrid search on the dense or the PQ tier (the argument
-        contract of yams_tpu/search/engine.py SearchEngine.search_batch)."""
-        t0 = time.monotonic()
+        contract of yams_tpu/search/engine.py SearchEngine.search_batch).
+
+        `last_trace["stages"]` and `["total_ms"]` are timed by `spans`; while
+        its recorder is on they are also recorded as spans under one
+        `search_batch` root, which holds the query program's own spans."""
+        with spans.begin("search_batch", queries=len(queries)) as root:
+            return self._search_batch(root, queries, k, mode, filter_doc_ids, intent,
+                                      per_query_filters)
+
+    def _search_batch(self, root, queries, k, mode, filter_doc_ids, intent,
+                      per_query_filters):
         trace: dict = {"query_count": len(queries), "mode": mode, "stages": {}}
         if not self._doc_by_slot:
             return [[] for _ in queries]
+        prep = spans.begin("host_prep")
         cfg = self.config
         if self.tuner is not None and mode == "hybrid":
             _, tuner_arm = self.tuner.select(corpus_profile(len(self._slot_by_doc)))
@@ -672,7 +682,7 @@ class SearchEngine:
                 and all((tmask[i] >= 1.0).sum() <= 1 for i in range(B_real))):
             rrf_c = min(max(cfg.weak_query_rrf_candidates, k), Nd)
             trace["weak_query_fanout"] = True
-        trace["stages"]["host_prep_ms"] = (time.monotonic() - t0) * 1e3
+        trace["stages"]["host_prep_ms"] = prep.end()
 
         w = pack_weights(cfg)
         if mode == "keyword":
@@ -749,7 +759,7 @@ class SearchEngine:
         if (policy == "narrow" and mode != "keyword" and not use_pq
                 and not use_sharded and 0 < B_real <= cfg.narrow_gather_max_batch
                 and filter_doc_ids is None and per_query_filters is None):
-            t_r = time.monotonic()
+            route = spans.begin("topology_route")
             qvecs = _query_vecs()
             sels = [self._route_query(qv, qt) for qv, qt in zip(qvecs, queries)]
             if not any(s.abstained for s in sels):
@@ -777,12 +787,12 @@ class SearchEngine:
                     doc_mask = masks
                     self._stats["topology_routes"] += B_real
                     trace["narrow_gather_rows"] = int(R)
-                    trace["stages"]["topology_route_ms"] = \
-                        (time.monotonic() - t_r) * 1e3
+                    trace["stages"]["topology_route_ms"] = route.end()
+            route.end()     # a route that falls through to the masked path
 
         if (policy in ("narrow", "shadow") and mode != "keyword"
                 and narrow_gather is None):
-            t_r = time.monotonic()
+            route = spans.begin("topology_route")
             qvecs = _query_vecs()
             routed = [self._routed_slot_mask(qv, Nd, query=qt)
                       for qv, qt in zip(qvecs, queries)]
@@ -803,10 +813,10 @@ class SearchEngine:
                 doc_mask = per_q.astype(np.float32)
             else:
                 shadow_masks = routed
-            trace["stages"]["topology_route_ms"] = (time.monotonic() - t_r) * 1e3
+            trace["stages"]["topology_route_ms"] = route.end()
 
         hot = self._hot_device(Nd)
-        t_dev = time.monotonic()
+        device = spans.begin("device")
         lex_prefilter = (cfg.bm25_prefilter
                          if Nd > cfg.approx_threshold and cfg.bm25_prefilter > 0
                          else 0)
@@ -914,7 +924,7 @@ class SearchEngine:
         # candidates' token embeddings, blended into the fused score
         if (self.token_index is not None and mode == "hybrid"
                 and self.token_index.doc_count > 0):
-            t_li = time.monotonic()
+            late = spans.begin("late_interaction")
             Tq = self.config.late_interaction_max_tokens
             qt = np.zeros((B_real, Tq, self.provider.dim), np.float32)
             qm = np.zeros((B_real, Tq), np.float32)
@@ -927,18 +937,18 @@ class SearchEngine:
             li = self._maxsim(self.token_index, qt, qm, slots)
             vals, slots, bm_at, vec_at = _blend(vals, slots, bm_at, vec_at,
                                                 cfg.late_interaction_weight, li)
-            trace["stages"]["late_interaction_ms"] = (time.monotonic() - t_li) * 1e3
+            trace["stages"]["late_interaction_ms"] = late.end()
         # fragment-geometry rerank arm: MaxSim over the candidates' SENTENCE
         # embeddings, blended like the ColBERT tier
         if (self.fragment_index is not None and mode == "hybrid"
                 and self.fragment_index.doc_count > 0):
-            t_fg = time.monotonic()
+            frag = spans.begin("fragment_geometry")
             qv = self.provider.encode(list(queries[:B_real]))[:, None, :]
             fg = self._maxsim(self.fragment_index, qv, np.ones((B_real, 1), np.float32), slots)
             vals, slots, bm_at, vec_at = _blend(vals, slots, bm_at, vec_at,
                                                 self.config.fragment_geometry_weight, fg)
-            trace["stages"]["fragment_geometry_ms"] = (time.monotonic() - t_fg) * 1e3
-        trace["stages"]["device_ms"] = (time.monotonic() - t_dev) * 1e3
+            trace["stages"]["fragment_geometry_ms"] = frag.end()
+        trace["stages"]["device_ms"] = device.end()
 
         # shadow policy: how often narrow routing would have agreed, and the
         # per-construction miss-risk certificate (protected candidates = the
@@ -1000,10 +1010,11 @@ class SearchEngine:
                     and len(results) > k):
                 self._semantic_rescue(results, k)
             out.append(results[:k])
+        total_ms = root.end()
         with self._lock:  # searches may run concurrently
             self._stats["searches"] += len(queries)
-            self._stats["total_ms"] += (time.monotonic() - t0) * 1e3
-        trace["total_ms"] = (time.monotonic() - t0) * 1e3
+            self._stats["total_ms"] += total_ms
+        trace["total_ms"] = total_ms
         self.last_trace = trace
         return out
 

@@ -18,6 +18,11 @@ Port of yams_tpu/search/fusion.py. Stages:
      adaptive leg weights, vector-only penalty, hotzone boost;
   5. exact top-k over the merged candidates.
 
+Spans (`yams_tpu_torch.spans`, recorded only while its recorder is on):
+`hybrid_query` around the call, `embed`, `vector_leg` (with `scores` and
+`mask_bias`, and on the streaming path a `block` a block and the `merge`)
+and `fuse`; the lexical leg's and `top_k`'s are in their own modules.
+
 Differences from the reference, all deliberate:
 - the query's L2 norm sums its squares in f64 (`_row_norm`), so it is the
   same on the card and on the CPU;
@@ -47,8 +52,13 @@ import torch
 from ..ops.bm25 import bm25_topk_candidates, bm25_topk_candidates_packed
 from ..ops.scan import dot_f32, int8_product, quantize_rows
 from ..ops.select import prefix_sum, top_k
+from ..spans import span
 
 NEG = -1e30
+
+# the calls `hybrid_query` took (a plain int, never reset): the base of the
+# per-request counters, such as `select.top_k`'s
+hybrid_query_calls = 0
 
 # packed weight vector layout (yams_tpu/search/fusion.py)
 (W_TEXT, W_VEC, W_HOT, W_RRF_SCALE, W_BM25_DIV, W_VEC_ONLY_PEN, W_K1,
@@ -108,7 +118,9 @@ def hybrid_query(
     (B,k)), the reference's contract. `approx` selects nothing here: the
     top-C is exact, so a recall@10 of approx against exact is 1 by
     construction. On the streaming path the doc mask is indexed by row, so
-    it must have `rows` columns (the engine pads it)."""
+    it must have `rows` columns (the engine pads it). Each call adds one to
+    the module's `hybrid_query_calls`."""
+    global hybrid_query_calls
     del approx
     if weights.shape[-1] != NUM_WEIGHTS:
         raise ValueError(
@@ -117,47 +129,52 @@ def hybrid_query(
         raise ValueError(f"chunk_agg={chunk_agg!r}")
     C = rrf_cand
     sink = num_slots
+    hybrid_query_calls += 1
+    with span("hybrid_query", batch=sketch.shape[0], rows=E.shape[0]):
+        # 1. embed queries
+        with span("embed"):
+            q = dot_f32(sketch, proj.t())
+            q = q / _row_norm(q).clamp_min(1e-9)
+            q8 = qscale = None
+            if int8_corpus:
+                q8, qscale = quantize_rows(q)
 
-    # 1. embed queries
-    q = dot_f32(sketch, proj.t())
-    q = q / _row_norm(q).clamp_min(1e-9)
-    q8 = qscale = None
-    if int8_corpus:
-        q8, qscale = quantize_rows(q)
+        def scores(lo, hi):
+            """(B, hi - lo) f32 scores of rows lo..hi with the validity bias."""
+            with span("scores"):
+                if int8_corpus:
+                    s = int8_product(q8, qscale, E[lo:hi], row_scale[lo:hi])
+                else:
+                    s = dot_f32(q, E[lo:hi])
+                s += ((row_valid[lo:hi] - 1.0) * 1e30)[None, :]
+                return s
 
-    def scores(lo, hi):
-        """(B, hi - lo) f32 scores of rows lo..hi with the validity bias."""
-        if int8_corpus:
-            s = int8_product(q8, qscale, E[lo:hi], row_scale[lo:hi])
-        else:
-            s = dot_f32(q, E[lo:hi])
-        s += ((row_valid[lo:hi] - 1.0) * 1e30)[None, :]
-        return s
-
-    # 2. vector leg -> top-C candidates (doc slots)
-    if scan_block_rows > 0 and rows_are_docs:
-        vv, vi = _streaming_top_c(scores, E.shape[0], q.shape[0], doc_mask,
-                                  mask_idx, C, sink, scan_block_rows)
-    else:
-        srow = scores(0, E.shape[0])
-        if rows_are_docs:
-            sdoc = srow[:, :num_slots]
-        else:
-            sdoc = _aggregate_chunks(srow, row2slot, num_slots, chunk_agg)
-        del srow
-        # filter pushdown before selection so filtered queries still fill C
-        bias = (doc_mask if mask_idx is None else doc_mask[mask_idx.long()]
-                ).to(torch.float32, copy=True)
-        sdoc += bias.sub_(1.0).mul_(1e30)
-        del bias
-        vv, vi = top_k(sdoc, C)
-        del sdoc
-    return _fuse_candidates(
-        term_ids, term_mask, postings_doc, postings_impact, term_offsets,
-        term_lengths, doc_mask, mask_idx, hot, weights, vv, vi.to(torch.int32),
-        k=k, C=C, window=window, num_slots=num_slots,
-        bm25_prefilter=bm25_prefilter, packed_lexical=packed_lexical,
-    )
+        # 2. vector leg -> top-C candidates (doc slots)
+        with span("vector_leg"):
+            if scan_block_rows > 0 and rows_are_docs:
+                vv, vi = _streaming_top_c(scores, E.shape[0], q.shape[0], doc_mask,
+                                          mask_idx, C, sink, scan_block_rows)
+            else:
+                srow = scores(0, E.shape[0])
+                if rows_are_docs:
+                    sdoc = srow[:, :num_slots]
+                else:
+                    sdoc = _aggregate_chunks(srow, row2slot, num_slots, chunk_agg)
+                del srow
+                # filter pushdown before selection so filtered queries still fill C
+                with span("mask_bias"):
+                    bias = (doc_mask if mask_idx is None else doc_mask[mask_idx.long()]
+                            ).to(torch.float32, copy=True)
+                    sdoc += bias.sub_(1.0).mul_(1e30)
+                    del bias
+                vv, vi = top_k(sdoc, C)
+                del sdoc
+        return _fuse_candidates(
+            term_ids, term_mask, postings_doc, postings_impact, term_offsets,
+            term_lengths, doc_mask, mask_idx, hot, weights, vv, vi.to(torch.int32),
+            k=k, C=C, window=window, num_slots=num_slots,
+            bm25_prefilter=bm25_prefilter, packed_lexical=packed_lexical,
+        )
 
 
 def _row_norm(q: torch.Tensor) -> torch.Tensor:
@@ -188,18 +205,21 @@ def _streaming_top_c(scores, rows: int, B: int, doc_mask, mask_idx, C: int,
     cand_i = [torch.full((B, C), sink, dtype=torch.int64, device=dev)]
     rows_of = mask_idx.long() if mask_idx is not None else None
     for lo in range(0, rows, block):
-        hi = lo + block
-        s = scores(lo, hi)
-        m = doc_mask[..., lo:hi]
-        if rows_of is not None:
-            m = m[rows_of]
-        s += (m.float() - 1.0) * 1e30
-        bv, bi = top_k(s, C)
-        del s
-        cand_v.append(bv)
-        cand_i.append(bi + lo)
-    vv, pos = top_k(torch.cat(cand_v, dim=1), C)
-    return vv, torch.cat(cand_i, dim=1).gather(1, pos)
+        with span("block", lo=lo):
+            hi = lo + block
+            s = scores(lo, hi)
+            with span("mask_bias"):
+                m = doc_mask[..., lo:hi]
+                if rows_of is not None:
+                    m = m[rows_of]
+                s += (m.float() - 1.0) * 1e30
+            bv, bi = top_k(s, C)
+            del s
+            cand_v.append(bv)
+            cand_i.append(bi + lo)
+    with span("merge"):
+        vv, pos = top_k(torch.cat(cand_v, dim=1), C)
+        return vv, torch.cat(cand_i, dim=1).gather(1, pos)
 
 
 _AGG_ROWS = 1 << 16   # score columns a chunk of the knock-out pass takes
@@ -311,87 +331,88 @@ def _fuse_candidates(
             num_candidates=C, prefilter=bm25_prefilter,
         )
 
-    # 4. candidate fusion — all O(C) per query
-    ranks = torch.arange(C, dtype=torch.float32, device=vv.device)[None, :]
-    rrf = 1.0 / (w[W_RRF_K] + ranks + 1.0)
+    with span("fuse"):
+        # 4. candidate fusion — all O(C) per query
+        ranks = torch.arange(C, dtype=torch.float32, device=vv.device)[None, :]
+        rrf = 1.0 / (w[W_RRF_K] + ranks + 1.0)
 
-    dm_at_bm = _mask_at(doc_mask, mask_idx, bm_ids.long().clamp_max(sink - 1))
-    bm_ok = (bm_scores > 0) & (bm_ids < sink) & (dm_at_bm > 0) & (w[W_TEXT] > 0)
-    bm_live = torch.where(bm_ok, bm_scores, 0.0)
-    bm_qmax = bm_live.amax(dim=1, keepdim=True)
-    bm_div = torch.where(w[W_BM25_DIV] > 0, w[W_BM25_DIV],
-                         bm_qmax.clamp_min(1e-6))
-    bm_norm = (bm_live / bm_div).clamp(0.0, 1.0)
-    ids_bm = torch.where(bm_ok, bm_ids, sink)
+        dm_at_bm = _mask_at(doc_mask, mask_idx, bm_ids.long().clamp_max(sink - 1))
+        bm_ok = (bm_scores > 0) & (bm_ids < sink) & (dm_at_bm > 0) & (w[W_TEXT] > 0)
+        bm_live = torch.where(bm_ok, bm_scores, 0.0)
+        bm_qmax = bm_live.amax(dim=1, keepdim=True)
+        bm_div = torch.where(w[W_BM25_DIV] > 0, w[W_BM25_DIV],
+                             bm_qmax.clamp_min(1e-6))
+        bm_norm = (bm_live / bm_div).clamp(0.0, 1.0)
+        ids_bm = torch.where(bm_ok, bm_ids, sink)
 
-    vec_ok = (vv > -1e29) & (w[W_VEC] > 0)
-    vec_clip = ((vv + w[W_VEC_BIAS]) * w[W_VEC_SCALE]).clamp(0.0, 1.0)
-    vec_live = torch.where(vec_ok, vec_clip, 0.0)
-    vec_qmax = vec_live.amax(dim=1, keepdim=True)
-    vec_norm = torch.where(w[W_BM25_DIV] > 0, vec_clip,
-                           vec_live / vec_qmax.clamp_min(1e-6))
+        vec_ok = (vv > -1e29) & (w[W_VEC] > 0)
+        vec_clip = ((vv + w[W_VEC_BIAS]) * w[W_VEC_SCALE]).clamp(0.0, 1.0)
+        vec_live = torch.where(vec_ok, vec_clip, 0.0)
+        vec_qmax = vec_live.amax(dim=1, keepdim=True)
+        vec_norm = torch.where(w[W_BM25_DIV] > 0, vec_clip,
+                               vec_live / vec_qmax.clamp_min(1e-6))
 
-    # per-query leg-confidence adaptive weighting (full-window mean blended
-    # with top-8 margin confidence)
-    n_bm = bm_ok.sum(dim=1, keepdim=True).float()
-    n_vec = vec_ok.sum(dim=1, keepdim=True).float()
-    rel_l = (bm_live / bm_qmax.clamp_min(1e-6)).sum(dim=1, keepdim=True)
-    rel_v = (vec_live / vec_qmax.clamp_min(1e-6)).sum(dim=1, keepdim=True)
-    conf_l = torch.where(n_bm > 0, 1.0 - rel_l / n_bm.clamp_min(1.0), 0.0)
-    conf_v = torch.where(n_vec > 0, 1.0 - rel_v / n_vec.clamp_min(1.0), 0.0)
-    m_top = 8
-    bm_top = bm_live[:, 1:m_top] / bm_qmax.clamp_min(1e-6)
-    vec_top = vec_live[:, 1:m_top] / vec_qmax.clamp_min(1e-6)
-    conf_l_m = torch.where(n_bm > 0, 1.0 - bm_top.mean(dim=1, keepdim=True), 0.0)
-    conf_v_m = torch.where(n_vec > 0, 1.0 - vec_top.mean(dim=1, keepdim=True),
-                           0.0)
-    g = w[W_CONF_MARGIN].clamp(0.0, 1.0)
-    conf_l = (1.0 - g) * conf_l + g * conf_l_m
-    conf_v = (1.0 - g) * conf_v + g * conf_v_m
-    mass_l = w[W_TEXT] * conf_l
-    mass_v = w[W_VEC] * conf_v
-    mass = mass_l + mass_v
-    leg_sum = w[W_TEXT] + w[W_VEC]
-    share_l = torch.where(mass > 1e-9, mass_l / mass.clamp_min(1e-9),
-                          w[W_TEXT] / leg_sum.clamp_min(1e-9))
-    a = w[W_LEG_ADAPT]
-    wt_q = (1.0 - a) * w[W_TEXT] + a * leg_sum * share_l
-    wv_q = (1.0 - a) * w[W_VEC] + a * leg_sum * (1.0 - share_l)
+        # per-query leg-confidence adaptive weighting (full-window mean blended
+        # with top-8 margin confidence)
+        n_bm = bm_ok.sum(dim=1, keepdim=True).float()
+        n_vec = vec_ok.sum(dim=1, keepdim=True).float()
+        rel_l = (bm_live / bm_qmax.clamp_min(1e-6)).sum(dim=1, keepdim=True)
+        rel_v = (vec_live / vec_qmax.clamp_min(1e-6)).sum(dim=1, keepdim=True)
+        conf_l = torch.where(n_bm > 0, 1.0 - rel_l / n_bm.clamp_min(1.0), 0.0)
+        conf_v = torch.where(n_vec > 0, 1.0 - rel_v / n_vec.clamp_min(1.0), 0.0)
+        m_top = 8
+        bm_top = bm_live[:, 1:m_top] / bm_qmax.clamp_min(1e-6)
+        vec_top = vec_live[:, 1:m_top] / vec_qmax.clamp_min(1e-6)
+        conf_l_m = torch.where(n_bm > 0, 1.0 - bm_top.mean(dim=1, keepdim=True), 0.0)
+        conf_v_m = torch.where(n_vec > 0, 1.0 - vec_top.mean(dim=1, keepdim=True),
+                               0.0)
+        g = w[W_CONF_MARGIN].clamp(0.0, 1.0)
+        conf_l = (1.0 - g) * conf_l + g * conf_l_m
+        conf_v = (1.0 - g) * conf_v + g * conf_v_m
+        mass_l = w[W_TEXT] * conf_l
+        mass_v = w[W_VEC] * conf_v
+        mass = mass_l + mass_v
+        leg_sum = w[W_TEXT] + w[W_VEC]
+        share_l = torch.where(mass > 1e-9, mass_l / mass.clamp_min(1e-9),
+                              w[W_TEXT] / leg_sum.clamp_min(1e-9))
+        a = w[W_LEG_ADAPT]
+        wt_q = (1.0 - a) * w[W_TEXT] + a * leg_sum * share_l
+        wv_q = (1.0 - a) * w[W_VEC] + a * leg_sum * (1.0 - share_l)
 
-    val_bm = torch.where(bm_ok, wt_q * (bm_norm + w[W_RRF_SCALE] * rrf), 0.0)
-    val_vec = torch.where(vec_ok, wv_q * (vec_norm + w[W_RRF_SCALE] * rrf), 0.0)
-    ids_vec = torch.where(vec_ok, vi_slots, sink)
+        val_bm = torch.where(bm_ok, wt_q * (bm_norm + w[W_RRF_SCALE] * rrf), 0.0)
+        val_vec = torch.where(vec_ok, wv_q * (vec_norm + w[W_RRF_SCALE] * rrf), 0.0)
+        ids_vec = torch.where(vec_ok, vi_slots, sink)
 
-    zeros = torch.zeros_like(val_vec)
-    ids = torch.cat([ids_bm, ids_vec], dim=1).long()           # (B, 2C)
-    vals = torch.cat([val_bm, val_vec], dim=1)
-    tflag = torch.cat([bm_ok.float(), zeros], dim=1)
-    vflag = torch.cat([zeros, vec_ok.float()], dim=1)
-    bm_raw = torch.cat([torch.where(bm_ok, bm_scores, 0.0), zeros], dim=1)
+        zeros = torch.zeros_like(val_vec)
+        ids = torch.cat([ids_bm, ids_vec], dim=1).long()           # (B, 2C)
+        vals = torch.cat([val_bm, val_vec], dim=1)
+        tflag = torch.cat([bm_ok.float(), zeros], dim=1)
+        vflag = torch.cat([zeros, vec_ok.float()], dim=1)
+        bm_raw = torch.cat([torch.where(bm_ok, bm_scores, 0.0), zeros], dim=1)
 
-    # merge: sort candidates by doc id, segment-sum each doc's evidence
-    ids_s, order = torch.sort(ids, dim=1, stable=True)
-    vals_s, t_s, v_s, bm_s = (x.gather(1, order)
-                              for x in (vals, tflag, vflag, bm_raw))
-    change = ids_s[:, 1:] != ids_s[:, :-1]
-    edge = torch.ones_like(ids_s[:, :1], dtype=torch.bool)
-    first = torch.cat([edge, change], dim=1)
-    last = torch.cat([change, edge], dim=1)
-    total = _segment_sum(vals_s, first)
-    t_sum = _segment_sum(t_s, first)
-    v_sum = _segment_sum(v_s, first)
-    bm_sum = _segment_sum(bm_s, first)
-    live = ids_s < sink
-    total = torch.where((t_sum == 0) & (v_sum > 0),
-                        total * w[W_VEC_ONLY_PEN], total)
-    total = total + w[W_HOT] * hot[ids_s.clamp_max(sink - 1)] * live.float()
-    total = torch.where(last & live, total, NEG)
-    vals_k, pos = top_k(total, k)
-    slots = ids_s.gather(1, pos)
-    bm_at = bm_sum.gather(1, pos)
-    # vec_at from the candidate lists (exact for every vector-leg doc;
-    # lexical-only docs read -1)
-    hit = slots[:, :, None] == vi_slots.long()[:, None, :]     # (B, k, C)
-    vec_at = torch.where(hit, vv.clamp_min(-1.0)[:, None, :], -1.0).amax(dim=2)
-    vals_k = torch.where(vals_k <= NEG / 2, NEG, vals_k)
-    return vals_k, slots.to(torch.int32), bm_at, vec_at
+        # merge: sort candidates by doc id, segment-sum each doc's evidence
+        ids_s, order = torch.sort(ids, dim=1, stable=True)
+        vals_s, t_s, v_s, bm_s = (x.gather(1, order)
+                                  for x in (vals, tflag, vflag, bm_raw))
+        change = ids_s[:, 1:] != ids_s[:, :-1]
+        edge = torch.ones_like(ids_s[:, :1], dtype=torch.bool)
+        first = torch.cat([edge, change], dim=1)
+        last = torch.cat([change, edge], dim=1)
+        total = _segment_sum(vals_s, first)
+        t_sum = _segment_sum(t_s, first)
+        v_sum = _segment_sum(v_s, first)
+        bm_sum = _segment_sum(bm_s, first)
+        live = ids_s < sink
+        total = torch.where((t_sum == 0) & (v_sum > 0),
+                            total * w[W_VEC_ONLY_PEN], total)
+        total = total + w[W_HOT] * hot[ids_s.clamp_max(sink - 1)] * live.float()
+        total = torch.where(last & live, total, NEG)
+        vals_k, pos = top_k(total, k)
+        slots = ids_s.gather(1, pos)
+        bm_at = bm_sum.gather(1, pos)
+        # vec_at from the candidate lists (exact for every vector-leg doc;
+        # lexical-only docs read -1)
+        hit = slots[:, :, None] == vi_slots.long()[:, None, :]     # (B, k, C)
+        vec_at = torch.where(hit, vv.clamp_min(-1.0)[:, None, :], -1.0).amax(dim=2)
+        vals_k = torch.where(vals_k <= NEG / 2, NEG, vals_k)
+        return vals_k, slots.to(torch.int32), bm_at, vec_at
