@@ -296,10 +296,23 @@ seconds):
      K1's winners at each group width equal grouped_max_reference on all
      1,024 queries of a batch, dot_bf16 within one bf16 ulp of dot_f32's
      sums rounded, and the mat192 rescores equal dot_f32's top-32 at
-     their candidates.
+     their candidates;
+ 18. select.top_k's kernel (select_topk_cuda, csrc/select_topk.cu) against
+     the plain path (select._plain_top_k) and the key order itself, values
+     and indices bit for bit: seven kinds of adversarial rows (equal
+     values, ties across the cut, -1e30 fills, -inf, +-0.0, NaN, rising
+     scores) at 128 to 1,000,448 columns and k 1 to 1,024, strided and
+     misaligned column slices, bf16 and f16 scores (a -NaN row is held to
+     the key order alone: the plain path's torch.topk takes every NaN as
+     the largest); top_k on a card launching it with no sync; then the
+     benchmark's six calls ((1,024, 1,000,448), (1,024, 262,144), (64,
+     262,144), (1,024, 4,096), (1,024, 2,624), (1,024, 128), k 64), each
+     checked, timed beside its byte bound and the plain path's time, with
+     each stage's device time.
 
 The kernel launch counters are zeroed just before each path and read just
-after: the add path (phases 2-3) must launch gear_hash_cuda and
+after. Every top-k on the card goes through select_topk_cuda (select.top_k),
+whose launches are printed with each path's counts; besides it: the add path (phases 2-3) must launch gear_hash_cuda and
 sha256_cuda, the vector store (phase 5) exact_topk_cuda and pq4_adc_cuda,
 the engine's PQ tier (phase 6) must launch pq4_adc_cuda zero times (it
 always pushes a doc mask into the scan, and K4 serves the unfiltered scan
@@ -3107,7 +3120,7 @@ def phase11_service(dev, keep: dict) -> dict:
 
 
 def phase11_ops(topology: dict) -> list:
-    """Phase 11's device operations (torch, no hand kernel yet), each with
+    """Phase 11's device operations (torch but for their top-k), each with
     its time and bound: kmeans_step at phase 3's rows and at full width,
     the kNN self-join and label propagation (the connected build's, at the
     live rows), and routed_gather_topk at each bench_narrow B."""
@@ -5575,6 +5588,174 @@ def phase17_checks(dev) -> dict:
     return out
 
 
+# -- phase 18 -----------------------------------------------------------------
+# select.top_k's kernel: the three long-row calls of the benchmark's vector
+# legs and the three short-row calls of its merge, lexical leg and fusion
+SELECT_SHAPES = ((1024, 1_000_448, 64), (1024, 262_144, 64), (64, 262_144, 64),
+                 (1024, 4_096, 64), (1024, 2_624, 64), (1024, 128, 64))
+SELECT_KINDS = ("normal", "one_value", "ties", "fills", "specials", "rising")
+
+
+def select_rows(kind: str, R: int, n: int, gen, dev) -> torch.Tensor:
+    """(R, n) f32 rows of one kind, made on the card: the CPU tests' kinds
+    (tests/test_torch_select.py) at the card's sizes, and `neg_nan`."""
+    def randn():
+        return torch.randn((R, n), generator=gen, device=dev)
+
+    if kind == "normal":
+        return randn()
+    if kind == "one_value":
+        return torch.full((R, n), 0.25, device=dev)
+    if kind == "ties":
+        return torch.round(randn() * 2) / 2
+    if kind == "fills":
+        live = torch.rand((R, n), generator=gen, device=dev) >= 0.97
+        x = torch.where(live, randn(), torch.full((), -1e30, device=dev))
+        x[0] = -1e30
+        return x
+    if kind == "specials":
+        x = torch.round(randn())
+        x[:, ::5] = -torch.inf
+        x[:, 1::7] = 0.0
+        x[:, 2::9] = -0.0
+        x[1:, 3::31] = torch.nan
+        if R > 2:
+            x[2] = -0.0
+            x[2, ::3] = 0.0
+        return x
+    if kind == "rising":
+        scale = torch.tensor([1.0, -1.0, 0.5, 1e-3], device=dev).repeat(-(-R // 4))[:R]
+        return torch.arange(n, device=dev, dtype=torch.float32)[None, :] * scale[:, None]
+    if kind == "neg_nan":     # a NaN with the sign bit set: below -inf in the key order
+        x = randn()
+        x[:, 5::17] = torch.tensor(0xFFC00000 - (1 << 32), dtype=torch.int32).view(torch.float32)
+        return x
+    raise ValueError(kind)
+
+
+def key_order_top_k(x: torch.Tensor, k: int):
+    """The order's definition: unique int64 keys over the whole row
+    (`select._key_top_k`), the k winners ordered by them."""
+    from yams_tpu_torch.ops import select
+
+    pos = select._key_top_k(x, k)
+    pos = pos.gather(1, select._key_top_k_small(x.gather(1, pos), pos))
+    return x.gather(1, pos), pos
+
+
+def bits_equal(a, b) -> bool:
+    """Values and indices equal bit for bit (values as their integer bits)."""
+    av, ai = a
+    bv, bi = b
+    ibits = torch.int16 if av.dtype in (torch.bfloat16, torch.float16) else torch.int32
+    return (av.dtype == bv.dtype and ai.dtype == bi.dtype == torch.int64
+            and torch.equal(ai, bi) and torch.equal(av.view(ibits), bv.view(ibits)))
+
+
+SELECT_LENGTHS = (128, 1_000, 2_624, 4_096, 8_192, 8_193, 70_001, 262_144, 1_000_448)
+
+
+def phase18_select(dev, lengths=SELECT_LENGTHS, shapes=SELECT_SHAPES, slice_cols=262_144) -> dict:
+    """select_topk_cuda against the plain path (`select._plain_top_k`, what
+    top_k ran on a card before it) and the key order itself, bit for bit,
+    values and indices, a synchronize after each launch: adversarial rows at
+    short and long lengths, k 1 to 1,024, strided and misaligned column
+    slices, bf16 scores; then the benchmark's six calls, each checked and
+    timed beside its byte bound and the plain path's time."""
+    from yams_tpu_torch.ops import select
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 18)
+    misses, plain_nan = [], []
+
+    def compare(what, x, k, plain=True):
+        got = select.select_topk_cuda(x, k)
+        torch.cuda.synchronize()
+        if not bits_equal(got, key_order_top_k(x, k)):
+            misses.append(f"{what}: != key order")
+        if plain and not bits_equal(got, select._plain_top_k(x, k)):
+            misses.append(f"{what}: != plain path")
+
+    cases = 0
+    for n in lengths:
+        for kind in SELECT_KINDS + ("neg_nan",):
+            x = select_rows(kind, 8, n, gen, dev)
+            for k in sorted({1, 64, 256, 1024, n} & set(range(1, min(n, 1024) + 1))):
+                compare(f"{kind} (8, {n}) k {k}", x, k, plain=kind != "neg_nan")
+                cases += 1
+                if kind == "neg_nan":   # the plain path's torch.topk takes every NaN as the largest
+                    same = bits_equal(select.select_topk_cuda(x, k), select._plain_top_k(x, k))
+                    plain_nan.append(same)
+    log(f"[phase18] {cases} adversarial cases; a -NaN row's top-k equal to the plain path's "
+        f"in {sum(plain_nan)} of {len(plain_nan)}")
+
+    # column slices read in place: stride not a multiple of 4 (scalar loads),
+    # a misaligned start, a 16-byte-aligned stride (vector loads); bf16 scores
+    c = slice_cols
+    big = select_rows("ties", 64, c + 11, gen, dev)
+    for what, x in ((f"x[:, :{c}] of {c + 11} columns", big[:, :c]),
+                    (f"x[:, 3:{c + 3}]", big[:, 3:c + 3]),
+                    (f"x[:, :{c // 3}] of {c + 11} columns", big[:, :c // 3]),
+                    ("x[:, :4000]", big[:, :4_000])):
+        compare(what, x, 64)
+    aligned = select_rows("ties", 64, c + 4, gen, dev)
+    compare(f"x[:, :{c}] of {c + 4} columns", aligned[:, :c], 64)
+    compare(f"bf16 (64, {c})", big[:, :c].to(torch.bfloat16), 64)
+    compare("f16 (1024, 4096)", select_rows("ties", 1024, 4_096, gen, dev).half(), 64)
+    del big, aligned
+
+    # top_k itself on the card: the kernel, no sync, no repair
+    x = select_rows("ties", 64, c, gen, dev)
+    before = (select.top_k.syncs, select.top_k.repair_rows, select.top_k.kernel_rows,
+              select.top_k.rows, select.select_topk_cuda.launches)
+    got = select.top_k(x, 64)
+    after = (select.top_k.syncs, select.top_k.repair_rows, select.top_k.kernel_rows,
+             select.top_k.rows, select.select_topk_cuda.launches)
+    check(tuple(b - a for a, b in zip(before, after)) == (0, 0, 64, 64, 1),
+          f"top_k on the card launches the kernel once, no sync or repair ({before} -> {after})")
+    check(bits_equal(got, select._plain_top_k(x, 64)), "top_k on the card == the plain path")
+    del x, got
+
+    calls = {}
+    for R, n, k in shapes:
+        torch.cuda.empty_cache()
+        x = select_rows("normal", R, n, gen, dev)
+        compare(f"normal ({R}, {n}) k {k}", x, k)
+        compare(f"ties ({R}, {n}) k {k}", torch.round(x * 8) / 8, k)
+        launches = select.select_topk_cuda.launches
+        reps = 20 if n > 8192 else 50
+        ms = cuda_ms(lambda: select.select_topk_cuda(x, k), reps)
+        per_call = (select.select_topk_cuda.launches - launches) / (reps + 1)
+        plain_ms = cuda_ms(lambda: select._plain_top_k(x, k), 5)
+        topk_ms = cuda_ms(lambda: torch.topk(x, k, dim=1), 5)   # yardstick: no tie order
+        slices, slice_len = select.select_plan(R, n, k)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                select.select_topk_cuda(x, k)
+            torch.cuda.synchronize()
+        stages = {}
+        for e in prof.key_averages():
+            if e.device_time_total > 0:
+                name = next((w for w in ("slice_topk", "short_topk") if w in e.key), e.key[:32])
+                stages[name] = round(stages.get(name, 0.0) + e.device_time_total / 5e3, 4)
+        # the scores read once, k (f32, int64) pairs a row written once
+        b = bound(4.0 * R * n + 12.0 * R * k, 0.0, PEAK_INT)
+        calls[f"{R}x{n}"] = dict(k=k, ms=ms, plain_ms=plain_ms, library_ms=topk_ms,
+                                 launches_a_call=per_call,
+                                 slices=slices, slice_len=slice_len, stages_ms=stages, **b)
+        log(f"[phase18] ({R}, {n}) k {k}: kernel {ms:.4f} ms against a {b['bound_ms']:.4f} ms "
+            f"byte bound ({100 * b['bound_ms'] / ms:.1f}%), the plain path {plain_ms:.4f} ms, "
+            f"torch.topk alone {topk_ms:.4f} ms; "
+            f"plan {slices} x {slice_len}; {per_call:g} launch a call; device ms a call by "
+            f"kernel {stages}")
+        del x
+    check(not misses, f"select_topk_cuda == key order and plain path: {len(misses)} misses: "
+          f"{misses[:20]}")
+    torch.cuda.empty_cache()
+    return {"cases": cases, "neg_nan_equal_plain": [sum(plain_nan), len(plain_nan)],
+            "calls": calls}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; nothing was run", file=sys.stderr)
@@ -5594,12 +5775,13 @@ def main() -> int:
         return r
 
     card = phase("phase0", phase0_identity)
-    from yams_tpu_torch.ops import cdc, flash_topk, pq_pallas, scan, sha256
+    from yams_tpu_torch.ops import cdc, flash_topk, pq_pallas, scan, select, sha256
 
     counters = {"gear_hash_cuda": cdc.gear_hash_cuda, "sha256_cuda": sha256.sha256_cuda,
                 "exact_topk_cuda": scan.exact_topk_cuda, "pq4_adc_cuda": pq_pallas.pq4_adc_cuda,
                 "grouped_max_cuda": scan.grouped_max_cuda,
-                "windowed_scan_cuda": flash_topk.windowed_scan_cuda}
+                "windowed_scan_cuda": flash_topk.windowed_scan_cuda,
+                "select_topk_cuda": select.select_topk_cuda}
 
     def zero():
         for fn in counters.values():
@@ -5656,8 +5838,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     engine8 = phase("phase8 engine", phase8_engine, dev)
     stream_launches = read()
-    log(f"[streaming and int8 path] kernel launches {stream_launches} (its products, "
-        "top-C and aggregations are torch operations: no hand kernel yet)")
+    log(f"[streaming and int8 path] kernel launches {stream_launches} (its products and "
+        "aggregations are torch operations; its top-C select_topk_cuda)")
 
     zero()
     kg = phase("phase9", phase9_kg, dev, card, eng, cpu, docs, queries,
@@ -5679,14 +5861,14 @@ def main() -> int:
     topology = phase("phase11", phase11_topology, dev, card, eng, cpu, queries, keep)
     topo_launches = read()
     log(f"[topology and repair path] kernel launches {topo_launches} (its builds, routing "
-        "and gather scan are torch operations: no hand kernel yet)")
+        "and gather scan are torch operations but for their top-k)")
     log("[phase11] device operations " + json.dumps(phase11_ops(topology)))
 
     zero()
     neural = phase("phase12", phase12_neural, dev, card, docs, queries)
     neural_launches = read()
     log(f"[neural embedding path] kernel launches {neural_launches} (the encoders, MaxSim, "
-        "the gather and matryoshka are torch operations: no hand kernel yet)")
+        "the gather and matryoshka are torch operations but for their top-k)")
     for name in ("gear_hash_cuda", "sha256_cuda"):
         check(neural_launches[name] >= 1, f"{name} launched on the hf daemon's add")
     log("[phase12] device operations " + json.dumps(phase12_ops(neural)))
@@ -5712,7 +5894,8 @@ def main() -> int:
     scale_out = phase("phase15", phase15_scale_out, dev, card, eng, queries)
     so_launches = read()
     log(f"[scale-out path] kernel launches {so_launches} (the shards' scans, the merge and "
-        "the fusion are torch operations, as the reference's shards run XLA)")
+        "the fusion are torch operations but for their top-k, as the reference's shards "
+        "run XLA)")
 
     zero()
     abi_scripts = phase("phase16", phase16_abi_scripts, dev, card)
@@ -5730,10 +5913,20 @@ def main() -> int:
     # the comparisons' launches come after the path's count was read
     design["checks"] = phase("phase17 checks", phase17_checks, dev)
 
+    zero()
+    selection = phase("phase18", phase18_select, dev)
+    select_launches = read()
+    log(f"[select kernel path] kernel launches {select_launches}")
+    check(select_launches["select_topk_cuda"] >= 1, "select_topk_cuda launched on phase 18's path")
+    big = dict(selection["calls"]["1024x1000448"])
+    kernels["select_topk_cuda"] = dict(max_abs_err=0, shape="(1,024, 1,000,448) f32, k 64",
+                                       calls=selection["calls"], topk_ms=big.pop("library_ms"),
+                                       **big)
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("yams_tpu", "jax", "jaxlib", "flax"))
     check(not loaded, f"no module of yams_tpu, jax, jaxlib or flax loaded (found {loaded})")
-    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'neural': neural, 'services13': services13, 'training': training, 'scale_out': scale_out, 'abi_scripts': abi_scripts, 'design': design, 'torch': torch.__version__})}")
+    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'neural': neural, 'services13': services13, 'training': training, 'scale_out': scale_out, 'abi_scripts': abi_scripts, 'design': design, 'selection': selection, 'torch': torch.__version__})}")
 
     sources = {
         "gear_hash_cuda": ("yams_tpu_torch/csrc/gear_hash.cu", "yams_tpu/ops/cdc.py:65",
@@ -5748,6 +5941,8 @@ def main() -> int:
                              exp_launches),
         "windowed_scan_cuda": ("yams_tpu_torch/csrc/fused_scan.cu",
                                "yams_tpu/ops/flash_topk.py:53", exp_launches),
+        "select_topk_cuda": ("yams_tpu_torch/csrc/select_topk.cu",
+                             "none (lax.top_k on the hot path)", select_launches),
     }
     records = []
     for name, (src, replaces, launches) in sources.items():
@@ -5762,7 +5957,8 @@ def main() -> int:
                             "dot_f32_ms", "tflops", "dot_f32_tflops", "large_k", "rising_ms",
                             "launch_ms", "chain_ms", "cycles_per_round", "sm_clock_mhz",
                             "ms_4096_chunks_to_256KiB", "launch_ms_4096_chunks_to_256KiB",
-                            "ms_128MiB_chunks", "launch_ms_128MiB_chunks") if key in k}})
+                            "ms_128MiB_chunks", "launch_ms_128MiB_chunks", "calls",
+                            "topk_ms") if key in k}})
         if name in ("exact_topk_cuda", "pq4_adc_cuda"):
             records[-1]["launches_phase9"] = kg_launches[name]
         if name in ("gear_hash_cuda", "sha256_cuda"):

@@ -36,6 +36,7 @@ _SIGNATURES = {
     "yt_pq4_adc": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "yt_grouped_max": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "yt_windowed_scan": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "yt_select_topk": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P),
 }
 
 _lock = threading.Lock()
