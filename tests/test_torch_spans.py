@@ -5,7 +5,10 @@ inside the query program, on the CPU at a tiny size.
   with the recorder on and off, on the materialized and the streamed path.
 - One call gives one tree: one request id, `hybrid_query` the root, one
   `block` a block with its `top_k`, then `merge`, `lexical_leg` and `fuse`;
-  an exception inside the call leaves no span open.
+  on the chunked path a `chunk_agg` span (rows, docs, agg) between the
+  scores and the mask; an exception inside the call leaves no span open.
+- `fusion.chunk_score_bytes`: a chunked call adds the (B, rows) f32 passes
+  between the product and the selection (4 with "max"); a flat call none.
 - `select.top_k`'s counters: `syncs` rises by blocks + 3 on a streamed call
   and by 3 on a materialized one, and the int8 query's quantization
   (`scan.quantize_rows`) adds one; `repair_rows` counts a tie straddling the
@@ -35,7 +38,10 @@ from yams_tpu_torch.search.engine import SearchEngine
 
 ROWS, D, S, V, WIN, PER, B, T, C = 2048, 32, 64, 128, 32, 16, 4, 6, 8
 BLOCK = 512
-PATHS = {"materialized": {}, "streamed": {"scan_block_rows": BLOCK}}
+CHUNKS = 4                                   # rows a document on the chunked path
+PATHS = {"materialized": {}, "streamed": {"scan_block_rows": BLOCK},
+         "chunked": {"rows_are_docs": False}}
+FLAT = ["materialized", "streamed"]
 
 
 @pytest.fixture(autouse=True)
@@ -79,9 +85,13 @@ def _args(int8: bool, seed: int = 0):
     return args, kw
 
 
-def _query(path, int8=False):
+def _query(path, int8=False, **extra):
+    """One call on a path; on the chunked one CHUNKS rows a document."""
     args, kw = _args(int8)
-    return fusion.hybrid_query(*args, **kw, **PATHS[path])
+    if path == "chunked":
+        args = list(args)
+        args[6] = torch.arange(ROWS, dtype=torch.int32) // CHUNKS
+    return fusion.hybrid_query(*args, **{**kw, **PATHS[path], **extra})
 
 
 def _counters():
@@ -133,7 +143,12 @@ def test_one_call_gives_one_tree(path):
     assert [names[j] for j in children[0]] == ["embed", "vector_leg", "lexical_leg", "fuse"]
     vector_leg = names.index("vector_leg")
     blocks = [j for j in children[vector_leg] if names[j] == "block"]
-    if path == "streamed":
+    if path == "chunked":
+        assert [names[j] for j in children[vector_leg]] == ["scores", "chunk_agg", "mask_bias",
+                                                             "top_k"]
+        agg = records[names.index("chunk_agg")][5]
+        assert agg == {"rows": ROWS, "docs": ROWS, "agg": "max"}
+    elif path == "streamed":
         assert len(blocks) == ROWS // BLOCK
         assert [records[j][5]["lo"] for j in blocks] == list(range(0, ROWS, BLOCK))
         for j in blocks:
@@ -206,6 +221,23 @@ def test_the_int8_query_quantization_syncs_once_more(path):
     s1, _, _ = _counters()
     blocks = ROWS // BLOCK if path == "streamed" else 0
     assert s1 - s0 == blocks + 4 and quantize_rows.syncs == q0 + 1
+
+
+@pytest.mark.parametrize("agg, passes", [("max", 4), ("sum", 6), ("topk_avg", 10),
+                                         ("weighted_topk_avg", 10)])
+def test_a_chunked_call_counts_its_chunk_score_passes(agg, passes):
+    """The product's write, the validity bias's read and write, and the
+    aggregation's passes over the (B, rows) f32 chunk scores."""
+    n0 = fusion.chunk_score_bytes
+    _query("chunked", chunk_agg=agg)
+    assert fusion.chunk_score_bytes - n0 == passes * B * ROWS * 4
+
+
+@pytest.mark.parametrize("path", FLAT)
+def test_a_flat_call_counts_no_chunk_scores(path):
+    n0 = fusion.chunk_score_bytes
+    _query(path)
+    assert fusion.chunk_score_bytes == n0
 
 
 def test_repair_rows_count_a_tie_straddling_the_cut():

@@ -20,8 +20,9 @@ Port of yams_tpu/search/fusion.py. Stages:
 
 Spans (`yams_tpu_torch.spans`, recorded only while its recorder is on):
 `hybrid_query` around the call, `embed`, `vector_leg` (with `scores` and
-`mask_bias`, and on the streaming path a `block` a block and the `merge`)
-and `fuse`; the lexical leg's and `top_k`'s are in their own modules.
+`mask_bias`, on the chunked path `chunk_agg`, and on the streaming path a
+`block` a block and the `merge`) and `fuse`; the lexical leg's and
+`top_k`'s are in their own modules.
 
 Differences from the reference, all deliberate:
 - the query's L2 norm sums its squares in f64 (`_row_norm`), so it is the
@@ -59,6 +60,12 @@ NEG = -1e30
 # the calls `hybrid_query` took (a plain int, never reset): the base of the
 # per-request counters, such as `select.top_k`'s
 hybrid_query_calls = 0
+
+# bytes of (B, rows) f32 chunk scores the chunked path wrote or read between
+# the product and the selection (a plain int, never reset): the product's
+# write, the validity bias's read and write, and `_CHUNK_PASSES` of the
+# aggregation. The flat paths add nothing.
+chunk_score_bytes = 0
 
 # packed weight vector layout (yams_tpu/search/fusion.py)
 (W_TEXT, W_VEC, W_HOT, W_RRF_SCALE, W_BM25_DIV, W_VEC_ONLY_PEN, W_K1,
@@ -119,8 +126,9 @@ def hybrid_query(
     top-C is exact, so a recall@10 of approx against exact is 1 by
     construction. On the streaming path the doc mask is indexed by row, so
     it must have `rows` columns (the engine pads it). Each call adds one to
-    the module's `hybrid_query_calls`."""
-    global hybrid_query_calls
+    the module's `hybrid_query_calls`, and a call on the chunked path its
+    chunk-score traffic to `chunk_score_bytes`."""
+    global hybrid_query_calls, chunk_score_bytes
     del approx
     if weights.shape[-1] != NUM_WEIGHTS:
         raise ValueError(
@@ -159,7 +167,10 @@ def hybrid_query(
                 if rows_are_docs:
                     sdoc = srow[:, :num_slots]
                 else:
-                    sdoc = _aggregate_chunks(srow, row2slot, num_slots, chunk_agg)
+                    with span("chunk_agg", rows=E.shape[0], docs=num_slots, agg=chunk_agg):
+                        sdoc = _aggregate_chunks(srow, row2slot, num_slots, chunk_agg)
+                    chunk_score_bytes += (srow.numel() * srow.element_size()
+                                          * (3 + _CHUNK_PASSES[chunk_agg]))
                 del srow
                 # filter pushdown before selection so filtered queries still fill C
                 with span("mask_bias"):
@@ -223,6 +234,13 @@ def _streaming_top_c(scores, rows: int, B: int, doc_mask, mask_idx, C: int,
 
 
 _AGG_ROWS = 1 << 16   # score columns a chunk of the knock-out pass takes
+
+# passes over (B, rows) f32 each aggregation makes, a read or a write each:
+# a segment reduction reads the scores once; "sum"'s clamp reads and writes
+# them; the knock-out of the top-k averages writes and reads the doc max
+# gathered at each chunk, reads the scores to compare and reads and writes
+# them to fill
+_CHUNK_PASSES = {"max": 1, "sum": 3, "topk_avg": 7, "weighted_topk_avg": 7}
 
 
 def _aggregate_chunks(srow: torch.Tensor, row2slot: torch.Tensor, num_slots: int,
