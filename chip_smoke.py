@@ -308,7 +308,15 @@ seconds):
      benchmark's six calls ((1,024, 1,000,448), (1,024, 262,144), (64,
      262,144), (1,024, 4,096), (1,024, 2,624), (1,024, 128), k 64), each
      checked, timed beside its byte bound and the plain path's time, with
-     each stage's device time.
+     each stage's device time;
+ 19. the chunked path's segment max (segment_max_cuda, csrc/segment_max.cu)
+     at the chunked benchmark cell's shape and layout ((1,024, 8,388,608)
+     f32 scores, 7,095,047 live rows in 685,035 contiguous documents, into
+     (1,024, 1,048,577)), then with the rows permuted at 1,048,576 rows;
+     each bit for bit against scatter_reduce_ amax on the floats and
+     segment_max_plain, timed beside its byte bound, scatter_reduce_ and
+     the plain version (the adversarial layouts are the card tests of
+     tests/test_torch_segment.py).
 
 The kernel launch counters are zeroed just before each path and read just
 after. Every top-k on the card goes through select_topk_cuda (select.top_k),
@@ -336,7 +344,9 @@ its counts are printed; phase 16's path must launch gear_hash_cuda,
 sha256_cuda (the C host's store, bench_ingest_device) and pq4_adc_cuda
 (bench_pq's pallas route); phase 17's must launch grouped_max_cuda
 (exp_recall_target's sweep; its check against the twin comes after the
-count is read). At
+count is read); phase 19's must launch segment_max_cuda, which the
+engine's chunked tiers (chunk_agg max and the top-k averages) launch in
+every phase that searches them. At
 the end no module of
 yams_tpu, jax, jaxlib or flax
 may be loaded. The second-last line is the kernels' JSON record (each with
@@ -5756,6 +5766,93 @@ def phase18_select(dev, lengths=SELECT_LENGTHS, shapes=SELECT_SHAPES, slice_cols
             "calls": calls}
 
 
+
+# -- phase 19 -----------------------------------------------------------------
+# the chunked benchmark cell's segment max: (B, capacity rows) scores, the live
+# rows' documents contiguous, the padding at -1, into (B, num_slots + 1)
+SEGMENT_CELL = dict(B=1024, rows=8_388_608, live=7_095_047, docs=685_035, m=1_048_577)
+
+
+def segment_cell_layout(gen, dev, rows: int, live: int, docs: int) -> torch.Tensor:
+    """(rows,) int32 row2slot laid out as the chunked cell's store
+    (`portbench/systems/chunked.py`): every document one row and the other
+    live - docs rows by a multinomial draw with log-normal (sigma 1)
+    weights, a document's rows contiguous in slot order, padding at -1."""
+    w = torch.exp(torch.randn(docs, generator=gen, device=dev, dtype=torch.float64))
+    cdf = torch.cumsum(w, 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand(live - docs, generator=gen, device=dev, dtype=torch.float64)
+    counts = 1 + torch.bincount(torch.searchsorted(cdf, u).clamp_max_(docs - 1), minlength=docs)
+    r2s = torch.full((rows,), -1, dtype=torch.int32, device=dev)
+    r2s[:live] = torch.repeat_interleave(torch.arange(docs, dtype=torch.int32, device=dev), counts)
+    return r2s
+
+
+def phase19_segment_max(dev, cell=SEGMENT_CELL, permuted_rows: int = 1 << 20) -> dict:
+    """segment_max_cuda (csrc/segment_max.cu) at the chunked cell's shape and
+    layout against its byte bound, beside `scatter_reduce_` amax on the
+    floats (what `_aggregate_chunks` ran on a card before it) and the plain
+    version; then the same layout's rows permuted at a reduced size, kernel
+    against `scatter_reduce_`. Each result bit for bit against both."""
+    from yams_tpu_torch.ops import segment
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+    out = {}
+    for name, B, rows, live, docs, m, permute in (
+            ("cell", cell["B"], cell["rows"], cell["live"], cell["docs"], cell["m"], False),
+            ("permuted", cell["B"], permuted_rows, permuted_rows * cell["live"] // cell["rows"],
+             permuted_rows * cell["docs"] // cell["rows"], permuted_rows // 8 + 1, True)):
+        torch.cuda.empty_cache()
+        r2s = segment_cell_layout(gen, dev, rows, live, docs)
+        if permute:
+            r2s = r2s[torch.randperm(rows, generator=gen, device=dev)].contiguous()
+        x = torch.randn((B, rows), generator=gen, device=dev)
+        fill = torch.full((B, m), -torch.inf, device=dev)
+        seg = torch.where(r2s >= 0, r2s.long(), m - 1)    # the sink: the last column
+
+        def scatter():
+            return fill.clone().scatter_reduce_(1, seg[None].expand(B, -1), x, reduce="amax",
+                                                include_self=True)
+
+        launches = segment.segment_max_cuda.launches
+        got = segment.segment_max_cuda(x, r2s, fill.clone())
+        torch.cuda.synchronize()
+        check(segment.segment_max_cuda.launches == launches + 1, "segment_max_cuda counts a launch")
+        flt = scatter()
+        flt[:, m - 1] = -torch.inf          # the kernel skips the padding rows
+        same = torch.equal(got.view(torch.int32), flt.view(torch.int32))
+        twin = torch.equal(got.view(torch.int32),
+                           segment.segment_max_plain(x, r2s, fill.clone()).view(torch.int32))
+        check(same and twin, f"segment_max_cuda ({name}) == scatter_reduce_ amax ({same}) and "
+              f"segment_max_plain ({twin}), bit for bit")
+        del flt
+        acc = fill.clone()
+        ms = cuda_ms(lambda: segment.segment_max_cuda(x, r2s, acc), 10)   # max is idempotent
+        scatter_ms = cuda_ms(scatter, 1 if name == "cell" else 3)
+        plain_ms = cuda_ms(lambda: segment.segment_max_plain(x, r2s, fill.clone()), 1)
+        fill_ms = cuda_ms(lambda: fill.fill_(-torch.inf), 5)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            segment.segment_max_cuda(x, r2s, acc)
+            torch.cuda.synchronize()
+        names = sorted({e.key[:48] for e in prof.key_averages() if e.device_time_total > 0})
+        n_live = int((r2s >= 0).sum())
+        touched = int(torch.unique(r2s[r2s >= 0]).numel())
+        # live scores read once, row2slot once, each touched slot read and written once
+        b = bound(4.0 * B * n_live + 4.0 * rows + 8.0 * B * touched, 0.0, PEAK_INT)
+        out[name] = dict(B=B, rows=rows, live_rows=n_live, docs=touched, m=m, ms=ms,
+                         scatter_reduce_ms=scatter_ms, plain_ms=plain_ms, fill_ms=fill_ms,
+                         device_kernels=names, **b)
+        log(f"[phase19] {name} ({B}, {rows}) -> ({B}, {m}), {n_live} live rows in {touched} "
+            f"slots: kernel {ms:.4f} ms against a {b['bound_ms']:.4f} ms byte bound "
+            f"({100 * b['bound_ms'] / ms:.1f}%), scatter_reduce_ amax {scatter_ms:.4f} ms, "
+            f"the plain version {plain_ms:.4f} ms, the -inf fill {fill_ms:.4f} ms; device "
+            f"kernels {names}")
+        del x, fill, acc, got, seg, r2s
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; nothing was run", file=sys.stderr)
@@ -5775,13 +5872,14 @@ def main() -> int:
         return r
 
     card = phase("phase0", phase0_identity)
-    from yams_tpu_torch.ops import cdc, flash_topk, pq_pallas, scan, select, sha256
+    from yams_tpu_torch.ops import cdc, flash_topk, pq_pallas, scan, segment, select, sha256
 
     counters = {"gear_hash_cuda": cdc.gear_hash_cuda, "sha256_cuda": sha256.sha256_cuda,
                 "exact_topk_cuda": scan.exact_topk_cuda, "pq4_adc_cuda": pq_pallas.pq4_adc_cuda,
                 "grouped_max_cuda": scan.grouped_max_cuda,
                 "windowed_scan_cuda": flash_topk.windowed_scan_cuda,
-                "select_topk_cuda": select.select_topk_cuda}
+                "select_topk_cuda": select.select_topk_cuda,
+                "segment_max_cuda": segment.segment_max_cuda}
 
     def zero():
         for fn in counters.values():
@@ -5923,10 +6021,22 @@ def main() -> int:
                                        calls=selection["calls"], topk_ms=big.pop("library_ms"),
                                        **big)
 
+    zero()
+    segments = phase("phase19", phase19_segment_max, dev)
+    segment_launches = read()
+    log(f"[segment max path] kernel launches {segment_launches}")
+    check(segment_launches["segment_max_cuda"] >= 2, "segment_max_cuda launched on phase 19's path")
+    cell = segments["cell"]
+    kernels["segment_max_cuda"] = dict(
+        max_abs_err=0, plain_ms=cell["plain_ms"], library_ms=cell["scatter_reduce_ms"],
+        shape=f"({cell['B']}, {cell['rows']}) f32 -> ({cell['B']}, {cell['m']}), the chunked "
+              "cell's layout", permuted=segments["permuted"],
+        **{k: cell[k] for k in ("ms", "bound_ms", "bound_by", "bound_bytes", "bound_ops")})
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("yams_tpu", "jax", "jaxlib", "flax"))
     check(not loaded, f"no module of yams_tpu, jax, jaxlib or flax loaded (found {loaded})")
-    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'neural': neural, 'services13': services13, 'training': training, 'scale_out': scale_out, 'abi_scripts': abi_scripts, 'design': design, 'selection': selection, 'torch': torch.__version__})}")
+    log(f"[summary] {json.dumps({'card': card, 'seconds': seconds, 'add': add, 'add_breakdown_ms': breakdown, 'search': search, 'bench': bench, 'vector_store': store, 'engine_pq': engine_pq, 'experiments': experiments, 'streaming': streaming, 'engine_streaming': engine8, 'kg': kg, 'service': service, 'topology': topology, 'neural': neural, 'services13': services13, 'training': training, 'scale_out': scale_out, 'abi_scripts': abi_scripts, 'design': design, 'selection': selection, 'segments': segments, 'torch': torch.__version__})}")
 
     sources = {
         "gear_hash_cuda": ("yams_tpu_torch/csrc/gear_hash.cu", "yams_tpu/ops/cdc.py:65",
@@ -5943,22 +6053,26 @@ def main() -> int:
                                "yams_tpu/ops/flash_topk.py:53", exp_launches),
         "select_topk_cuda": ("yams_tpu_torch/csrc/select_topk.cu",
                              "none (lax.top_k on the hot path)", select_launches),
+        "segment_max_cuda": ("yams_tpu_torch/csrc/segment_max.cu",
+                             "none (jax.ops.segment_max in the chunk aggregation)",
+                             segment_launches),
     }
     records = []
     for name, (src, replaces, launches) in sources.items():
         k = kernels[name]
-        # no single PyTorch call computes any of these functions
+        # one PyTorch call computes only the segment max: scatter_reduce_ amax
         records.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": k["max_abs_err"],
                         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                        "bound_by": k["bound_by"], "library_ms": None, "shape": k["shape"],
+                        "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
+                        "shape": k["shape"],
                         "bound_bytes": k["bound_bytes"], "bound_ops": k["bound_ops"],
                         **{key: k[key] for key in (
                             "dot_f32_ms", "tflops", "dot_f32_tflops", "large_k", "rising_ms",
                             "launch_ms", "chain_ms", "cycles_per_round", "sm_clock_mhz",
                             "ms_4096_chunks_to_256KiB", "launch_ms_4096_chunks_to_256KiB",
                             "ms_128MiB_chunks", "launch_ms_128MiB_chunks", "calls",
-                            "topk_ms") if key in k}})
+                            "topk_ms", "permuted") if key in k}})
         if name in ("exact_topk_cuda", "pq4_adc_cuda"):
             records[-1]["launches_phase9"] = kg_launches[name]
         if name in ("gear_hash_cuda", "sha256_cuda"):

@@ -41,8 +41,10 @@ def test_signatures_match_the_c_entry_points():
 
 def test_every_source_with_an_entry_point_is_read():
     c = _c_entry_points()
-    assert len(c) == 7 and "yt_sha256_rows" in c and "yt_select_topk" in c
+    assert len(c) == 8 and "yt_sha256_rows" in c and "yt_select_topk" in c
     assert c["yt_sha256_rows"] == (ctypes.c_void_p, ctypes.c_int64, *(ctypes.c_void_p,) * 4,
                                    ctypes.c_int64, ctypes.c_void_p)
     assert c["yt_select_topk"] == (*(ctypes.c_void_p,) * 4, *(ctypes.c_int64,) * 6,
+                                   ctypes.c_void_p)
+    assert c["yt_segment_max"] == (*(ctypes.c_void_p,) * 3, *(ctypes.c_int64,) * 3,
                                    ctypes.c_void_p)

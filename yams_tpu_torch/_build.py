@@ -37,6 +37,7 @@ _SIGNATURES = {
     "yt_grouped_max": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "yt_windowed_scan": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     "yt_select_topk": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P),
+    "yt_segment_max": (_P, _P, _P, _I64, _I64, _I64, _P),
 }
 
 _lock = threading.Lock()

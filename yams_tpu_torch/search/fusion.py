@@ -7,8 +7,9 @@ Port of yams_tpu/search/fusion.py. Stages:
      - materialized: the (B, rows) scores, bf16 (`dot_f32`) or int8
        (`int8_corpus`: the query quantized on the device, int8 x int8 with
        int32 sums), then chunk -> doc aggregation (`rows_are_docs`, or
-       `chunk_agg` max | sum | topk_avg | weighted_topk_avg), filter
-       pushdown, top-C;
+       `chunk_agg` max | sum | topk_avg | weighted_topk_avg; on a card each
+       segment max is the hand-written `ops.segment.segment_max_cuda`),
+       filter pushdown, top-C;
      - streaming (`scan_block_rows` with `rows_are_docs`): per block of
        rows the scores, the validity and doc-mask biases and a top-C, ids
        offset by the block's first row; the candidates merge with a carry
@@ -50,6 +51,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import segment as segment_ops
 from ..ops.bm25 import bm25_topk_candidates, bm25_topk_candidates_packed
 from ..ops.scan import dot_f32, int8_product, quantize_rows
 from ..ops.select import prefix_sum, top_k
@@ -254,13 +256,21 @@ def _aggregate_chunks(srow: torch.Tensor, row2slot: torch.Tensor, num_slots: int
     - topk_avg / weighted_topk_avg: the max m1 and a second segment max m2
       with every chunk that reaches its doc's max knocked out (two chunks
       tied at the max both go); a doc with no other chunk takes m2 = m1;
-      then (m1 + m2) / 2, or (m1 + m2 / 2) / 1.5."""
+      then (m1 + m2) / 2, or (m1 + m2 / 2) / 1.5.
+
+    On a card every segment max is `ops.segment.segment_max_cuda`, which
+    skips the tombstones and leaves the sink column at -inf: the sink is
+    sliced off, and the knock-out reads it only at the tombstones, which no
+    later max reads. Elsewhere, and for "sum", `scatter_reduce_`."""
     sink = num_slots
-    seg = torch.where(row2slot < 0, sink, row2slot).long()
+    seg = None if srow.is_cuda and chunk_agg == "max" else (
+        torch.where(row2slot < 0, sink, row2slot).long())
     B = srow.shape[0]
 
     def segment(reduce: str, init: float) -> torch.Tensor:
         out = torch.full((B, num_slots + 1), init, dtype=srow.dtype, device=srow.device)
+        if reduce == "amax" and srow.is_cuda:   # the sink column stays -inf
+            return segment_ops.segment_max_cuda(srow, row2slot, out)
         return out.scatter_reduce_(1, seg[None, :].expand_as(srow), srow,
                                    reduce=reduce, include_self=True)
 
